@@ -1,0 +1,157 @@
+"""Llama-3-style decoder: config, parameters and the shared block ops.
+
+Port of ``k8s_operator_libs_tpu/models/llama.py``. Parameters are a plain
+dict of tensors with the reference layout: per-layer weights STACKED on
+axis 0 (``[n_layers, ...]``), matrices stored ``[in, out]`` and applied as
+``x @ W``, norm weights in fp32, everything else in ``cfg.dtype``. That is
+the layout ``convert.py`` carries JAX parameters into, so the port runs on
+the very weights the reference was tested with.
+
+The training forward (flash attention and its backward) belongs to a
+later slice; this module holds what the serving path needs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict
+
+import torch
+
+from ..utils.device import DeviceLike, resolve_device
+
+Params = Dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 128256
+    d_model: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 8
+    d_ff: int = 14336
+    rope_theta: float = 500000.0
+    max_seq_len: int = 8192
+    dtype: torch.dtype = torch.bfloat16
+    remat: bool = True
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+    @classmethod
+    def llama3_8b(cls, **overrides) -> "LlamaConfig":
+        """The Llama-3-8B shape."""
+        return dataclasses.replace(cls(), **overrides)
+
+    @classmethod
+    def tiny(cls, **overrides) -> "LlamaConfig":
+        """Test shape: same topology, toy widths."""
+        base = cls(vocab_size=512, d_model=128, n_layers=2, n_heads=4,
+                   n_kv_heads=2, d_ff=256, max_seq_len=256, remat=False)
+        return dataclasses.replace(base, **overrides)
+
+    @classmethod
+    def small(cls, **overrides) -> "LlamaConfig":
+        """~125M shape."""
+        base = cls(vocab_size=32000, d_model=768, n_layers=12, n_heads=12,
+                   n_kv_heads=4, d_ff=2048, max_seq_len=2048, remat=False)
+        return dataclasses.replace(base, **overrides)
+
+    @classmethod
+    def bench_mfu(cls, **overrides) -> "LlamaConfig":
+        """~760M shape."""
+        base = cls(vocab_size=32000, d_model=2048, n_layers=10, n_heads=16,
+                   n_kv_heads=8, d_ff=8192, max_seq_len=1024, remat=False)
+        return dataclasses.replace(base, **overrides)
+
+
+# ---------------------------------------------------------------- init
+
+def _init_dense(gen: torch.Generator, shape, fan_in: int, dtype,
+                device) -> torch.Tensor:
+    """fp32 ``normal * 1/sqrt(fan_in)``, then the cast — the reference's
+    scheme. Values come from ``gen`` and so differ from ``jax.random``."""
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (w * (1.0 / math.sqrt(fan_in))).to(dtype)
+
+
+def init_params(cfg: LlamaConfig, seed: int = 0,
+                device: DeviceLike = "cuda") -> Params:
+    """Seeded random parameters in the reference layout. Stacked weights
+    are drawn one layer at a time into a preallocated ``cfg.dtype``
+    tensor, so the fp32 temporary never exceeds one layer."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    L, D, H, KV, Dh, F = (cfg.n_layers, cfg.d_model, cfg.n_heads,
+                          cfg.n_kv_heads, cfg.head_dim, cfg.d_ff)
+    dt = cfg.dtype
+
+    def stack(shape, fan_in):
+        out = torch.empty((L, *shape), dtype=dt, device=dev)
+        for i in range(L):
+            out[i] = _init_dense(gen, shape, fan_in, dt, dev)
+        return out
+
+    return {
+        "embed": _init_dense(gen, (cfg.vocab_size, D), D, dt, dev),
+        "blocks": {
+            "attn_norm": torch.ones((L, D), dtype=torch.float32, device=dev),
+            "wq": stack((D, H * Dh), D),
+            "wk": stack((D, KV * Dh), D),
+            "wv": stack((D, KV * Dh), D),
+            "wo": stack((H * Dh, D), H * Dh),
+            "mlp_norm": torch.ones((L, D), dtype=torch.float32, device=dev),
+            "w_gate": stack((D, F), D),
+            "w_up": stack((D, F), D),
+            "w_down": stack((F, D), F),
+        },
+        "final_norm": torch.ones((D,), dtype=torch.float32, device=dev),
+        "lm_head": _init_dense(gen, (D, cfg.vocab_size), D, dt, dev),
+    }
+
+
+def param_leaves(params: Params):
+    for value in params.values():
+        if isinstance(value, dict):
+            yield from param_leaves(value)
+        else:
+            yield value
+
+
+# ---------------------------------------------------------------- ops
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm in the reference's rounding order: normalize in fp32, cast
+    to ``x.dtype``, then multiply by the weight cast to ``x.dtype``."""
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * weight.to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """Rotary embedding over the last dim, half-split rotation in fp32.
+    x [B, T, H, Dh]; positions [B, T]. Frequencies use the reference's
+    ``exp(-log(theta) * i / half)`` form (``theta ** (-2i/d)`` differs in
+    the last bits)."""
+    half = x.shape[-1] // 2
+    idx = torch.arange(half, dtype=torch.float32, device=x.device)
+    freqs = torch.exp(-math.log(theta) * idx / half)
+    angles = positions[..., None].float() * freqs        # [B, T, half]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().split(half, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(h: torch.Tensor, layer: Params) -> torch.Tensor:
+    """The block's MLP: silu(h W_gate) in fp32, cast back, times h W_up,
+    then W_down (the reference computes the gate's silu in fp32)."""
+    gate = torch.nn.functional.silu((h @ layer["w_gate"]).float()).to(h.dtype)
+    return (gate * (h @ layer["w_up"])) @ layer["w_down"]

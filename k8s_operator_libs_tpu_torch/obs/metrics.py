@@ -1,0 +1,231 @@
+"""Prometheus text exposition for the serving workload.
+
+A copy, cut to what the batcher and the server's ``/metrics`` call, of
+``_Histogram``/``MetricsHub`` from ``k8s_operator_libs_tpu/obs/metrics.py``
+and of the gauge renderer ``render_prometheus_multi`` from
+``k8s_operator_libs_tpu/upgrade/metrics.py``. Metric names, HELP texts and
+the text format are the same, so a scrape of the port reads like a scrape
+of the JAX server.
+"""
+
+from __future__ import annotations
+
+import bisect
+import re
+import threading
+from typing import Dict, List, Optional, Tuple
+
+DEFAULT_BUCKETS: Tuple[float, ...] = (
+    0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
+    120.0, 300.0, 600.0, 1800.0, 3600.0)
+
+# keyed by the FULL exposed name (prefix included), as in the reference
+HELP_TEXTS: Dict[str, str] = {
+    "tpu_workload_serve_ttft_seconds":
+        "Seconds from request submit to its first generated token "
+        "(queue wait + prefill)",
+    "tpu_workload_serve_queue_wait_seconds":
+        "Seconds a request waited in the admission queue for a free "
+        "decode slot",
+    "tpu_workload_serve_inter_token_seconds":
+        "Per-token decode latency of one fused batcher chunk (device "
+        "call time / ticks)",
+    "tpu_workload_serve_step_duration_seconds":
+        "Wall seconds of one ContinuousBatcher.step call (admission "
+        "prefills + fused decode)",
+    "tpu_workload_serve_request_latency_seconds":
+        "Seconds from request submit to retirement (prompt + all "
+        "generated tokens)",
+    "tpu_workload_serve_generated_tokens":
+        "Tokens generated per completed request",
+    "tpu_workload_serve_slot_occupancy_ratio":
+        "Fraction of decode slots running a request, sampled once per "
+        "batcher step",
+    "tpu_workload_serve_kv_page_utilization_ratio":
+        "Fraction of private KV pool blocks allocated to live requests, "
+        "sampled once per batcher step",
+    "tpu_workload_serve_slots_total":
+        "Decode slots this replica serves (the fused-scan batch size)",
+    "tpu_workload_serve_slots_busy":
+        "Decode slots currently running a request",
+    "tpu_workload_serve_queue_depth":
+        "Requests admitted but still waiting for a free slot",
+    "tpu_workload_serve_requests_submitted":
+        "Requests accepted by submit() since process start",
+    "tpu_workload_serve_requests_completed":
+        "Requests retired with a full result since process start",
+    "tpu_workload_serve_requests_handed_off":
+        "Queued requests surfaced to a peer replica by the drain handoff",
+    "tpu_workload_serve_up":
+        "Constant 1 while the serving process is alive",
+    "tpu_workload_serve_failed":
+        "1 once the stepper thread crashed and the server went "
+        "unhealthy, else 0",
+    "tpu_workload_serve_draining":
+        "1 once the drain began (admission closed), else 0",
+    "tpu_workload_weight_stream_gbs":
+        "Effective weight-streaming bandwidth of the last decode call "
+        "(streamed weight bytes / device seconds; embedding excluded — "
+        "the production twin of bench.py's stream probe)",
+    "tpu_workload_build_info":
+        "Constant 1; labels carry the workload binary's version and "
+        "model",
+    "tpu_workload_stream_emitted_tokens":
+        "Tokens handed to streaming consumers via poll_stream since "
+        "process start (each token exactly once, in order)",
+    "tpu_workload_stream_backlog_tokens":
+        "Generated-but-not-yet-streamed tokens across running requests "
+        "at the last poll_stream (stream consumer staleness)",
+}
+
+
+def help_for(metric: str, default: Optional[str] = None) -> str:
+    text = HELP_TEXTS.get(metric)
+    if text is not None:
+        return text
+    return default if default is not None else metric.replace("_", " ")
+
+
+def _fmt_float(v: float) -> str:
+    """Integers without the trailing .0, everything else via repr."""
+    if v == float("inf"):
+        return "+Inf"
+    if v == int(v) and abs(v) < 1e15:
+        return str(int(v))
+    return repr(v)
+
+
+def escape_label_value(value: str) -> str:
+    return (value.replace("\\", "\\\\").replace('"', '\\"')
+            .replace("\n", "\\n"))
+
+
+def _label_str(labels: Dict[str, str], extra: str = "") -> str:
+    parts = [f'{k}="{escape_label_value(str(v))}"'
+             for k, v in sorted(labels.items())]
+    if extra:
+        parts.append(extra)
+    return "{" + ",".join(parts) + "}" if parts else ""
+
+
+_INVALID = re.compile(r"[^a-zA-Z0-9_:]")
+
+
+def render_gauges(per_component: Dict[str, Dict[str, float]],
+                  prefix: str) -> str:
+    """Gauges of several components under one family set, one
+    ``component`` label each (the reference's ``render_prometheus_multi``)."""
+    names = sorted({name for metrics in per_component.values()
+                    for name in metrics})
+    lines = []
+    for name in names:
+        metric = _INVALID.sub("_", f"{prefix}_{name}")
+        fallback = _INVALID.sub("_", name).replace("_", " ")
+        lines.append(f"# HELP {metric} {help_for(metric, default=fallback)}")
+        lines.append(f"# TYPE {metric} gauge")
+        for component in sorted(per_component):
+            metrics = per_component[component]
+            if name in metrics:
+                value = escape_label_value(str(component))
+                lines.append(
+                    f'{metric}{{component="{value}"}} {metrics[name]}')
+    return "\n".join(lines) + "\n" if lines else ""
+
+
+class _Histogram:
+    """One histogram family: fixed buckets, one series per label set."""
+
+    def __init__(self, name: str, buckets: Tuple[float, ...]):
+        self.name = name
+        self.buckets = tuple(sorted(buckets))
+        self.series: Dict[Tuple[Tuple[str, str], ...],
+                          Tuple[List[int], float]] = {}
+
+    def observe(self, value: float, labels: Dict[str, str]) -> None:
+        key = tuple(sorted(labels.items()))
+        counts, total = self.series.get(key) or (
+            [0] * (len(self.buckets) + 1), 0.0)
+        counts[bisect.bisect_left(self.buckets, value)] += 1
+        self.series[key] = (counts, total + value)
+
+    def count(self) -> int:
+        return sum(sum(counts) for counts, _ in self.series.values())
+
+    def render(self, full_name: str) -> List[str]:
+        lines = [f"# HELP {full_name} {help_for(full_name)}",
+                 f"# TYPE {full_name} histogram"]
+        for key in sorted(self.series):
+            counts, total = self.series[key]
+            labels = dict(key)
+            cumulative = 0
+            for bound, c in zip(self.buckets, counts):
+                cumulative += c
+                le = 'le="%s"' % _fmt_float(bound)
+                lines.append(f"{full_name}_bucket"
+                             f"{_label_str(labels, le)} {cumulative}")
+            cumulative += counts[-1]
+            inf_le = 'le="+Inf"'
+            lines.append(f"{full_name}_bucket"
+                         f"{_label_str(labels, inf_le)} {cumulative}")
+            lines.append(f"{full_name}_sum{_label_str(labels)} "
+                         f"{_fmt_float(total)}")
+            lines.append(f"{full_name}_count{_label_str(labels)} "
+                         f"{cumulative}")
+        return lines
+
+
+class MetricsHub:
+    """Process-local registry of histogram and gauge families.
+    Thread-safe: the server's stepper thread writes while handlers
+    render."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._hists: Dict[str, _Histogram] = {}
+        self._gauges: Dict[str, Dict[Tuple[Tuple[str, str], ...],
+                                     float]] = {}
+
+    def observe(self, name: str, value: float,
+                labels: Optional[Dict[str, str]] = None,
+                buckets: Optional[Tuple[float, ...]] = None) -> None:
+        with self._lock:
+            hist = self._hists.get(name)
+            if hist is None:
+                hist = self._hists[name] = _Histogram(
+                    name, buckets or DEFAULT_BUCKETS)
+            hist.observe(float(value), labels or {})
+
+    def set_gauge(self, name: str, value: float,
+                  labels: Optional[Dict[str, str]] = None) -> None:
+        with self._lock:
+            series = self._gauges.setdefault(name, {})
+            series[tuple(sorted((labels or {}).items()))] = float(value)
+
+    def gauge(self, name: str,
+              labels: Optional[Dict[str, str]] = None) -> Optional[float]:
+        with self._lock:
+            return self._gauges.get(name, {}).get(
+                tuple(sorted((labels or {}).items())))
+
+    def get_histogram(self, name: str) -> Optional[_Histogram]:
+        with self._lock:
+            return self._hists.get(name)
+
+    def render(self, prefix: str = "tpu_workload") -> str:
+        """Text exposition of every family, name-sorted, HELP/TYPE once
+        per family."""
+        with self._lock:
+            names = sorted(set(self._hists) | set(self._gauges))
+            lines: List[str] = []
+            for name in names:
+                full = f"{prefix}_{name}" if prefix else name
+                if name in self._hists:
+                    lines.extend(self._hists[name].render(full))
+                    continue
+                series = self._gauges[name]
+                lines.append(f"# HELP {full} {help_for(full)}")
+                lines.append(f"# TYPE {full} gauge")
+                for key in sorted(series):
+                    lines.append(f"{full}{_label_str(dict(key))} "
+                                 f"{_fmt_float(series[key])}")
+        return "\n".join(lines) + "\n" if lines else ""
