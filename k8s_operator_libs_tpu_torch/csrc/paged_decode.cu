@@ -15,10 +15,10 @@
 // anything (NaN included); inside the last live block the rows past
 // lengths[b] are skipped, never multiplied by a zero weight.
 //
-// Bound: bytes. A decode step reads each live K/V row once and does
-// 4 * Dh flops per (query head, key) — far below the ~295 flop/byte the
-// H100 needs before its tensor cores would be the limit — so the least
-// time is live K/V bytes / 3.35 TB/s.
+// Bound: bytes. A decode step reads each visible K/V row (t <= lengths[b])
+// once and does 4 * Dh flops per (query head, key) — far below the ~295
+// flop/byte the H100 needs before its tensor cores would be the limit — so
+// the least time is visible K/V bytes / 3.35 TB/s.
 //
 // Design (simple and right first): one CTA per (sequence, KV head), which
 // reads its own table row and length (Hopper has no scalar prefetch).

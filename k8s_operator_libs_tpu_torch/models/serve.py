@@ -69,21 +69,17 @@ class ContinuousBatcher:
     table row references read-only; the sub-block remainder rides each
     request's own prefill. ``metrics`` (a MetricsHub, duck-typed),
     ``tracer`` (``span(name, **attrs)`` context manager) and ``clock``
-    are the reference's hooks, with the same metric names.
-    ``decode_attn`` overrides the single-token attention of the paged
-    forward (the plain version, to hold the kernel against)."""
+    are the reference's hooks, with the same metric names."""
 
     payload_version = KV_WIRE_VERSION
 
     def __init__(self, params: Params, cfg: LlamaConfig, max_slots: int = 8,
                  capacity_per_slot: int = 512,
                  block_size: int = DEFAULT_BLOCK_SIZE,
-                 shared_prefix=None, metrics=None, tracer=None, clock=None,
-                 decode_attn=None):
+                 shared_prefix=None, metrics=None, tracer=None, clock=None):
         self.params = params
         self.cfg = cfg
         self.device = params["embed"].device
-        self._decode_attn = decode_attn
         self.max_slots = max_slots
         self.block_size = block_size
         self.blocks_per_slot = -(-capacity_per_slot // block_size)
@@ -147,8 +143,7 @@ class ContinuousBatcher:
             self._prefill_shared_prefix(shared_prefix[:self._prefix_aligned])
 
     def _fwd(self, tokens, cache):
-        return _forward_paged(self.params, tokens, cache, self.cfg,
-                              decode_attn=self._decode_attn)
+        return _forward_paged(self.params, tokens, cache, self.cfg)
 
     def _tensor(self, arr) -> torch.Tensor:
         """A device COPY of a host mirror (on the CPU ``as_tensor`` would

@@ -4,9 +4,7 @@ Each ``csrc/*.cu`` file has a plain C interface and is compiled at first
 use by ``nvcc`` for ``sm_90a`` into ``build/torch_kernels/`` beside the
 package (a directory ``.gitignore`` lists), then loaded with ``ctypes``.
 The library's file name carries a hash of the source and the flags, so an
-edited source is rebuilt and never served stale. :func:`build_all` starts
-one ``nvcc`` per source at once, for callers that want the whole build
-up front (``chip_smoke.py``).
+edited source is rebuilt and never served stale.
 """
 
 from __future__ import annotations
@@ -19,7 +17,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -55,15 +53,20 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def _command(name: str, out: Path) -> List[str]:
-    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out),
-            str(CSRC_DIR / f"{name}.cu")]
-
-
-def _finish(name: str, proc: subprocess.Popen, tmp: Path, out: Path,
-            t0: float) -> Tuple[Path, float, str]:
-    stdout, stderr = proc.communicate()
-    log = (stdout or "") + (stderr or "")
+def build(name: str) -> Tuple[Path, float, str]:
+    """Compile ``csrc/<name>.cu`` unless its library is already built.
+    Returns (library path, build seconds, compiler log); a library already
+    built is reused with 0 seconds and an empty log."""
+    out = library_path(name)
+    if out.exists():
+        return out, 0.0, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.monotonic()
+    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                           str(CSRC_DIR / f"{name}.cu")],
+                          capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed to build {name}.cu "
@@ -72,41 +75,11 @@ def _finish(name: str, proc: subprocess.Popen, tmp: Path, out: Path,
     return out, time.monotonic() - t0, log
 
 
-def build_all(names: Optional[List[str]] = None
-              ) -> Dict[str, Tuple[Path, float, str]]:
-    """Build every named source (default: all of ``csrc/``) with one
-    ``nvcc`` each, all started together. Returns name -> (library path,
-    build seconds, compiler log); a library already built is reused with
-    0 seconds and an empty log."""
-    names = names or sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    results: Dict[str, Tuple[Path, float, str]] = {}
-    running = []
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            results[name] = (out, 0.0, "")
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.Popen(_command(name, tmp), stdout=subprocess.PIPE,
-                                stderr=subprocess.PIPE, text=True)
-        running.append((name, proc, tmp, out, time.monotonic()))
-    try:
-        for name, proc, tmp, out, t0 in running:
-            results[name] = _finish(name, proc, tmp, out, t0)
-    finally:
-        for _, proc, _, _, _ in running:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    return results
-
-
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            path, _, _ = build_all([name])[name]
+            path, _, _ = build(name)
             lib = _loaded[name] = ctypes.CDLL(str(path))
         return lib

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from k8s_operator_libs_tpu_torch.models import paged as tpaged
+from k8s_operator_libs_tpu_torch.models.generate import generate
 from k8s_operator_libs_tpu_torch.models.llama import LlamaConfig, init_params
 from k8s_operator_libs_tpu_torch.models.serve import ContinuousBatcher
 from k8s_operator_libs_tpu_torch.ops import build
@@ -108,26 +109,24 @@ def test_kernel_other_geometries(cuda, BS, Dh, G):
 
 
 def test_batcher_decodes_through_the_kernel(cuda):
+    """The batcher's greedy tokens, decoded through A-K4, equal the
+    contiguous ``generate`` (plain attention) of each prompt."""
     cfg = LlamaConfig.tiny(dtype=torch.float32)
     params = init_params(cfg, seed=0, device=cuda)
     gen = np.random.default_rng(3)
     prompts = [gen.integers(0, cfg.vocab_size, size=n).astype(np.int32)
                for n in (5, 19, 11)]
-
-    def run(decode_attn):
-        srv = ContinuousBatcher(params, cfg, max_slots=2,
-                                capacity_per_slot=48, block_size=16,
-                                decode_attn=decode_attn)
-        rids = [srv.submit(p, 7) for p in prompts]
-        out = {}
-        while not srv.idle:
-            srv.step(3)
-            out.update(srv.poll())
-        return [out[r] for r in rids], srv.decode_steps
-
     attn.reset_launch_counts()
-    got, steps = run(None)
+    srv = ContinuousBatcher(params, cfg, max_slots=2, capacity_per_slot=48,
+                            block_size=16)
+    rids = [srv.submit(p, 7) for p in prompts]
+    out = {}
+    while not srv.idle:
+        srv.step(3)
+        out.update(srv.poll())
+    steps = srv.decode_steps
     assert attn.LAUNCHES["paged_decode"] == cfg.n_layers * steps > 0
-    ref, _ = run(attn.paged_decode_plain)
-    for g, r in zip(got, ref):
-        np.testing.assert_array_equal(g, r)
+    for rid, p in zip(rids, prompts):
+        ref = generate(params, torch.as_tensor(p[None], device=cuda), cfg,
+                       max_new_tokens=7)[0].cpu().numpy()
+        np.testing.assert_array_equal(out[rid], ref)
