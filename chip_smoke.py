@@ -8,14 +8,18 @@ non-zero, printing no result, when there is no GPU or no port beside it.
 Phases, each fatal on failure:
 
 1. Device and build: the card's name and power limit (``nvidia-smi``),
-   then the port's CUDA source built with ``nvcc``.
-2. Kernels against their plain PyTorch versions at the Llama-3-8B decode
-   attention shape (H 32, KV 8, Dh 128, block 16, 4 sequences of capacity
-   1024, ragged lengths 0/17/300/1023, a shuffled table, NaN in every
-   dead block): A-K4 on bf16 pools, A-K5 on int8 pools. Times with CUDA
-   events on a cold L2: kernel, plain version, byte bound, and
-   ``F.scaled_dot_product_attention`` over the gathered view as a
-   yardstick (the port never calls it).
+   then the port's CUDA sources built with one ``nvcc`` each, all at once.
+2. Kernels against their plain PyTorch versions. Paged decode at the
+   Llama-3-8B decode attention shape (H 32, KV 8, Dh 128, block 16, 4
+   sequences of capacity 1024, ragged lengths 0/17/300/1023, a shuffled
+   table, NaN in every dead block): A-K4 on bf16 pools, A-K5 on int8
+   pools. Flash attention (A-K1 forward, A-K2 dq, A-K3 dk/dv) at four
+   shapes: the training shape below (B 2, T 2048, H 32, KV 8, Dh 128,
+   bf16, causal), T 1000 non-causal, H 12 / KV 4 / Dh 64, and fp32; out,
+   lse, dq, dk and dv each within a stated tolerance. Times at the main
+   shapes with CUDA events on a cold L2: kernel, plain version, bound,
+   and ``F.scaled_dot_product_attention`` as a yardstick (the port never
+   calls it).
 3. Serving at full size: Llama-3-8B, all 32 layers in bf16, weights seeded
    on the card, behind the port's HTTP server (4 slots, capacity 1024,
    block 16, chunk 4); 4 concurrent ``/generate`` requests with ragged
@@ -27,12 +31,28 @@ Phases, each fatal on failure:
    greedy tokens (through A-K4) against the contiguous ``generate``
    (plain), and ``paged_generate(kv_int8=True)`` through A-K5 against the
    same call with the plain version.
+5. Training at full width: Llama-3-8B width cut to 8 layers (the 32 need
+   ~64 GB for parameters, gradients and two moments alone), bf16, remat,
+   B 2 x T 2048, seeded weights; one warm-up and 5 timed steps on one
+   batch. A-K1, A-K2 and A-K3 must each launch 8 times per step (remat
+   does not re-run the forward kernel) and the loss must fall. Prints ms
+   per step, tokens/s, the model-FLOP share of the bf16 peak, peak memory
+   and a ``torch.profiler`` breakdown of one step.
+6. Training parity: one step's loss and gradients through the kernels
+   against the plain attention (fp32, Llama-3-8B width, 2 layers); then
+   the CLI (``train.main``, ``small``, seq 512, batch 4) checkpointed at
+   step 2, drained at step 3 and resumed to step 6 must reach the step-6
+   loss of an uninterrupted run.
 
-The line before last is ``{"kernels": [...]}``; the last line is
+At the end it prints ``{"kernels": [...]}``, then the serving and training
+numbers and the card's name, each on a line of its own; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import gc
 import json
+import math
+import re
 import subprocess
 import sys
 import threading
@@ -46,7 +66,8 @@ H100_BF16_FLOPS = 989e12        # dense tensor-core peak
 BS, CAPACITY, SLOTS, CHUNK, MAX_NEW = 16, 1024, 4, 4, 32
 PROMPT_LENS = (24, 100, 300, 700)
 KERNEL_LENGTHS = (0, 17, 300, 1023)
-SOURCE = "k8s_operator_libs_tpu_torch/csrc/paged_decode.cu"
+SOURCES = ("paged_decode", "flash_attention")
+CSRC = "k8s_operator_libs_tpu_torch/csrc/{}.cu"
 
 
 class SmokeFailure(RuntimeError):
@@ -90,12 +111,26 @@ def time_cold_ms(torch, fn, iters=25):
 # ------------------------------------------------------------------ phases
 
 def phase_build():
+    """Build every CUDA source at once: one nvcc per source, started
+    together."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from k8s_operator_libs_tpu_torch.ops import build
-    path, secs, compiler_log = build.build("paged_decode")
-    log(f"phase 1: built paged_decode in {secs:.1f} s -> {path.name}")
-    for line in compiler_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        built = list(pool.map(build.build, SOURCES))
+    for name, (path, secs, compiler_log) in zip(SOURCES, built):
+        log(f"phase 1: built {name} in {secs:.1f} s -> {path.name}")
+        kernel = spills = ""
+        for line in compiler_log.splitlines():
+            if "Compiling entry function" in line:
+                # the template instance, without the anonymous namespace
+                kernel = re.sub(r"^_ZN.*?_cu_[0-9a-f]{8}\d+", "",
+                                line.split("'")[1])[:64]
+            elif "spill" in line:
+                spills = line.strip()
+            elif "registers" in line:
+                log(f"  ptxas: {kernel}: {line.split(':', 1)[1].strip()}; "
+                    f"{spills}")
 
 
 def kernel_case(torch, int8, seed=0):
@@ -215,6 +250,152 @@ def phase_kernels(torch):
         results[name] = {"max_abs_err": max_err, "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": b_ms,
                          "bound_by": bound_by, "library_ms": library_ms}
+    return results
+
+
+# ------------------------------------------------------------ flash kernels
+
+# (label, B, T, H, KV, Dh, dtype, causal); the first is the training main
+# path's shape (phase 5) and is the one timed
+FLASH_CASES = (
+    ("llama3_8b", 2, 2048, 32, 8, 128, "bfloat16", True),
+    ("T1000_full", 1, 1000, 32, 8, 128, "bfloat16", False),
+    ("small_G3", 2, 512, 12, 4, 64, "bfloat16", True),
+    ("fp32", 1, 512, 32, 8, 128, "float32", True),
+)
+# max |kernel - plain| over max(1, max |plain|). fp32: summation order and
+# exp2f's 2 ulp. bf16: the kernels round q * scale * log2e to bf16 (the
+# constant too, 2^-9 relative), P before P V and dS before dS K, as the
+# TPU kernels do and the plain version does not: ~1-2% of P at these
+# scores. The backward is held on the forward's own out and lse.
+FLASH_TOL = {"float32": (1e-4, 2e-4), "bfloat16": (2e-2, 5e-2)}
+FLASH_NAMES = ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def flash_inputs(torch, B, T, H, KV, Dh, dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+    return tuple(torch.randn(s, generator=g, device="cuda").to(dt)
+                 for s in ((B, T, H, Dh), (B, T, KV, Dh), (B, T, KV, Dh),
+                           (B, T, H, Dh)))
+
+
+def flash_bounds(B, T, H, KV, Dh, causal, elem):
+    """Least time of each kernel: the larger of its flops over the bf16
+    tensor-core peak (forward 4, dq 6, dkv 8 x B*H*Dh*sum_visible) and the
+    bytes it must move (each input read once, each output written once)
+    over the memory rate."""
+    visible = T * (T + 1) // 2 if causal else T * T
+    per = B * H * Dh * visible
+    q_bytes = B * T * H * Dh * elem
+    kv_bytes = B * T * KV * Dh * elem
+    row_bytes = B * H * T * 4                   # one fp32 lse or delta row
+    work = {"flash_forward": (4 * per, q_bytes + 2 * kv_bytes + q_bytes
+                              + row_bytes),
+            "flash_bwd_dq": (6 * per, 3 * q_bytes + 2 * kv_bytes
+                             + 2 * row_bytes),
+            "flash_bwd_dkv": (8 * per, 2 * q_bytes + 4 * kv_bytes
+                              + 2 * row_bytes)}
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        t_ops = flops / H100_BF16_FLOPS * 1e3
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        out[name] = (max(t_ops, t_bytes),
+                     "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def phase_flash(torch):
+    import torch.nn.functional as F
+
+    from k8s_operator_libs_tpu_torch.ops import attention as fa
+    results = {}
+    for label, B, T, H, KV, Dh, dtype, causal in FLASH_CASES:
+        q, k, v, do = flash_inputs(torch, B, T, H, KV, Dh, dtype)
+        out, lse = fa.flash_forward_cuda(q, k, v, causal)
+        delta = fa.attention_delta(out, do, KV)
+        dq = fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal)
+        dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = fa.reference_attention_with_lse(q, k, v, causal)
+        ref = fa.flash_backward_plain(q, k, v, out, lse, do, causal)
+        tol_fwd, tol_bwd = FLASH_TOL[dtype]
+        errs = {}
+        for name, got, want, tol in (
+                ("out", out, ref_out, tol_fwd), ("lse", lse, ref_lse, tol_fwd),
+                ("dq", dq, ref[0], tol_bwd), ("dk", dk, ref[1], tol_bwd),
+                ("dv", dv, ref[2], tol_bwd)):
+            check(bool(torch.isfinite(got).all()), f"{label}: non-finite {name}")
+            err = float((got.float() - want.float()).abs().max())
+            scale = max(1.0, float(want.float().abs().max()))
+            errs[name] = err
+            check(err <= tol * scale, f"{label}: {name} max abs err {err:.3e} "
+                                      f"over tolerance {tol} x {scale:.3g}")
+        log(f"phase 2: flash {label} (B {B} T {T} H {H} KV {KV} Dh {Dh} "
+            f"{dtype} {'causal' if causal else 'full'}) max abs err "
+            + " ".join(f"{n} {e:.2e}" for n, e in errs.items())
+            + f" (tolerance {tol_fwd}/{tol_bwd} x max(1, |plain|)) ok")
+        if label != FLASH_CASES[0][0]:
+            continue
+
+        # the kernels are deterministic (the resume check relies on it)
+        again = fa.flash_forward_cuda(q, k, v, causal)
+        same = (torch.equal(again[0], out) and torch.equal(again[1], lse)
+                and torch.equal(fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta,
+                                                     causal), dq)
+                and all(torch.equal(a, b) for a, b in zip(
+                    fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal),
+                    (dk, dv))))
+        check(same, "flash kernels are not deterministic")
+
+        qh, kh, vh, doh = (x.transpose(1, 2).contiguous()
+                           for x in (q, k, v, do))
+        kr, vr = (x.repeat_interleave(H // KV, dim=1) for x in (kh, vh))
+        lib_in = [x.detach().requires_grad_() for x in (qh, kr, vr)]
+        lib_out = F.scaled_dot_product_attention(*lib_in, is_causal=causal)
+        lib_err = float((lib_out.detach().transpose(1, 2).float()
+                         - ref_out.float()).abs().max())
+        bounds = flash_bounds(B, T, H, KV, Dh, causal, q.element_size())
+        timed = {
+            "flash_forward": (
+                lambda: fa.flash_forward_cuda(q, k, v, causal),
+                lambda: fa.reference_attention_with_lse(q, k, v, causal),
+                lambda: F.scaled_dot_product_attention(
+                    qh, kr, vr, is_causal=causal)),
+            "flash_bwd_dq": (
+                lambda: fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal),
+                None, None),
+            "flash_bwd_dkv": (
+                lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                              causal),
+                None, None),
+        }
+        bwd_plain_ms = time_cold_ms(torch, lambda: fa.flash_backward_plain(
+            q, k, v, out, lse, do, causal), iters=10)
+        bwd_lib_ms = time_cold_ms(torch, lambda: torch.autograd.grad(
+            lib_out, lib_in, doh, retain_graph=True))
+        for name, (kernel, plain, library) in timed.items():
+            ms = time_cold_ms(torch, kernel)
+            plain_ms = (time_cold_ms(torch, plain, iters=10) if plain
+                        else bwd_plain_ms)
+            library_ms = time_cold_ms(torch, library) if library \
+                else bwd_lib_ms
+            b_ms, bound_by = bounds[name]
+            err = (max(errs["out"], errs["lse"]) if name == "flash_forward"
+                   else errs["dq"] if name == "flash_bwd_dq"
+                   else max(errs["dk"], errs["dv"]))
+            results[name] = {"max_abs_err": err, "ms": ms,
+                             "plain_ms": plain_ms, "bound_ms": b_ms,
+                             "bound_by": bound_by, "library_ms": library_ms}
+            log(f"phase 2: {name} ms {ms:.4f} plain_ms {plain_ms:.4f} "
+                f"library_ms {library_ms:.4f} bound_ms {b_ms:.5f} "
+                f"({bound_by}) -> {b_ms / ms:.2%} of bound")
+        log(f"phase 2: flash plain/library: the backward's plain_ms is "
+            f"flash_backward_plain (dq, dk, dv together) and its library_ms "
+            f"the autograd backward of F.scaled_dot_product_attention over "
+            f"K/V repeated to {H} heads (sdpa forward max diff "
+            f"{lib_err:.2e}); both are yardsticks the port never calls")
+        del lib_in, lib_out
     return results
 
 
@@ -362,18 +543,15 @@ def phase_serve(torch):
     return stats
 
 
-def profile_decode(torch, srv, n):
-    """Where one batcher chunk of ``n`` decode ticks spends the card's
-    time: ``torch.profiler`` kernel times (device busy, its share of the
-    host wall, the paged-decode kernel's share) and the top kernels. The
-    profiler slows the host, so the wall here is above the unprofiled
-    ms per step; this is a breakdown, not a timing."""
+def profile_kernels(torch, fn):
+    """``torch.profiler`` kernel times of one call of ``fn``: (host wall
+    ms under the profiler, [(device ms, count, kernel name)])."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        srv.step(n)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
     kernels = []
@@ -385,6 +563,16 @@ def profile_decode(torch, srv, n):
             us = getattr(evt, "self_cuda_time_total", 0.0)
         if us > 0:
             kernels.append((us / 1e3, evt.count, evt.key))
+    return wall_ms, kernels
+
+
+def profile_decode(torch, srv, n):
+    """Where one batcher chunk of ``n`` decode ticks spends the card's
+    time: ``torch.profiler`` kernel times (device busy, its share of the
+    host wall, the paged-decode kernel's share) and the top kernels. The
+    profiler slows the host, so the wall here is above the unprofiled
+    ms per step; this is a breakdown, not a timing."""
+    wall_ms, kernels = profile_kernels(torch, lambda: srv.step(n))
     busy = sum(ms for ms, _, _ in kernels)
     if not busy:
         log("phase 3: profile: no device time recorded (not measured)")
@@ -497,6 +685,223 @@ def phase_parity(torch):
     return {"launches_int8": launches_k5}
 
 
+# ------------------------------------------------------------ training
+
+TRAIN_LAYERS, TRAIN_B, TRAIN_T, TRAIN_STEPS = 8, 2, 2048, 5
+
+
+def phase_train(torch):
+    """Llama-3-8B width, 8 layers, bf16, remat, B 2 x T 2048 on one fixed
+    batch: one warm-up step and TRAIN_STEPS timed steps through the
+    trainer's step, with A-K1/A-K2/A-K3 counted."""
+    from k8s_operator_libs_tpu_torch.models.llama import (LlamaConfig,
+                                                          param_count)
+    from k8s_operator_libs_tpu_torch.ops import attention as fa
+    from k8s_operator_libs_tpu_torch.parallel import fsdp
+
+    cfg = LlamaConfig.llama3_8b(n_layers=TRAIN_LAYERS,
+                                max_seq_len=TRAIN_T)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state = fsdp.init_train_state(cfg, seed=0, device="cuda")
+    n_params = param_count(state.params)
+    step = fsdp.make_train_step(cfg)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_T + 1),
+                           generator=g, device="cuda", dtype=torch.int32)
+    state, m = step(state, tokens)                         # warm-up
+    losses = [float(m["loss"])]
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.monotonic()
+    for _ in range(TRAIN_STEPS):
+        state, m = step(state, tokens)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(fa.LAUNCHES)
+    losses = [float(x) for x in losses]
+    peak = torch.cuda.max_memory_allocated()
+    for name in FLASH_NAMES:
+        check(launches[name] == TRAIN_LAYERS * TRAIN_STEPS,
+              f"{name} launched {launches[name]} times over {TRAIN_STEPS} "
+              f"steps of {TRAIN_LAYERS} layers")
+    check(all(math.isfinite(x) for x in losses), f"loss not finite: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+
+    ms = wall / TRAIN_STEPS * 1e3
+    tokens_per_step = TRAIN_B * TRAIN_T
+    # model flops per step: 6 x (matmul params: all but the embedding
+    # table) x tokens, plus attention's 3 x 4 x B*H*Dh*sum_visible per
+    # layer (forward + backward); remat's recompute is not counted
+    matmul_params = n_params - cfg.vocab_size * cfg.d_model
+    visible = TRAIN_T * (TRAIN_T + 1) // 2
+    attn_flops = (12 * TRAIN_B * cfg.n_heads * cfg.head_dim * visible
+                  * TRAIN_LAYERS)
+    flops = 6 * matmul_params * tokens_per_step + attn_flops
+    mfu = flops / (ms / 1e3) / H100_BF16_FLOPS
+    log(f"phase 5: Llama-3-8B width x {TRAIN_LAYERS} layers "
+        f"({n_params} params), bf16, remat, B {TRAIN_B} T {TRAIN_T}: "
+        f"{ms:.1f} ms per step, {tokens_per_step / ms * 1e3:.0f} tokens/s, "
+        f"model flops {flops:.4g} per step = 6 x {matmul_params} x "
+        f"{tokens_per_step} + 12 x B*H*Dh*T(T+1)/2 x L -> {mfu:.2%} of "
+        f"{H100_BF16_FLOPS:.3g} FLOP/s; peak memory {peak / 2**30:.1f} GiB "
+        f"({held / 2**30:.1f} GiB held before the phase)")
+    log(f"phase 5: losses {' '.join(f'{x:.4f}' for x in losses)} (warm-up "
+        f"first); launches per step " + ", ".join(
+            f"{n} {launches[n] // TRAIN_STEPS}" for n in FLASH_NAMES))
+
+    def one_step():
+        nonlocal state
+        state, _ = step(state, tokens)
+
+    wall_ms, kernels = profile_kernels(torch, one_step)
+    busy = sum(t for t, _, _ in kernels)
+    stats = {"ms_per_step": ms, "tokens_per_s": tokens_per_step / ms * 1e3,
+             "model_flops_per_step": flops, "mfu": mfu,
+             "peak_memory_bytes": peak, "loss_first": losses[0],
+             "loss_last": losses[-1],
+             **{f"launches_{n}": launches[n] for n in FLASH_NAMES}}
+    if not busy:
+        log("phase 5: profile: no device time recorded (not measured)")
+        return stats
+    shares = {n: sum(t for t, _, key in kernels if k in key)
+              for n, k in (("flash_forward", "flash_fwd_kernel"),
+                           ("flash_bwd_dq", "flash_bwd_dq_kernel"),
+                           ("flash_bwd_dkv", "flash_bwd_dkv_kernel"))}
+    log(f"phase 5: profile of one step: wall {wall_ms:.1f} ms (profiled), "
+        f"device busy {busy:.1f} ms, idle share {1 - busy / wall_ms:.1%}; "
+        + ", ".join(f"{n} {t:.1f} ms = {t / busy:.1%}"
+                    for n, t in shares.items()))
+    gemm = sum(t for t, _, key in kernels
+               if any(s in key for s in ("nvjet", "gemm", "cutlass")))
+    flash = sum(shares.values())
+    log(f"phase 5: by kind: flash kernels {flash:.1f} ms, matmuls (cuBLAS) "
+        f"{gemm:.1f} ms, everything else (elementwise, copies, reductions) "
+        f"{busy - flash - gemm:.1f} ms")
+    for t, count, key in sorted(kernels, reverse=True)[:12]:
+        log(f"  {t:8.3f} ms  x{count:<5d} {key[:90]}")
+    stats.update({"profile_wall_ms": wall_ms, "profile_busy_ms": busy,
+                  "profile_gemm_ms": gemm,
+                  **{f"profile_{n}_ms": t for n, t in shares.items()}})
+    del state
+    return stats
+
+
+def phase_train_parity(torch):
+    """(a) One step's loss and gradients through the kernels against the
+    plain attention, fp32, Llama-3-8B width x 2 layers. (b) The CLI:
+    checkpoint at step 2, drained at step 3, resumed to step 6, against
+    an uninterrupted 6-step run."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+
+    from k8s_operator_libs_tpu_torch import train
+    from k8s_operator_libs_tpu_torch.data.loader import write_token_file
+    from k8s_operator_libs_tpu_torch.models.llama import (LlamaConfig,
+                                                          param_leaves)
+    from k8s_operator_libs_tpu_torch.ops import attention as fa
+    from k8s_operator_libs_tpu_torch.parallel import fsdp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = LlamaConfig.llama3_8b(n_layers=2, dtype=torch.float32,
+                                max_seq_len=512)
+    state = fsdp.init_train_state(cfg, seed=2, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(6)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 513), generator=g,
+                           device="cuda", dtype=torch.int32)
+    results = {}
+    for name, attn_fn in (("kernels", None),
+                          ("plain", fa.reference_attention)):
+        fa.reset_launch_counts()
+        results[name] = fsdp.value_and_grad(
+            lambda p, t: fsdp.causal_lm_loss(p, t, cfg, attn_fn),
+            state.params, tokens)
+        results[name + "_launches"] = fa.LAUNCHES["flash_forward"]
+    check(results["kernels_launches"] == 2 and results["plain_launches"] == 0,
+          "the parity step did not take the paths it names")
+    (lk, gk), (lp, gp) = results["kernels"], results["plain"]
+    # fp32 with TF32 off: the kernels sum in another order than the plain
+    # matmuls (~1e-6 relative per attention output), which two layers of
+    # backward spread; allow 1e-5 of the loss and 1e-3 of each leaf's
+    # largest gradient
+    loss_diff = abs(float(lk) - float(lp))
+    check(loss_diff <= 1e-5 * abs(float(lp)),
+          f"loss through the kernels {float(lk)} vs plain {float(lp)}")
+    worst = 0.0
+    for a, b in zip(param_leaves(gk), param_leaves(gp)):
+        rel = float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+        worst = max(worst, rel)
+    check(worst <= 1e-3, f"gradients through the kernels differ by "
+                         f"{worst:.2e} of a leaf's largest")
+    log(f"phase 6a: Llama-3-8B width x 2 layers, fp32, B 2 T 512: loss "
+        f"kernels {float(lk):.6f} vs plain {float(lp):.6f} (diff "
+        f"{loss_diff:.2e}, tolerance 1e-5 relative); worst gradient diff "
+        f"{worst:.2e} of its leaf's max (tolerance 1e-3)")
+    del state, results, gk, gp
+    torch.cuda.empty_cache()
+
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    data = work / "tokens.bin"
+    write_token_file(str(data), np.random.default_rng(7).integers(
+        0, 32000, size=200_000))
+
+    def run(ckpt, drain_signal=None):
+        argv = ["--data", str(data), "--ckpt", str(work / ckpt), "--model",
+                "small", "--seq", "512", "--batch", "4", "--steps", "6",
+                "--ckpt-interval", "2", "--device", "cuda"]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = train.main(argv, drain_signal=drain_signal)
+        out = buf.getvalue().strip()
+        log(f"phase 6b: train.main --ckpt {ckpt}: {out.splitlines()[-1]}")
+        check(rc == 0, f"train.main returned {rc}")
+        return out
+
+    calls = {"n": 0}
+
+    def drain_at_3():
+        calls["n"] += 1
+        return calls["n"] == 4                       # polled before step 4
+
+    straight = run("straight")
+    drained = run("drained", drain_at_3)
+    check("preempted at step 3; checkpoint 3 saved" in drained,
+          f"the drain did not stop at step 3: {drained}")
+    check((work / "drained" / "2").is_dir(), "no periodic checkpoint at 2")
+    resumed = run("drained")
+
+    def last_loss(out):
+        m = re.search(r"\(step 6 loss ([0-9.]+)\)", out)
+        check(m is not None, f"no step-6 loss in {out!r}")
+        return m.group(1)
+
+    check("done: 3 steps" in resumed, f"the resumed run did not run steps "
+                                      f"4-6: {resumed}")
+    a, b = last_loss(straight), last_loss(resumed)
+    check(a == b, f"step-6 loss {b} after drain + resume vs {a} straight")
+    log(f"phase 6b: step-6 loss after a drain at 3 and a resume: {b}, "
+        f"uninterrupted: {a}: identical")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"train_parity_loss_diff": loss_diff,
+            "train_parity_worst_grad": worst, "resume_step6_loss": float(b)}
+
+
+def release(torch, result):
+    """Free what a phase left behind before the next one starts: the
+    serving runtime's reference cycles hold its weights until a
+    collection."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
 def main():
     try:
         import torch
@@ -522,31 +927,39 @@ def main():
         log(smi)
         phase_build()
         kernels = phase_kernels(torch)
-        serve = phase_serve(torch)
-        torch.cuda.empty_cache()
-        parity = phase_parity(torch)
+        kernels.update(phase_flash(torch))
+        serve = release(torch, phase_serve(torch))
+        parity = release(torch, phase_parity(torch))
+        training = release(torch, phase_train(torch))
+        training.update(phase_train_parity(torch))
     except (SmokeFailure, subprocess.SubprocessError, OSError,
             RuntimeError, ValueError) as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     rows = []
-    for name, replaces, launches in (
-            ("paged_decode", "k8s_operator_libs_tpu/ops/attention.py:734",
+    jax_attn = "k8s_operator_libs_tpu/ops/attention.py"
+    for name, source, replaces, launches in (
+            ("paged_decode", "paged_decode", f"{jax_attn}:734",
              serve["launches"]),
-            ("paged_decode_int8",
-             "k8s_operator_libs_tpu/ops/attention.py:828",
-             parity["launches_int8"])):
+            ("paged_decode_int8", "paged_decode", f"{jax_attn}:828",
+             parity["launches_int8"]),
+            ("flash_forward", "flash_attention", f"{jax_attn}:236",
+             training["launches_flash_forward"]),
+            ("flash_bwd_dq", "flash_attention", f"{jax_attn}:439",
+             training["launches_flash_bwd_dq"]),
+            ("flash_bwd_dkv", "flash_attention", f"{jax_attn}:519",
+             training["launches_flash_bwd_dkv"])):
         k = kernels[name]
-        rows.append({"name": name, "route": "cuda", "source": SOURCE,
-                     "replaces": replaces, "launches": launches,
-                     "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-                     "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                     "bound_by": k["bound_by"],
+        rows.append({"name": name, "route": "cuda",
+                     "source": CSRC.format(source), "replaces": replaces,
+                     "launches": launches, "max_abs_err": k["max_abs_err"],
+                     "ms": k["ms"], "plain_ms": k["plain_ms"],
+                     "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
                      "library_ms": k["library_ms"]})
     print(json.dumps({"kernels": rows}))
-    print(json.dumps({"serving": {key: (round(v, 6) if isinstance(v, float)
-                                        else v)
-                                  for key, v in serve.items()}}))
+    for key, stats in (("serving", serve), ("training", training)):
+        print(json.dumps({key: {k: (round(v, 6) if isinstance(v, float)
+                                    else v) for k, v in stats.items()}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,15 @@
 """PyTorch + CUDA port of the JAX workload in ``k8s_operator_libs_tpu``.
 
 The JAX package is the reference and stays as it is; this package mirrors
-its layout (``models/``, ``ops/``, ``obs/``, ``utils/``) and keeps its
-tensor layouts at every public function, so the same inputs can be fed to
-both and compared. Slice 1 ports the serving path: the paged KV cache,
-the continuous batcher and an HTTP server, with the paged-decode attention
-kernels written by hand in CUDA C++ for Hopper (``csrc/paged_decode.cu``).
+its layout (``models/``, ``ops/``, ``parallel/``, ``data/``, ``train/``,
+``obs/``, ``utils/``) and keeps its tensor layouts at every public
+function, so the same inputs can be fed to both and compared. Slice 1
+ports the serving path: the paged KV cache, the continuous batcher and an
+HTTP server, with the paged-decode attention kernels written by hand in
+CUDA C++ for Hopper (``csrc/paged_decode.cu``). Slice 2 ports training on
+one GPU: the training forward, the clipped-AdamW step, the token loader
+and the checkpointing trainer, with flash attention forward and backward
+in CUDA C++ (``csrc/flash_attention.cu``).
 
 The package imports ``torch``, ``numpy`` and the standard library only.
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU,

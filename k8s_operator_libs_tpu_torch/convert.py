@@ -9,7 +9,9 @@ imports ml_dtypes; going back, a ``bfloat16`` numpy dtype is used where the
 process has one registered, else the ``uint16`` bits are returned.
 
 The same element conversions serve the KV wire format (``models/paged.py``),
-whose dtype strings are numpy's names.
+whose dtype strings are numpy's names. ``train_state_to_torch`` carries a
+reference training state, optax's AdamW moments included, into the
+port's ``TrainState``.
 """
 
 from __future__ import annotations
@@ -104,3 +106,33 @@ def to_numpy(params: Tree) -> Tree:
     if isinstance(params, dict):
         return {k: to_numpy(v) for k, v in params.items()}
     return tensor_to_numpy(params)
+
+
+def _adam_state(tree: Any):
+    """The ``ScaleByAdamState(count, mu, nu)`` inside an optax state
+    (nested tuples: ``(clip state, (adam state, wd state, lr state))``)."""
+    if all(hasattr(tree, name) for name in ("count", "mu", "nu")):
+        return tree
+    if isinstance(tree, (tuple, list)):
+        for item in tree:
+            found = _adam_state(item)
+            if found is not None:
+                return found
+    return None
+
+
+def train_state_to_torch(state: Any, device: DeviceLike = "cuda"):
+    """A reference ``TrainState`` with numpy leaves (``jax.device_get``
+    of one trained by ``default_optimizer``) -> the port's ``TrainState``:
+    the parameters, the AdamW moments and count, and the step."""
+    from .parallel.fsdp import AdamWState, TrainState
+    adam = _adam_state(state.opt_state)
+    if adam is None:
+        raise ValueError("no ScaleByAdamState(count, mu, nu) in opt_state")
+    dev = resolve_device(device)
+    return TrainState(
+        params=to_torch(state.params, dev),
+        opt_state=AdamWState(count=int(np.asarray(adam.count)),
+                             mu=to_torch(adam.mu, dev),
+                             nu=to_torch(adam.nu, dev)),
+        step=int(np.asarray(state.step)))

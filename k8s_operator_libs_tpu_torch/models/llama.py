@@ -7,18 +7,27 @@ axis 0 (``[n_layers, ...]``), matrices stored ``[in, out]`` and applied as
 the layout ``convert.py`` carries JAX parameters into, so the port runs on
 the very weights the reference was tested with.
 
-The training forward (flash attention and its backward) belongs to a
-later slice; this module holds what the serving path needs.
+:func:`forward` is the training forward (``_block`` and ``forward``,
+``models/llama.py:179-233``): a Python loop over the stacked layers with
+attention through :func:`..ops.attention.flash_attention` (A-K1 forward,
+A-K2/A-K3 backward on the card). Under ``cfg.remat`` each block is
+recomputed in the backward except the flash call's ``out`` and ``lse``,
+which is what the reference's ``remat_block`` policy saves: the parts
+before and after attention run under ``torch.utils.checkpoint`` and the
+attention Function between them does not, so the backward never re-runs
+the forward kernel.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from ..ops.attention import flash_attention
 from ..utils.device import DeviceLike, resolve_device
 
 Params = Dict[str, Any]
@@ -155,3 +164,75 @@ def swiglu(h: torch.Tensor, layer: Params) -> torch.Tensor:
     then W_down (the reference computes the gate's silu in fp32)."""
     gate = torch.nn.functional.silu((h @ layer["w_gate"]).float()).to(h.dtype)
     return (gate * (h @ layer["w_up"])) @ layer["w_down"]
+
+
+def param_count(params: Params) -> int:
+    return sum(p.numel() for p in param_leaves(params))
+
+
+# ---------------------------------------------------------------- training
+
+def _qkv(cfg: LlamaConfig, x: torch.Tensor, attn_norm, wq, wk, wv,
+         positions: torch.Tensor):
+    """The block before attention: RMSNorm, the Q/K/V projections, RoPE.
+    K/V stay at KV heads: the flash kernels take GQA natively."""
+    B, T, _ = x.shape
+    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    h = rms_norm(x, attn_norm)
+    q = rope((h @ wq).reshape(B, T, H, Dh), positions, cfg.rope_theta)
+    k = rope((h @ wk).reshape(B, T, KV, Dh), positions, cfg.rope_theta)
+    v = (h @ wv).reshape(B, T, KV, Dh)
+    return q, k, v
+
+
+def _post(x: torch.Tensor, attn: torch.Tensor, wo, mlp_norm, w_gate, w_up,
+          w_down) -> torch.Tensor:
+    """The block after attention: O-projection and residual, then the
+    SwiGLU MLP and its residual."""
+    B, T, _ = x.shape
+    x = x + attn.reshape(B, T, -1) @ wo
+    return x + swiglu(rms_norm(x, mlp_norm),
+                      {"w_gate": w_gate, "w_up": w_up, "w_down": w_down})
+
+
+def _block(cfg: LlamaConfig, attn_fn: Callable, x: torch.Tensor,
+           layer: Params, positions: torch.Tensor) -> torch.Tensor:
+    """One decoder block (pre-norm attention + SwiGLU MLP)."""
+    pre = (x, layer["attn_norm"], layer["wq"], layer["wk"], layer["wv"])
+    post = (layer["wo"], layer["mlp_norm"], layer["w_gate"], layer["w_up"],
+            layer["w_down"])
+    if not cfg.remat:
+        q, k, v = _qkv(cfg, *pre, positions)
+        return _post(x, attn_fn(q, k, v), *post)
+    q, k, v = checkpoint(_qkv, cfg, *pre, positions, use_reentrant=False)
+    attn = attn_fn(q, k, v)
+    return checkpoint(_post, x, attn, *post, use_reentrant=False)
+
+
+def _default_attn(q, k, v):
+    return flash_attention(q, k, v, causal=True)
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+            positions: Optional[torch.Tensor] = None,
+            attn_fn: Optional[Callable] = None) -> torch.Tensor:
+    """tokens [B, T] -> logits [B, T, vocab] in fp32, differentiable.
+    ``attn_fn(q, k, v)`` overrides the attention primitive (default the
+    flash kernels; ``ops.attention.reference_attention`` is the plain
+    one); ``positions`` [B, T] overrides the absolute positions."""
+    B, T = tokens.shape
+    if positions is None:
+        positions = torch.arange(T, device=tokens.device).expand(B, T)
+    # F.embedding: its backward sums repeated tokens in a fixed order
+    x = torch.nn.functional.embedding(tokens.long(), params["embed"])
+    blocks = params["blocks"]
+    names = list(blocks)
+    # one unbind per leaf: its backward stacks the per-layer gradients
+    # once, where indexing each layer would add a zero-filled full-size
+    # gradient per layer
+    per_layer = zip(*(blocks[n].unbind(0) for n in names))
+    fn = attn_fn or _default_attn
+    for weights in per_layer:
+        x = _block(cfg, fn, x, dict(zip(names, weights)), positions)
+    x = rms_norm(x, params["final_norm"])
+    return (x @ params["lm_head"]).float()

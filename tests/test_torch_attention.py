@@ -1,0 +1,176 @@
+"""The port's flash attention (``k8s_operator_libs_tpu_torch/ops/
+attention.py``) against the JAX reference on the CPU: the plain versions
+of A-K1 (forward) and A-K2/A-K3 (backward) against JAX's
+``reference_attention(_with_lse)`` and against the Pallas kernels run in
+interpret mode, and the autograd Function's CPU dispatch. The CUDA
+kernels themselves are held against these plain versions on the card
+(``tests/test_torch_cuda_kernels.py``, ``chip_smoke.py``)."""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from k8s_operator_libs_tpu.ops import attention as jattn
+from k8s_operator_libs_tpu_torch import convert
+from k8s_operator_libs_tpu_torch.ops import attention as tattn
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_torch_threads():
+    """Keep torch's CPU pool small beside the suite's other workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
+def _inputs(B, T, H, KV, Dh, dtype="float32", seed=0):
+    """q, k, v and a cotangent from numpy, as JAX arrays and tensors."""
+    rng = np.random.default_rng(seed)
+    shapes = ((B, T, H, Dh), (B, T, KV, Dh), (B, T, KV, Dh), (B, T, H, Dh))
+    jx = [jnp.asarray(rng.standard_normal(s).astype(np.float32),
+                      jnp.dtype(dtype)) for s in shapes]
+    tx = [convert.tensor_from_numpy(np.asarray(a)) for a in jx]
+    return jx, tx
+
+
+def _np(t):
+    return t.detach().float().numpy()
+
+
+def _scaled_err(got, ref):
+    ref = np.asarray(ref, np.float32)
+    return float(np.abs(np.asarray(got, np.float32) - ref).max()
+                 / max(1.0, float(np.abs(ref).max())))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("H,KV", [(4, 4), (6, 2)])
+def test_plain_forward_matches_reference(dtype, causal, H, KV):
+    """fp32: summation order only. bf16: both round the normalised
+    probabilities and the output to bf16 (one ulp, 2^-8 relative, each),
+    so allow 2^-7 of max(1, |out|)."""
+    (q, k, v, _), (tq, tk, tv, _) = _inputs(2, 37, H, KV, 32, dtype)
+    ref, ref_lse = jattn.reference_attention_with_lse(q, k, v, causal)
+    out, lse = tattn.reference_attention_with_lse(tq, tk, tv, causal)
+    assert out.dtype == convert.torch_dtype(dtype)
+    assert lse.shape == (2 * KV, H // KV, 37) and lse.dtype == torch.float32
+    tol = 1e-5 if dtype == "float32" else 2.0 ** -7
+    assert _scaled_err(_np(out), ref) <= tol
+    np.testing.assert_allclose(_np(lse).reshape(2, H, 37, 1),
+                               np.asarray(ref_lse), rtol=1e-5, atol=1e-5)
+    got = tattn.reference_attention(tq, tk, tv, causal)
+    assert torch.equal(got, out)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("H,KV", [(4, 4), (8, 2), (6, 2)])
+def test_plain_backward_matches_reference_vjp(causal, H, KV):
+    """flash_backward_plain, which recomputes P from the saved lse,
+    against JAX's autograd of reference_attention, fp32: the test_ops
+    tolerance (summation order)."""
+    (q, k, v, g), (tq, tk, tv, tg) = _inputs(2, 45, H, KV, 64, seed=1)
+    _, vjp = jax.vjp(lambda *a: jattn.reference_attention(*a, causal),
+                     q, k, v)
+    ref = vjp(g)
+    out, lse = tattn.reference_attention_with_lse(tq, tk, tv, causal)
+    got = tattn.flash_backward_plain(tq, tk, tv, out, lse, tg, causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert tuple(a.shape) == b.shape, name
+        np.testing.assert_allclose(_np(a), np.asarray(b), atol=5e-5,
+                                   rtol=5e-4, err_msg=name)
+
+
+@pytest.fixture
+def pallas_interpret():
+    jattn.INTERPRET = True
+    old = jattn.MAX_BLOCK
+    yield
+    jattn.INTERPRET = False
+    jattn.MAX_BLOCK = old
+
+
+# fp32: summation order (test_ops.py's own flash-vs-reference tolerance).
+# bf16: the Pallas kernels round q * scale * log2e to bf16 (its constant
+# too: 2^-9 relative), P before P V and dS before dS K, which the plain
+# version does not: ~1-2% of P at these scores, so 2e-2 of max(1, |out|)
+# forward and 5e-2 backward.
+@pytest.mark.parametrize("dtype,max_block,causal", [
+    ("float32", 512, True),
+    ("float32", 512, False),
+    ("float32", 128, True),            # two q-blocks and two k-chunks
+    ("bfloat16", 512, True),
+])
+def test_plain_matches_pallas_kernels(pallas_interpret, dtype, max_block,
+                                      causal):
+    jattn.MAX_BLOCK = max_block
+    (q, k, v, g), (tq, tk, tv, tg) = _inputs(1, 256, 4, 2, 128, dtype,
+                                             seed=2)
+    out, lse = jattn._flash_forward(q, k, v, causal)
+    dq, dk, dv = jattn._flash_backward(q, k, v, out, lse, g, causal)
+    t_out, t_lse = tattn.reference_attention_with_lse(tq, tk, tv, causal)
+    t_grads = tattn.flash_backward_plain(
+        tq, tk, tv, convert.tensor_from_numpy(np.asarray(out)),
+        convert.tensor_from_numpy(np.asarray(lse)), tg, causal)
+    tol_fwd, tol_bwd = (2e-5, 5e-5) if dtype == "float32" else (2e-2, 5e-2)
+    assert _scaled_err(_np(t_out), out) <= tol_fwd
+    assert _scaled_err(_np(t_lse), lse) <= tol_fwd * 10
+    for name, a, b in zip(("dq", "dk", "dv"), t_grads, (dq, dk, dv)):
+        assert _scaled_err(_np(a), b) <= tol_bwd, name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("Dh", [64, 128])
+def test_q_multiplier_rounds_like_jax(dtype, Dh):
+    """The kernels scale q by ``scale * log2e`` rounded to the storage
+    dtype, as a weakly typed Python float meets a JAX array."""
+    c = jattn.LOG2E / math.sqrt(Dh)
+    ref = float(np.asarray(jnp.ones((1,), jnp.dtype(dtype)) * c,
+                           np.float32)[0])
+    assert tattn._q_multiplier(convert.torch_dtype(dtype), Dh) == ref
+
+
+def test_function_takes_the_plain_path_on_cpu():
+    """On CPU tensors the Function runs the plain versions, counts them as
+    plain calls (never as launches), and its gradients equal autograd
+    through reference_attention."""
+    _, (q, k, v, g) = _inputs(1, 30, 8, 2, 32, seed=3)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    tattn.reset_launch_counts()
+    out = tattn.flash_attention(q, k, v)
+    got = torch.autograd.grad(out, (q, k, v), g)
+    assert tattn.PLAIN_CALLS == {"flash_forward": 1, "flash_bwd_dq": 1,
+                                 "flash_bwd_dkv": 1}
+    assert set(tattn.LAUNCHES.values()) == {0}
+    ref_out = tattn.reference_attention(q, k, v)
+    ref = torch.autograd.grad(ref_out, (q, k, v), g)
+    assert torch.equal(out, ref_out)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_with_lse_matches_reference_layout():
+    (q, k, v, _), (tq, tk, tv, _) = _inputs(2, 20, 4, 2, 32, seed=4)
+    ref, ref_lse = jattn.flash_attention_with_lse(q, k, v)
+    out, lse = tattn.flash_attention_with_lse(tq, tk, tv)
+    assert tuple(lse.shape) == ref_lse.shape == (2, 4, 20, 1)
+    np.testing.assert_allclose(_np(out), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(_np(lse), np.asarray(ref_lse), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    _, (q, k, v, g) = _inputs(1, 16, 4, 2, 64)
+    lse = torch.zeros((2, 2, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        tattn.flash_forward_cuda(q, k, v)
+    with pytest.raises(ValueError, match="CUDA"):
+        tattn.flash_bwd_dq_cuda(q, k, v, g, lse, lse)
+    with pytest.raises(ValueError, match="CUDA"):
+        tattn.flash_bwd_dkv_cuda(q, k, v, g, lse, lse)

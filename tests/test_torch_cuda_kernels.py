@@ -12,10 +12,13 @@ import torch
 
 from k8s_operator_libs_tpu_torch.models import paged as tpaged
 from k8s_operator_libs_tpu_torch.models.generate import generate
-from k8s_operator_libs_tpu_torch.models.llama import LlamaConfig, init_params
+from k8s_operator_libs_tpu_torch.models.llama import (LlamaConfig, init_params,
+                                                      param_leaves)
 from k8s_operator_libs_tpu_torch.models.serve import ContinuousBatcher
+from k8s_operator_libs_tpu_torch.ops import attention as fa
 from k8s_operator_libs_tpu_torch.ops import build
 from k8s_operator_libs_tpu_torch.ops import paged_attention as attn
+from k8s_operator_libs_tpu_torch.parallel import fsdp
 from k8s_operator_libs_tpu_torch.utils.device import resolve_device
 
 
@@ -28,11 +31,12 @@ def cuda():
     return torch.device("cuda")
 
 
-def test_library_name_tracks_source_and_flags():
-    path = build.library_path("paged_decode")
+@pytest.mark.parametrize("name", ["paged_decode", "flash_attention"])
+def test_library_name_tracks_source_and_flags(name):
+    path = build.library_path(name)
     assert path.parent == build.BUILD_DIR
-    assert path.name.startswith("libpaged_decode-") and path.suffix == ".so"
-    assert build.library_path("paged_decode") == path
+    assert path.name.startswith(f"lib{name}-") and path.suffix == ".so"
+    assert build.library_path(name) == path
 
 
 def test_cuda_entry_points_refuse_to_fall_back():
@@ -130,3 +134,107 @@ def test_batcher_decodes_through_the_kernel(cuda):
         ref = generate(params, torch.as_tensor(p[None], device=cuda), cfg,
                        max_new_tokens=7)[0].cpu().numpy()
         np.testing.assert_array_equal(out[rid], ref)
+
+
+# ------------------------------------------------ flash attention (A-K1-3)
+
+def _qkv(device, dtype, B, T, H, KV, Dh, seed=0):
+    gen = np.random.default_rng(seed)
+    return tuple(torch.as_tensor(gen.standard_normal(s), dtype=torch.float32
+                                 ).to(device, dtype)
+                 for s in ((B, T, H, Dh), (B, T, KV, Dh), (B, T, KV, Dh),
+                           (B, T, H, Dh)))
+
+
+def _scaled_err(got, ref):
+    """max |got - plain| over max(1, max |plain|)."""
+    ref = ref.float()
+    return float((got.float() - ref).abs().max()
+                 / ref.abs().max().clamp_min(1.0))
+
+
+# Tolerances, as a share of max(1, max |plain|): fp32 is summation order
+# over up to T terms and exp2f's 2 ulp; bf16/fp16 add the kernels' own
+# roundings, which the plain version does not make: q * scale * log2e
+# rounded to the storage type (the constant itself is rounded, 2^-9
+# relative in bf16), P rounded before P V and dS before dS K, and the
+# output's rounding. Over scores of |s| <= ~4 that moves P by ~1-2%.
+FLASH_TOL = {torch.float32: (1e-4, 2e-4), torch.bfloat16: (2e-2, 5e-2),
+             torch.float16: (1e-2, 2e-2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("B,T,H,KV,Dh,causal", [
+    (1, 256, 8, 2, 128, True),
+    (2, 1000, 4, 4, 64, False),        # ragged T, G = 1
+    (1, 333, 12, 4, 64, True),         # G = 3, ragged
+    (1, 200, 16, 2, 32, True),         # G = 8, Dh 32
+    (2, 130, 4, 2, 128, False),
+])
+def test_flash_kernels_match_plain(cuda, dtype, B, T, H, KV, Dh, causal):
+    q, k, v, do = _qkv(cuda, dtype, B, T, H, KV, Dh)
+    fa.reset_launch_counts()
+    out, lse = fa.flash_forward(q, k, v, causal)
+    dq, dk, dv = fa.flash_backward(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {"flash_forward": 1, "flash_bwd_dq": 1,
+                           "flash_bwd_dkv": 1}
+    ref_out, ref_lse = fa.reference_attention_with_lse(q, k, v, causal)
+    # the backward is held on the forward's own out and lse, so each
+    # kernel is checked on its own
+    ref_grads = fa.flash_backward_plain(q, k, v, out, lse, do, causal)
+    tol_fwd, tol_bwd = FLASH_TOL[dtype]
+    for got in (out, lse, dq, dk, dv):
+        assert torch.isfinite(got).all()
+    assert _scaled_err(out, ref_out) <= tol_fwd
+    assert float((lse - ref_lse).abs().max()) <= tol_fwd * max(
+        1.0, float(ref_lse.abs().max()))
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), ref_grads):
+        assert got.shape == ref.shape and got.dtype == ref.dtype
+        assert _scaled_err(got, ref) <= tol_bwd, name
+
+
+def test_flash_kernels_are_deterministic(cuda):
+    q, k, v, do = _qkv(cuda, torch.bfloat16, 1, 300, 8, 2, 128, seed=1)
+    runs = []
+    for _ in range(2):
+        out, lse = fa.flash_forward(q, k, v, True)
+        runs.append((out, lse, *fa.flash_backward(q, k, v, out, lse, do)))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_flash_kernels_refuse_what_they_do_not_take(cuda):
+    q, k, v, _ = _qkv(cuda, torch.bfloat16, 1, 64, 4, 2, 128)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_forward_cuda(q.transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_forward_cuda(q[..., :96].contiguous(),
+                              k[..., :96].contiguous(),
+                              v[..., :96].contiguous())
+    with pytest.raises(ValueError, match="dtypes"):
+        fa.flash_forward_cuda(q, k.float(), v)
+
+
+def test_training_through_the_kernels_matches_plain(cuda):
+    """One step's loss and gradients on ``tiny`` (Dh 32, G 2) with remat:
+    through A-K1/A-K2/A-K3 (each launched once per layer) against the
+    plain attention, fp32 with TF32 off: summation order only, 1e-5 of
+    the loss and 1e-3 of each leaf's largest gradient."""
+    cfg = LlamaConfig.tiny(dtype=torch.float32, remat=True)
+    params = init_params(cfg, seed=0, device=cuda)
+    tokens = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 65)), dtype=torch.int32, device=cuda)
+    runs = {}
+    for name, attn_fn in (("kernels", None), ("plain", fa.reference_attention)):
+        fa.reset_launch_counts()
+        runs[name] = fsdp.value_and_grad(
+            lambda p, t: fsdp.causal_lm_loss(p, t, cfg, attn_fn), params,
+            tokens)
+        want = cfg.n_layers if attn_fn is None else 0
+        assert fa.LAUNCHES == {n: want for n in fa.LAUNCHES}
+    (lk, gk), (lp, gp) = runs["kernels"], runs["plain"]
+    assert abs(float(lk) - float(lp)) <= 1e-5 * abs(float(lp))
+    for a, b in zip(param_leaves(gk), param_leaves(gp)):
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
