@@ -1,8 +1,9 @@
 """Builds the port's CUDA sources into shared libraries and loads them.
 
-Each ``csrc/*.cu`` file has a plain C interface and is compiled at first
-use by ``nvcc`` for ``sm_90a`` into ``build/torch_kernels/`` beside the
-package (a directory ``.gitignore`` lists), then loaded with ``ctypes``.
+Each ``csrc/*.cu`` file has a plain C interface and is compiled by
+``nvcc`` for ``sm_90a`` at first use (or all at once, by
+:func:`build_all`) into ``build/torch_kernels/`` beside the package (a
+directory ``.gitignore`` lists), then loaded with ``ctypes``.
 The library's file name carries a hash of the source and the flags, so an
 edited source is rebuilt and never served stale.
 """
@@ -17,7 +18,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -53,26 +54,39 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build(name: str) -> Tuple[Path, float, str]:
-    """Compile ``csrc/<name>.cu`` unless its library is already built.
-    Returns (library path, build seconds, compiler log); a library already
-    built is reused with 0 seconds and an empty log."""
-    out = library_path(name)
-    if out.exists():
-        return out, 0.0, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+def build_all(names: Sequence[str]) -> Dict[str, Tuple[Path, float, str]]:
+    """Compile each ``csrc/<name>.cu`` whose library is not built yet, one
+    ``nvcc`` per source, all started together. Returns, per name, (library
+    path, build seconds, compiler log); a library already built is reused
+    with 0 seconds and an empty log."""
+    done: Dict[str, Tuple[Path, float, str]] = {}
+    running = {}
     t0 = time.monotonic()
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(CSRC_DIR / f"{name}.cu")],
-                          capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed to build {name}.cu "
-                           f"(exit {proc.returncode}):\n{log}")
-    os.replace(tmp, out)          # atomic: a reader never sees half a file
-    return out, time.monotonic() - t0, log
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            done[name] = (out, 0.0, "")
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                                 str(CSRC_DIR / f"{name}.cu")],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running[name] = (out, tmp, proc)
+    failed = []
+    for name, (out, tmp, proc) in running.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed to build {name}.cu "
+                          f"(exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)      # atomic: a reader never sees half a file
+        done[name] = (out, time.monotonic() - t0, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: done[name] for name in names}
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -80,6 +94,6 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            path, _, _ = build(name)
+            path, _, _ = build_all([name])[name]
             lib = _loaded[name] = ctypes.CDLL(str(path))
         return lib

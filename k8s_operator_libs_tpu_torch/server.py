@@ -148,78 +148,83 @@ class ServingRuntime:
         self.thread.join(timeout=30)
 
 
-def make_handler(rt: ServingRuntime):
-    class Handler(BaseHTTPRequestHandler):
-        def log_message(self, *a):  # quiet
-            pass
+class Handler(BaseHTTPRequestHandler):
+    """Reads its runtime from the server (``make_server`` sets
+    ``httpd.rt``); a class that closed over the runtime would sit in a
+    reference cycle and keep the weights alive after shutdown until a
+    garbage collection."""
 
-        def _json(self, code, obj):
-            body = json.dumps(obj).encode()
-            self.send_response(code)
-            self.send_header("Content-Type", "application/json")
+    def log_message(self, *a):  # quiet
+        pass
+
+    def _json(self, code, obj):
+        body = json.dumps(obj).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def do_GET(self):
+        rt = self.server.rt
+        if self.path == "/healthz":
+            if rt.failed:
+                self._json(503, {"status": "failed"})
+            elif rt.draining:
+                self._json(503, {"status": "draining"})
+            else:
+                self._json(200, {"status": "ok"})
+        elif self.path == "/metrics":
+            body = rt.metrics_text().encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "text/plain; charset=utf-8")
             self.send_header("Content-Length", str(len(body)))
             self.end_headers()
             self.wfile.write(body)
+        else:
+            self._json(404, {"error": "not found"})
 
-        def do_GET(self):
-            if self.path == "/healthz":
-                if rt.failed:
-                    self._json(503, {"status": "failed"})
-                elif rt.draining:
-                    self._json(503, {"status": "draining"})
-                else:
-                    self._json(200, {"status": "ok"})
-            elif self.path == "/metrics":
-                body = rt.metrics_text().encode()
-                self.send_response(200)
-                self.send_header("Content-Type", "text/plain; charset=utf-8")
-                self.send_header("Content-Length", str(len(body)))
-                self.end_headers()
-                self.wfile.write(body)
-            else:
-                self._json(404, {"error": "not found"})
-
-        def do_POST(self):
-            if self.path == "/drain":
-                self._json(200, {"handoff": rt.drain()})
-                return
-            if self.path != "/generate":
-                self._json(404, {"error": "not found"})
-                return
-            try:
-                n = int(self.headers.get("Content-Length", 0))
-                req = json.loads(self.rfile.read(n))
-                tokens = [int(t) for t in req["tokens"]]
-                max_new = int(req.get("max_new", 32))
-            except (ValueError, KeyError, TypeError) as exc:
-                self._json(400, {"error": f"bad request: {exc}"})
-                return
-            try:
-                sub = rt.submit(tokens, max_new)
-            except (ValueError, TypeError) as exc:   # over capacity etc.
-                self._json(422, {"error": str(exc)})
-                return
-            if sub is None:
-                self._json(503, {"error": "draining or failed; submit to "
-                                          "a peer"})
-                return
-            rid, ev = sub
-            ev.wait()
-            toks = rt.result(rid)
-            if toks is None:
-                self._json(503, {"error": "not served here; resubmit to a "
-                                          "peer"})
-            else:
-                self._json(200, {"tokens": toks})
-
-    return Handler
+    def do_POST(self):
+        rt = self.server.rt
+        if self.path == "/drain":
+            self._json(200, {"handoff": rt.drain()})
+            return
+        if self.path != "/generate":
+            self._json(404, {"error": "not found"})
+            return
+        try:
+            n = int(self.headers.get("Content-Length", 0))
+            req = json.loads(self.rfile.read(n))
+            tokens = [int(t) for t in req["tokens"]]
+            max_new = int(req.get("max_new", 32))
+        except (ValueError, KeyError, TypeError) as exc:
+            self._json(400, {"error": f"bad request: {exc}"})
+            return
+        try:
+            sub = rt.submit(tokens, max_new)
+        except (ValueError, TypeError) as exc:   # over capacity etc.
+            self._json(422, {"error": str(exc)})
+            return
+        if sub is None:
+            self._json(503, {"error": "draining or failed; submit to a "
+                                      "peer"})
+            return
+        rid, ev = sub
+        ev.wait()
+        toks = rt.result(rid)
+        if toks is None:
+            self._json(503, {"error": "not served here; resubmit to a "
+                                      "peer"})
+        else:
+            self._json(200, {"tokens": toks})
 
 
 def make_server(rt: ServingRuntime, host: str = "127.0.0.1",
                 port: int = 0) -> ThreadingHTTPServer:
     """The HTTP server over ``rt`` (port 0 picks a free port; read it
     back from ``server_address``). The caller runs ``serve_forever``."""
-    httpd = ThreadingHTTPServer((host, port), make_handler(rt))
+    httpd = ThreadingHTTPServer((host, port), Handler)
+    httpd.rt = rt
     httpd.daemon_threads = True
     return httpd
 

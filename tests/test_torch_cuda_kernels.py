@@ -146,21 +146,27 @@ def _qkv(device, dtype, B, T, H, KV, Dh, seed=0):
                            (B, T, H, Dh)))
 
 
-def _scaled_err(got, ref):
-    """max |got - plain| over max(1, max |plain|)."""
+def _reading(got, ref, rtol, atol):
+    """The largest share of its tolerance an element uses: |got - plain| <=
+    atol * row + rtol * |plain|, row the RMS of the plain row (the last
+    dim), floored at 1e-2 of the tensor's RMS for rows that vanish (dq's
+    first causal row). At most 1 passes."""
     ref = ref.float()
-    return float((got.float() - ref).abs().max()
-                 / ref.abs().max().clamp_min(1.0))
+    row = ref.square().mean(-1, keepdim=True).sqrt()
+    row = row.clamp_min(1e-2 * float(ref.square().mean().sqrt()))
+    err = (got.float() - ref).abs()
+    return float((err / (atol * row + rtol * ref.abs())).max())
 
 
-# Tolerances, as a share of max(1, max |plain|): fp32 is summation order
-# over up to T terms and exp2f's 2 ulp; bf16/fp16 add the kernels' own
-# roundings, which the plain version does not make: q * scale * log2e
-# rounded to the storage type (the constant itself is rounded, 2^-9
-# relative in bf16), P rounded before P V and dS before dS K, and the
-# output's rounding. Over scores of |s| <= ~4 that moves P by ~1-2%.
-FLASH_TOL = {torch.float32: (1e-4, 2e-4), torch.bfloat16: (2e-2, 5e-2),
-             torch.float16: (1e-2, 2e-2)}
+# (rtol, atol, lse in nats), per element as in ``_reading``: fp32 is
+# summation order over up to T terms and exp2f's 2 ulp; bf16/fp16 add the
+# kernels' own roundings, which the plain version does not make: q * scale
+# * log2e rounded to the storage type (the constant itself is rounded,
+# 2^-9 relative in bf16), P rounded before P V and dS before dS K, and the
+# output's rounding.
+FLASH_TOL = {torch.float32: (1e-4, 1e-4, 1e-4),
+             torch.bfloat16: (4e-2, 4e-2, 2.5e-2),
+             torch.float16: (5e-3, 5e-3, 5e-3)}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
@@ -184,15 +190,15 @@ def test_flash_kernels_match_plain(cuda, dtype, B, T, H, KV, Dh, causal):
     # the backward is held on the forward's own out and lse, so each
     # kernel is checked on its own
     ref_grads = fa.flash_backward_plain(q, k, v, out, lse, do, causal)
-    tol_fwd, tol_bwd = FLASH_TOL[dtype]
+    rtol, atol, lse_tol = FLASH_TOL[dtype]
     for got in (out, lse, dq, dk, dv):
         assert torch.isfinite(got).all()
-    assert _scaled_err(out, ref_out) <= tol_fwd
-    assert float((lse - ref_lse).abs().max()) <= tol_fwd * max(
-        1.0, float(ref_lse.abs().max()))
-    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), ref_grads):
+    assert float((lse - ref_lse).abs().max()) <= lse_tol
+    for name, got, ref in zip(("out", "dq", "dk", "dv"), (out, dq, dk, dv),
+                              (ref_out, *ref_grads)):
         assert got.shape == ref.shape and got.dtype == ref.dtype
-        assert _scaled_err(got, ref) <= tol_bwd, name
+        reading = _reading(got, ref, rtol, atol)
+        assert reading <= 1.0, (name, reading)
 
 
 def test_flash_kernels_are_deterministic(cuda):

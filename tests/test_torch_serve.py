@@ -207,3 +207,37 @@ def test_http_server_serves_drains_and_exposes_metrics(weights):
         httpd.server_close()
         rt.stop()
         thread.join(timeout=10)
+
+
+def test_stopped_server_frees_its_weights_without_a_collection(weights):
+    """Once the server is shut down and the runtime stopped, dropping the
+    last references frees the batcher and its weights at once: nothing
+    of the server holds them in a reference cycle that waits for the
+    garbage collector."""
+    import gc
+    import weakref
+
+    _, shared = weights
+    params = {k: (v.clone() if torch.is_tensor(v) else
+                  {n: t.clone() for n, t in v.items()})
+              for k, v in shared.items()}
+    alive = weakref.ref(params["embed"])
+    gc.disable()
+    try:
+        rt = ServingRuntime(params, TCFG, max_slots=2, capacity=48,
+                            block_size=8, chunk=4)
+        httpd = make_server(rt, "127.0.0.1", 0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        code, _ = _http(base + "/generate", {"tokens": [1, 2, 3],
+                                             "max_new": 2})
+        assert code == 200
+        httpd.shutdown()
+        httpd.server_close()
+        rt.stop()
+        thread.join(timeout=10)
+        del rt, httpd, thread, params
+        assert alive() is None
+    finally:
+        gc.enable()
