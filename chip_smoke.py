@@ -8,20 +8,25 @@ non-zero, printing no result, when there is no GPU or no port beside it.
 Phases, each fatal on failure:
 
 1. Device and build: the card's name and power limit (``nvidia-smi``),
-   then the port's CUDA sources built with one ``nvcc`` each, all at once.
+   then the port's CUDA sources built with one ``nvcc`` each, all at once,
+   with each kernel's registers and spills. The tensor-core backward
+   (``flash_attention_bwd.cu``) must spill nothing and, where
+   ``cuobjdump`` is installed, hold ``HGMMA`` instructions.
 2. Kernels against their plain PyTorch versions. Paged decode at the
    Llama-3-8B decode attention shape (H 32, KV 8, Dh 128, block 16, 4
    sequences of capacity 1024, ragged lengths 0/17/300/1023, a shuffled
    table, NaN in every dead block): A-K4 on bf16 pools, A-K5 on int8
-   pools. Flash attention (A-K1 forward, A-K2 dq, A-K3 dk/dv) at four
-   shapes: the training shape below (B 2, T 2048, H 32, KV 8, Dh 128,
+   pools. Flash attention (A-K1 forward, A-K2 dq, A-K3 dk/dv; the
+   backward on the tensor cores for bf16, on the FMA kernels for fp32) at
+   four shapes: the training shape below (B 2, T 2048, H 32, KV 8, Dh 128,
    bf16, causal), T 1000 non-causal, H 12 / KV 4 / Dh 64, and fp32; every
    element of out, dq, dk and dv within a tolerance relative to its own
    row, lse within a tolerance in nats, and each tolerance shown to
    reject a kernel that skipped one tile (``planted_faults``). Times at
    the main shapes with CUDA events on a cold L2: kernel, plain version,
    bound, and ``F.scaled_dot_product_attention`` as a yardstick (the port
-   never calls it).
+   never calls it); the whole backward (the delta pass, A-K2 and A-K3)
+   beside SDPA's autograd backward.
 3. Serving at full size: Llama-3-8B, all 32 layers in bf16, weights seeded
    on the card, behind the port's HTTP server (4 slots, capacity 1024,
    block 16, chunk 4); 4 concurrent ``/generate`` requests with ragged
@@ -67,7 +72,9 @@ H100_BF16_FLOPS = 989e12        # dense tensor-core peak
 BS, CAPACITY, SLOTS, CHUNK, MAX_NEW = 16, 1024, 4, 4, 32
 PROMPT_LENS = (24, 100, 300, 700)
 KERNEL_LENGTHS = (0, 17, 300, 1023)
-SOURCES = ("paged_decode", "flash_attention")
+SOURCES = ("paged_decode", "flash_attention", "flash_attention_bwd")
+# kernels that must spill nothing and run on the tensor cores (phase 1)
+TENSOR_CORE_KERNELS = ("flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel")
 CSRC = "k8s_operator_libs_tpu_torch/csrc/{}.cu"
 
 
@@ -113,9 +120,13 @@ def time_cold_ms(torch, fn, iters=25):
 
 def phase_build():
     """Build every CUDA source at once: one nvcc per source, started
-    together."""
+    together. Fails if a tensor-core kernel spills or, where cuobjdump is
+    installed, holds no HGMMA (wgmma) instruction."""
+    import shutil
+
     from k8s_operator_libs_tpu_torch.ops import build
-    for name, (path, secs, compiler_log) in build.build_all(SOURCES).items():
+    built = build.build_all(SOURCES)
+    for name, (path, secs, compiler_log) in built.items():
         log(f"phase 1: built {name} in {secs:.1f} s -> {path.name}")
         kernel = spills = ""
         for line in compiler_log.splitlines():
@@ -125,9 +136,33 @@ def phase_build():
                                 line.split("'")[1])[:64]
             elif "spill" in line:
                 spills = line.strip()
+                if any(k in kernel for k in TENSOR_CORE_KERNELS):
+                    check(" 0 bytes spill stores, 0 bytes spill loads" in
+                          line, f"{kernel} spills: {spills}")
             elif "registers" in line:
                 log(f"  ptxas: {kernel}: {line.split(':', 1)[1].strip()}; "
                     f"{spills}")
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(cuobjdump).is_file():
+        log("phase 1: no cuobjdump: HGMMA not checked")
+        return
+    sass = subprocess.run([cuobjdump, "-sass",
+                           str(built["flash_attention_bwd"][0])],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    hgmma, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split(":", 1)[1].strip()
+            hgmma[fn] = 0
+        elif fn and "HGMMA" in line:
+            hgmma[fn] += 1
+    for k in TENSOR_CORE_KERNELS:
+        counts = [n for f, n in hgmma.items() if k in f]
+        check(counts and min(counts) > 0,
+              f"{k}: an instance without HGMMA in its SASS ({counts})")
+        log(f"phase 1: {k}: {len(counts)} instances, HGMMA instructions "
+            f"per instance {min(counts)}-{max(counts)} (cuobjdump -sass)")
 
 
 def kernel_case(torch, int8, seed=0):
@@ -429,6 +464,10 @@ def phase_flash(torch):
                                               causal),
                 None, None),
         }
+        fa.reset_launch_counts()
+        fa.flash_backward(q, k, v, out, lse, do, causal)
+        check(fa.ROUTE_LAUNCHES == {"wgmma": 2, "fma": 0},
+              f"the bf16 backward took routes {fa.ROUTE_LAUNCHES}")
         bwd_plain_ms = time_cold_ms(torch, lambda: fa.flash_backward_plain(
             q, k, v, out, lse, do, causal), iters=10)
         bwd_lib_ms = time_cold_ms(torch, lambda: torch.autograd.grad(
@@ -449,6 +488,24 @@ def phase_flash(torch):
             log(f"phase 2: {name} ms {ms:.4f} plain_ms {plain_ms:.4f} "
                 f"library_ms {library_ms:.4f} bound_ms {b_ms:.5f} "
                 f"({bound_by}) -> {b_ms / ms:.2%} of bound")
+        delta_ms = time_cold_ms(torch, lambda: fa.attention_delta(out, do,
+                                                                  KV))
+        # delta reads dO and out once and writes one fp32 per row
+        delta_bound = ((2 * out.numel() * out.element_size() + B * H * T * 4)
+                       / H100_BYTES_PER_S * 1e3)
+        whole = (delta_ms + results["flash_bwd_dq"]["ms"]
+                 + results["flash_bwd_dkv"]["ms"])
+        results["backward"] = {"delta_ms": delta_ms,
+                               "delta_bound_ms": delta_bound,
+                               "whole_ms": whole, "library_ms": bwd_lib_ms}
+        log(f"phase 2: attention_delta (plain PyTorch) ms {delta_ms:.4f} "
+            f"bound_ms {delta_bound:.5f} (bytes) -> "
+            f"{delta_bound / delta_ms:.2%} of bound")
+        log(f"phase 2: whole backward: delta {delta_ms:.4f} + A-K2 "
+            f"{results['flash_bwd_dq']['ms']:.4f} + A-K3 "
+            f"{results['flash_bwd_dkv']['ms']:.4f} = {whole:.4f} ms vs SDPA's "
+            f"autograd backward {bwd_lib_ms:.4f} ms (its own preprocessing "
+            f"included): {whole / bwd_lib_ms:.2f}x")
         log(f"phase 2: flash plain/library: the backward's plain_ms is "
             f"flash_backward_plain (dq, dk, dv together) and its library_ms "
             f"the autograd backward of F.scaled_dot_product_attention over "
@@ -828,10 +885,12 @@ def phase_train(torch):
     if not busy:
         log("phase 5: profile: no device time recorded (not measured)")
         return stats
+    # kernel symbols: flash_fwd_kernel; flash_bwd_dq(_tc)_kernel and
+    # flash_bwd_dkv(_tc)_kernel, whichever the dtype routes to
     shares = {n: sum(t for t, _, key in kernels if k in key)
-              for n, k in (("flash_forward", "flash_fwd_kernel"),
-                           ("flash_bwd_dq", "flash_bwd_dq_kernel"),
-                           ("flash_bwd_dkv", "flash_bwd_dkv_kernel"))}
+              for n, k in (("flash_forward", "flash_fwd"),
+                           ("flash_bwd_dq", "flash_bwd_dq"),
+                           ("flash_bwd_dkv", "flash_bwd_dkv"))}
     log(f"phase 5: profile of one step: wall {wall_ms:.1f} ms (profiled), "
         f"device busy {busy:.1f} ms, idle share {1 - busy / wall_ms:.1%}; "
         + ", ".join(f"{n} {t:.1f} ms = {t / busy:.1%}"
@@ -999,9 +1058,9 @@ def main():
              parity["launches_int8"]),
             ("flash_forward", "flash_attention", f"{jax_attn}:236",
              training["launches_flash_forward"]),
-            ("flash_bwd_dq", "flash_attention", f"{jax_attn}:439",
+            ("flash_bwd_dq", "flash_attention_bwd", f"{jax_attn}:439",
              training["launches_flash_bwd_dq"]),
-            ("flash_bwd_dkv", "flash_attention", f"{jax_attn}:519",
+            ("flash_bwd_dkv", "flash_attention_bwd", f"{jax_attn}:519",
              training["launches_flash_bwd_dkv"])):
         k = kernels[name]
         rows.append({"name": name, "route": "cuda",
@@ -1011,7 +1070,8 @@ def main():
                      "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
                      "library_ms": k["library_ms"]})
     print(json.dumps({"kernels": rows}))
-    for key, stats in (("serving", serve), ("training", training)):
+    for key, stats in (("serving", serve), ("training", training),
+                       ("flash_backward", kernels["backward"])):
         print(json.dumps({key: {k: (round(v, 6) if isinstance(v, float)
                                     else v) for k, v in stats.items()}}))
     print(smi)

@@ -20,15 +20,17 @@
 //   A-K3: dv = round_T(sum round_T(p)^T . do), dk = round_T(scale * sum ds^T . q)
 //         over the rows of all G heads of the group (the GQA sum is inside
 //         the contraction), with the UNSCALED q (:569, :612)
-// Every product accumulates in fp32 by FMA; T is bf16, fp16 or fp32.
+// Every product accumulates in fp32 by FMA; T is bf16, fp16 or fp32 for
+// A-K1 and fp32 for A-K2/A-K3 (flash_attention_bwd.cu takes bf16 and fp16
+// on the tensor cores).
 //
 // Bound: at the Llama-3-8B training shape (T 2048, Dh 128) the work is
 // 4*B*H*Dh*sum_visible flops forward (6x backward dq, 8x dkv) on O(T*Dh)
 // bytes, far above the ~295 flop/byte the H100 needs before its tensor
 // cores would be the limit; so operations bound it, at 989 TFLOP/s bf16.
 // These kernels multiply on the FMA units (fp32), whose peak is 67 TFLOP/s,
-// so they cannot come near the bound: the tensor-core redesign (wgmma fed
-// by TMA, as in FlashAttention-3) is the later step. What this design
+// so they cannot come near the bound; fp32 stays here because the tensor
+// cores' fp32 (TF32) would not hold fp32 parity. What this design
 // does about the bound it can see:
 //   - the TPU's sequential third grid dimension (the streamed superblock,
 //     state in VMEM scratch) is a loop inside one CTA, state in registers;
@@ -52,6 +54,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -711,15 +715,14 @@ int launch_dkv(const Args& a) {
 enum Kind { kF32 = 0, kBF16 = 1, kF16 = 2 };
 enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 
+// the backward of bf16 and fp16 runs on the tensor cores
+// (flash_attention_bwd.cu); here only fp32's
 template <typename T, int DH>
 int launch_one(int which, const Args& a) {
-  switch (which) {
-    case kFwd:
-      return launch_fwd<T, DH>(a);
-    case kDq:
-      return launch_dq<T, DH>(a);
-    case kDkv:
-      return launch_dkv<T, DH>(a);
+  if (which == kFwd) return launch_fwd<T, DH>(a);
+  if constexpr (std::is_same<T, float>::value) {
+    if (which == kDq) return launch_dq<T, DH>(a);
+    if (which == kDkv) return launch_dkv<T, DH>(a);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -770,7 +773,7 @@ int flash_forward_launch(int kind, const void* q, const void* k, const void* v, 
   return launch(kFwd, kind, Dh, a);
 }
 
-// A-K2: dq from q, k, v, dO, lse and delta = rowsum(dO * out).
+// A-K2 (fp32): dq from q, k, v, dO, lse and delta = rowsum(dO * out).
 int flash_bwd_dq_launch(int kind, const void* q, const void* k, const void* v, const void* dout,
                         const void* lse, const void* delta, void* dq, int B, int T, int H, int KV,
                         int Dh, int causal, float qmul, float scale, void* stream) {
@@ -779,7 +782,7 @@ int flash_bwd_dq_launch(int kind, const void* q, const void* k, const void* v, c
   return launch(kDq, kind, Dh, a);
 }
 
-// A-K3: dk and dv from the same inputs.
+// A-K3 (fp32): dk and dv from the same inputs.
 int flash_bwd_dkv_launch(int kind, const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* delta, void* dk, void* dv,
                          int B, int T, int H, int KV, int Dh, int causal, float qmul, float scale,

@@ -5,9 +5,12 @@ Port of ``k8s_operator_libs_tpu/ops/attention.py:1-720, 914-941``: the
 flash forward (A-K1, ``_flash_kernel``), the dq backward (A-K2,
 ``_flash_bwd_dq_kernel``) and the dk/dv backward (A-K3,
 ``_flash_bwd_dkv_kernel``), joined by the custom VJP of
-``flash_attention``. The kernels live in ``csrc/flash_attention.cu`` (CUDA
-C++ for ``sm_90a``), built at first use by :mod:`.build` and called
-through ``ctypes`` on PyTorch's current stream.
+``flash_attention``. The kernels are CUDA C++ for ``sm_90a``, built at
+first use by :mod:`.build` and called through ``ctypes`` on PyTorch's
+current stream: A-K1 and the fp32 backward in ``csrc/flash_attention.cu``
+(FMA units), the bf16/fp16 backward in ``csrc/flash_attention_bwd.cu``
+(tensor cores, ``wgmma``). :func:`backward_route` picks the backward's
+source by dtype: TF32, the tensor cores' fp32, would not hold fp32 parity.
 
 Dispatch: :func:`flash_forward` and :func:`flash_backward` launch the
 kernels for CUDA tensors (or raise: there is no fallback) and take the
@@ -36,8 +39,10 @@ LOG2E = 1.4426950408889634
 NEG_INF = -1e30
 
 # launches per kernel since the last reset (A-K1, A-K2, A-K3 in PERF.md),
-# and the plain versions' calls that stand in for them on the CPU
+# the backward launches by route (see backward_route), and the plain
+# versions' calls that stand in for the kernels on the CPU
 LAUNCHES = {"flash_forward": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+ROUTE_LAUNCHES = {"wgmma": 0, "fma": 0}
 PLAIN_CALLS = {"flash_forward": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 _KIND = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -47,16 +52,38 @@ MAX_GROUP = 64          # query heads per K/V head: the kernels' 64-row tile
 _fns = {}
 
 
+# route -> (CUDA source, suffix of the backward's entry points)
+_ROUTE_SOURCES = {"fma": ("flash_attention", ""),
+                  "wgmma": ("flash_attention_bwd", "_tc")}
+
+
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, PLAIN_CALLS):
+    for counts in (LAUNCHES, ROUTE_LAUNCHES, PLAIN_CALLS):
         for name in counts:
             counts[name] = 0
 
 
-def _launcher(name: str):
-    fn = _fns.get(name)
+def backward_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The backward kernels that take q of ``dtype`` and ``head_dim``:
+    "wgmma" (``csrc/flash_attention_bwd.cu``, the tensor cores) for bf16
+    and fp16, "fma" (``csrc/flash_attention.cu``) for fp32, whose parity
+    TF32 would break. Raises ValueError for what neither takes."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"head_dim {head_dim} not in {HEAD_DIMS}")
+    if dtype in (torch.bfloat16, torch.float16):
+        return "wgmma"
+    if dtype == torch.float32:
+        return "fma"
+    raise ValueError(f"dtype {dtype}: the backward kernels take fp32, "
+                     f"bf16 or fp16")
+
+
+def _launcher(name: str, route: str = "fma"):
+    source, suffix = _ROUTE_SOURCES[route]
+    key = name + suffix
+    fn = _fns.get(key)
     if fn is None:
-        fn = getattr(build.load("flash_attention"), f"{name}_launch")
+        fn = getattr(build.load(source), f"{key}_launch")
         fn.restype = ctypes.c_int
         n_ptr = {"flash_forward": 5, "flash_bwd_dq": 7,
                  "flash_bwd_dkv": 8}[name]
@@ -65,7 +92,7 @@ def _launcher(name: str):
             scalars.append(ctypes.c_float)
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * n_ptr + scalars
                        + [ctypes.c_void_p])
-        _fns[name] = fn
+        _fns[key] = fn
     return fn
 
 
@@ -226,12 +253,14 @@ def _check_residuals(q, lse, delta, dout):
 
 
 def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal=True):
-    """Launch A-K2 on the current stream: dq like q."""
+    """Launch A-K2 on the current stream, on the kernel
+    :func:`backward_route` names: dq like q."""
     _check(q, k, v, dout, lse, delta)
     _check_residuals(q, lse, delta, dout)
     B, T, H, KV, _, Dh = _shape(q, k)
+    route = backward_route(q.dtype, Dh)
     dq = torch.empty_like(q)
-    fn = _launcher("flash_bwd_dq")
+    fn = _launcher("flash_bwd_dq", route)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(_KIND[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -240,17 +269,20 @@ def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal=True):
                 _q_multiplier(q.dtype, Dh), 1.0 / math.sqrt(Dh), stream)
     _raise_on(rc, "flash_bwd_dq")
     LAUNCHES["flash_bwd_dq"] += 1
+    ROUTE_LAUNCHES[route] += 1
     return dq
 
 
 def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, causal=True):
-    """Launch A-K3 on the current stream: (dk like k, dv like v)."""
+    """Launch A-K3 on the current stream, on the kernel
+    :func:`backward_route` names: (dk like k, dv like v)."""
     _check(q, k, v, dout, lse, delta)
     _check_residuals(q, lse, delta, dout)
     B, T, H, KV, _, Dh = _shape(q, k)
+    route = backward_route(q.dtype, Dh)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    fn = _launcher("flash_bwd_dkv")
+    fn = _launcher("flash_bwd_dkv", route)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(_KIND[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -259,6 +291,7 @@ def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, causal=True):
                 _q_multiplier(q.dtype, Dh), 1.0 / math.sqrt(Dh), stream)
     _raise_on(rc, "flash_bwd_dkv")
     LAUNCHES["flash_bwd_dkv"] += 1
+    ROUTE_LAUNCHES[route] += 1
     return dk, dv
 
 

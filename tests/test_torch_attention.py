@@ -165,6 +165,24 @@ def test_with_lse_matches_reference_layout():
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
+                                         (torch.float16, "wgmma"),
+                                         (torch.float32, "fma")])
+def test_backward_route_by_dtype(dtype, route, Dh):
+    """bf16/fp16 take the tensor-core kernels (flash_attention_bwd.cu);
+    fp32 keeps the FMA kernels, whose fp32 parity TF32 would break."""
+    assert tattn.backward_route(dtype, Dh) == route
+
+
+@pytest.mark.parametrize("dtype,Dh", [(torch.float64, 128), (torch.int8, 64),
+                                      (torch.bfloat16, 96),
+                                      (torch.float32, 256)])
+def test_backward_route_refuses_what_neither_takes(dtype, Dh):
+    with pytest.raises(ValueError):
+        tattn.backward_route(dtype, Dh)
+
+
 def test_cuda_wrappers_refuse_cpu_tensors():
     _, (q, k, v, g) = _inputs(1, 16, 4, 2, 64)
     lse = torch.zeros((2, 2, 16))

@@ -31,7 +31,8 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("name", ["paged_decode", "flash_attention"])
+@pytest.mark.parametrize("name", ["paged_decode", "flash_attention",
+                                  "flash_attention_bwd"])
 def test_library_name_tracks_source_and_flags(name):
     path = build.library_path(name)
     assert path.parent == build.BUILD_DIR
@@ -199,6 +200,60 @@ def test_flash_kernels_match_plain(cuda, dtype, B, T, H, KV, Dh, causal):
         assert got.shape == ref.shape and got.dtype == ref.dtype
         reading = _reading(got, ref, rtol, atol)
         assert reading <= 1.0, (name, reading)
+
+
+def _hold_backward(q, k, v, do, causal, dtype):
+    out, lse = fa.flash_forward(q, k, v, causal)
+    dq, dk, dv = fa.flash_backward(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    ref = fa.flash_backward_plain(q, k, v, out, lse, do, causal)
+    rtol, atol, _ = FLASH_TOL[dtype]
+    for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        assert got.shape == want.shape and got.dtype == want.dtype
+        assert torch.isfinite(got).all(), name
+        if q.shape[1] == 1 and name != "dv":
+            # one row: p = 1 and dP = delta, so dq and dk vanish but for
+            # delta's fp32 rounding (~1e-7 of |dO| |out| = Dh^0.5)
+            assert float(got.float().abs().max()) <= 1e-4, name
+            continue
+        reading = _reading(got, want, rtol, atol)
+        assert reading <= 1.0, (name, reading)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("G", [1, 8])
+@pytest.mark.parametrize("T", [1, 63, 65, 129])
+def test_tensor_core_backward_at_tile_edges(cuda, dtype, causal, Dh, G, T):
+    """The wgmma backward at the edges of its tiles (64 rows or keys, 32-row
+    A-K3 chunks): one row, one short of a tile, one past, two tiles and
+    one; G 8 folds 8 positions per A-K2 tile."""
+    KV = 2
+    _hold_backward(*_qkv(cuda, dtype, 1, T, G * KV, KV, Dh, seed=T), causal,
+                   dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_tensor_core_backward_group_of_64(cuda, dtype):
+    """G = 64: each position is a whole 64-row A-K2 tile."""
+    _hold_backward(*_qkv(cuda, dtype, 1, 70, 64, 1, 64, seed=5), True, dtype)
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
+                                         (torch.float16, "wgmma"),
+                                         (torch.float32, "fma")])
+def test_backward_takes_the_route_of_its_dtype(cuda, dtype, route):
+    """bf16/fp16 backward launches go to flash_attention_bwd.cu's entry
+    points, fp32 ones to flash_attention.cu's FMA kernels."""
+    q, k, v, do = _qkv(cuda, dtype, 1, 96, 8, 2, 64)
+    out, lse = fa.flash_forward(q, k, v, True)
+    fa.reset_launch_counts()
+    fa.flash_backward(q, k, v, out, lse, do, True)
+    torch.cuda.synchronize()
+    assert fa.ROUTE_LAUNCHES == {"wgmma": 0, "fma": 0, route: 2}
+    assert fa.LAUNCHES == {"flash_forward": 0, "flash_bwd_dq": 1,
+                           "flash_bwd_dkv": 1}
 
 
 def test_flash_kernels_are_deterministic(cuda):
