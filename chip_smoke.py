@@ -9,17 +9,25 @@ Phases, each fatal on failure:
 
 1. Device and build: the card's name and power limit (``nvidia-smi``),
    then the port's CUDA sources built with one ``nvcc`` each, all at once,
-   with each kernel's registers and spills. The tensor-core backward
-   (``flash_attention_bwd.cu``) must spill nothing and, where
-   ``cuobjdump`` is installed, hold ``HGMMA`` instructions.
+   with each kernel's registers and spills. The tensor-core flash kernels
+   (``flash_attention_tc.cu``: A-K1, A-K2, A-K3 for bf16/fp16) must spill
+   nothing and, where ``cuobjdump`` is installed, hold ``HGMMA``
+   instructions.
+
+   Which units run what: the flash forward and backward in bf16/fp16 run
+   on the tensor cores (``wgmma``, ``flash_attention_tc.cu``); in fp32
+   on the FMA units (``flash_attention.cu``: TF32 would break fp32
+   parity); paged decode (A-K4, A-K5, ``paged_decode.cu``) on the FMA
+   units.
 2. Kernels against their plain PyTorch versions. Paged decode at the
    Llama-3-8B decode attention shape (H 32, KV 8, Dh 128, block 16, 4
    sequences of capacity 1024, ragged lengths 0/17/300/1023, a shuffled
    table, NaN in every dead block): A-K4 on bf16 pools, A-K5 on int8
-   pools. Flash attention (A-K1 forward, A-K2 dq, A-K3 dk/dv; the
-   backward on the tensor cores for bf16, on the FMA kernels for fp32) at
-   four shapes: the training shape below (B 2, T 2048, H 32, KV 8, Dh 128,
-   bf16, causal), T 1000 non-causal, H 12 / KV 4 / Dh 64, and fp32; every
+   pools. Flash attention (A-K1 forward, A-K2 dq, A-K3 dk/dv; on the
+   tensor cores for bf16, on the FMA kernels for fp32, each forward's
+   route checked) at four shapes: the training shape below (B 2, T 2048,
+   H 32, KV 8, Dh 128, bf16, causal), T 1000 non-causal, H 12 / KV 4 /
+   Dh 64, and fp32; every
    element of out, dq, dk and dv within a tolerance relative to its own
    row, lse within a tolerance in nats, and each tolerance shown to
    reject a kernel that skipped one tile (``planted_faults``). Times at
@@ -42,9 +50,10 @@ Phases, each fatal on failure:
    ~64 GB for parameters, gradients and two moments alone), bf16, remat,
    B 2 x T 2048, seeded weights; one warm-up and 5 timed steps on one
    batch. A-K1, A-K2 and A-K3 must each launch 8 times per step (remat
-   does not re-run the forward kernel) and the loss must fall. Prints ms
-   per step, tokens/s, the model-FLOP share of the bf16 peak, peak memory
-   and a ``torch.profiler`` breakdown of one step.
+   does not re-run the forward kernel), every launch on the tensor cores,
+   and the loss must fall. Prints ms per step, tokens/s, the model-FLOP
+   share of the bf16 peak, peak memory and a ``torch.profiler`` breakdown
+   of one step.
 6. Training parity: one step's loss and gradients through the kernels
    against the plain attention (fp32, Llama-3-8B width, 2 layers); then
    the CLI (``train.main``, ``small``, seq 512, batch 4) checkpointed at
@@ -72,9 +81,10 @@ H100_BF16_FLOPS = 989e12        # dense tensor-core peak
 BS, CAPACITY, SLOTS, CHUNK, MAX_NEW = 16, 1024, 4, 4, 32
 PROMPT_LENS = (24, 100, 300, 700)
 KERNEL_LENGTHS = (0, 17, 300, 1023)
-SOURCES = ("paged_decode", "flash_attention", "flash_attention_bwd")
+SOURCES = ("paged_decode", "flash_attention", "flash_attention_tc")
 # kernels that must spill nothing and run on the tensor cores (phase 1)
-TENSOR_CORE_KERNELS = ("flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel")
+TENSOR_CORE_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
+                       "flash_bwd_dkv_tc_kernel")
 CSRC = "k8s_operator_libs_tpu_torch/csrc/{}.cu"
 
 
@@ -147,7 +157,7 @@ def phase_build():
         log("phase 1: no cuobjdump: HGMMA not checked")
         return
     sass = subprocess.run([cuobjdump, "-sass",
-                           str(built["flash_attention_bwd"][0])],
+                           str(built["flash_attention_tc"][0])],
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
     hgmma, fn = {}, None
@@ -394,7 +404,11 @@ def phase_flash(torch):
     results = {}
     for label, B, T, H, KV, Dh, dtype, causal in FLASH_CASES:
         q, k, v, do = flash_inputs(torch, B, T, H, KV, Dh, dtype)
+        fa.reset_launch_counts()
         out, lse = fa.flash_forward_cuda(q, k, v, causal)
+        route = "fma" if dtype == "float32" else "wgmma"
+        check(fa.ROUTE_LAUNCHES == {"wgmma": 0, "fma": 0, route: 1},
+              f"{label}: the {dtype} forward took routes {fa.ROUTE_LAUNCHES}")
         delta = fa.attention_delta(out, do, KV)
         dq = fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal)
         dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal)
@@ -840,12 +854,17 @@ def phase_train(torch):
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = dict(fa.LAUNCHES)
+    routes = dict(fa.ROUTE_LAUNCHES)
     losses = [float(x) for x in losses]
     peak = torch.cuda.max_memory_allocated()
     for name in FLASH_NAMES:
         check(launches[name] == TRAIN_LAYERS * TRAIN_STEPS,
               f"{name} launched {launches[name]} times over {TRAIN_STEPS} "
               f"steps of {TRAIN_LAYERS} layers")
+    # every launch of the three (the forward's 8 per step among them) on
+    # the tensor cores
+    check(routes == {"wgmma": 3 * TRAIN_LAYERS * TRAIN_STEPS, "fma": 0},
+          f"bf16 training took routes {routes}")
     check(all(math.isfinite(x) for x in losses), f"loss not finite: {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
 
@@ -869,7 +888,8 @@ def phase_train(torch):
         f"({held / 2**30:.1f} GiB held before the phase)")
     log(f"phase 5: losses {' '.join(f'{x:.4f}' for x in losses)} (warm-up "
         f"first); launches per step " + ", ".join(
-            f"{n} {launches[n] // TRAIN_STEPS}" for n in FLASH_NAMES))
+            f"{n} {launches[n] // TRAIN_STEPS}" for n in FLASH_NAMES)
+        + f", all on route wgmma ({routes['wgmma'] // TRAIN_STEPS} per step)")
 
     def one_step():
         nonlocal state
@@ -885,7 +905,7 @@ def phase_train(torch):
     if not busy:
         log("phase 5: profile: no device time recorded (not measured)")
         return stats
-    # kernel symbols: flash_fwd_kernel; flash_bwd_dq(_tc)_kernel and
+    # kernel symbols: flash_fwd(_tc)_kernel, flash_bwd_dq(_tc)_kernel and
     # flash_bwd_dkv(_tc)_kernel, whichever the dtype routes to
     shares = {n: sum(t for t, _, key in kernels if k in key)
               for n, k in (("flash_forward", "flash_fwd"),
@@ -1056,11 +1076,11 @@ def main():
              serve["launches"]),
             ("paged_decode_int8", "paged_decode", f"{jax_attn}:828",
              parity["launches_int8"]),
-            ("flash_forward", "flash_attention", f"{jax_attn}:236",
+            ("flash_forward", "flash_attention_tc", f"{jax_attn}:236",
              training["launches_flash_forward"]),
-            ("flash_bwd_dq", "flash_attention_bwd", f"{jax_attn}:439",
+            ("flash_bwd_dq", "flash_attention_tc", f"{jax_attn}:439",
              training["launches_flash_bwd_dq"]),
-            ("flash_bwd_dkv", "flash_attention_bwd", f"{jax_attn}:519",
+            ("flash_bwd_dkv", "flash_attention_tc", f"{jax_attn}:519",
              training["launches_flash_bwd_dkv"])):
         k = kernels[name]
         rows.append({"name": name, "route": "cuda",

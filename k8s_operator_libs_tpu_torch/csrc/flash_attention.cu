@@ -1,4 +1,6 @@
-// Flash attention, forward and backward, for Hopper (sm_90a).
+// Flash attention, forward and backward, in fp32 on Hopper's FMA units
+// (sm_90a). bf16 and fp16 run on the tensor cores (flash_attention_tc.cu);
+// this file takes fp32 only.
 //
 // Replaces the TPU kernels in k8s_operator_libs_tpu/ops/attention.py:
 //   flash_fwd_kernel     <- _flash_kernel          (:236, pallas_call :406, A-K1)
@@ -20,9 +22,8 @@
 //   A-K3: dv = round_T(sum round_T(p)^T . do), dk = round_T(scale * sum ds^T . q)
 //         over the rows of all G heads of the group (the GQA sum is inside
 //         the contraction), with the UNSCALED q (:569, :612)
-// Every product accumulates in fp32 by FMA; T is bf16, fp16 or fp32 for
-// A-K1 and fp32 for A-K2/A-K3 (flash_attention_bwd.cu takes bf16 and fp16
-// on the tensor cores).
+// Every product accumulates in fp32 by FMA; T is fp32 (the templates are
+// instantiated for it alone).
 //
 // Bound: at the Llama-3-8B training shape (T 2048, Dh 128) the work is
 // 4*B*H*Dh*sum_visible flops forward (6x backward dq, 8x dkv) on O(T*Dh)
@@ -43,19 +44,15 @@
 //     used by the G query heads and never repeated;
 //   - tiles above the diagonal are neither loaded nor computed, and only
 //     tiles that straddle the diagonal or the ragged end T are masked;
-//   - tiles are staged in shared memory as fp32 (converted once on load,
-//     rows padded by 4 floats so 16-byte reads are conflict-free); each
+//   - tiles are staged in shared memory (rows padded by 4 floats so
+//     16-byte reads are conflict-free); each
 //     thread owns a 4-row slab of the score tile and the same rows of the
 //     accumulator, so the softmax statistics never leave its half-warp.
 // Nothing is allocated here; the Python wrapper allocates every output.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -71,17 +68,9 @@ constexpr int kDkvRows = 32;       // q/dO rows per A-K3 chunk
 
 template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <> __device__ __forceinline__ float to_f32<__half>(__half x) { return __half2float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <> __device__ __forceinline__ __half from_f32<__half>(float x) { return __float2half(x); }
 
 // x rounded to the storage type and back (the TPU kernels' .astype(dtype))
 template <typename T> __device__ __forceinline__ float round_to(float x) {
@@ -711,18 +700,20 @@ int launch_dkv(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// element kinds shared with the Python wrapper
-enum Kind { kF32 = 0, kBF16 = 1, kF16 = 2 };
+// element kinds shared with the Python wrapper: bf16 (1) and fp16 (2) run
+// on the tensor cores (flash_attention_tc.cu); here only fp32
+enum Kind { kF32 = 0 };
 enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 
-// the backward of bf16 and fp16 runs on the tensor cores
-// (flash_attention_bwd.cu); here only fp32's
 template <typename T, int DH>
 int launch_one(int which, const Args& a) {
-  if (which == kFwd) return launch_fwd<T, DH>(a);
-  if constexpr (std::is_same<T, float>::value) {
-    if (which == kDq) return launch_dq<T, DH>(a);
-    if (which == kDkv) return launch_dkv<T, DH>(a);
+  switch (which) {
+    case kFwd:
+      return launch_fwd<T, DH>(a);
+    case kDq:
+      return launch_dq<T, DH>(a);
+    case kDkv:
+      return launch_dkv<T, DH>(a);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -743,15 +734,8 @@ int launch_dh(int which, int Dh, const Args& a) {
 int launch(int which, int kind, int Dh, const Args& a) {
   if (a.B <= 0 || a.T <= 0 || a.KV <= 0 || a.H % a.KV != 0 || a.H / a.KV > kRows)
     return static_cast<int>(cudaErrorInvalidValue);
-  switch (kind) {
-    case kF32:
-      return launch_dh<float>(which, Dh, a);
-    case kBF16:
-      return launch_dh<__nv_bfloat16>(which, Dh, a);
-    case kF16:
-      return launch_dh<__half>(which, Dh, a);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (kind != kF32) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_dh<float>(which, Dh, a);
 }
 
 }  // namespace
@@ -759,12 +743,12 @@ int launch(int which, int kind, int Dh, const Args& a) {
 extern "C" {
 
 // All tensors on the device, contiguous: q/out/dq/do [B, T, H, Dh] and
-// k/v/dk/dv [B, T, KV, Dh] of `kind`; lse/delta fp32 [B*KV, H/KV, T].
+// k/v/dk/dv [B, T, KV, Dh] of `kind` (fp32); lse/delta fp32 [B*KV, H/KV, T].
 // qmul is round_T(scale * log2e), scale 1/sqrt(Dh). Each returns
 // cudaGetLastError() after its launch (0 on success), or
 // cudaErrorInvalidValue for a shape or type it does not take.
 
-// A-K1: out and lse (base e) from q, k, v.
+// A-K1 (fp32): out and lse (base e) from q, k, v.
 int flash_forward_launch(int kind, const void* q, const void* k, const void* v, void* out,
                          void* lse, int B, int T, int H, int KV, int Dh, int causal, float qmul,
                          void* stream) {

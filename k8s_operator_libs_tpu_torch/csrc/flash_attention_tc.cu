@@ -1,61 +1,81 @@
-// Flash attention backward on Hopper's tensor cores (sm_90a): dq and dk/dv
-// for bf16 and fp16.
+// Flash attention on Hopper's tensor cores (sm_90a): the forward (A-K1) and
+// the backward, dq (A-K2) and dk/dv (A-K3), for bf16 and fp16.
 //
 // Replaces the TPU kernels in k8s_operator_libs_tpu/ops/attention.py:
+//   flash_fwd_tc_kernel     <- _flash_kernel          (:236, pallas_call :406, A-K1)
 //   flash_bwd_dq_tc_kernel  <- _flash_bwd_dq_kernel   (:439, pallas_call :651, A-K2)
 //   flash_bwd_dkv_tc_kernel <- _flash_bwd_dkv_kernel  (:519, pallas_call :663, A-K3)
-// launched there by _flash_backward under the custom VJP of flash_attention.
-// fp32 keeps the FMA kernels of flash_attention.cu: on the tensor cores
-// fp32 would be TF32 (about 3 decimal digits), which fp32 parity cannot
-// afford. The Python wrapper picks the source by dtype.
+// launched there by _flash_forward / _flash_backward under the custom VJP of
+// flash_attention. fp32 keeps the FMA kernels of flash_attention.cu: on the
+// tensor cores fp32 would be TF32 (about 3 decimal digits), which fp32
+// parity cannot afford. The Python wrapper picks the source by dtype.
 //
-// What they compute is flash_attention.cu's A-K2/A-K3, rounding for rounding
+// What they compute is flash_attention.cu's, rounding for rounding
 // (q [B,T,H,Dh], k/v [B,T,KV,Dh], head h = kv*G + g; lse, delta fp32
 // [B*KV, G, T]):
-//   qs = round_T(q * round_T(scale*log2e)), s2 = qs . k, p = exp2(s2 - lse*log2e)
-//   A-K2: dq = round_T(scale * sum_k round_T(p (do.v - delta)) k)
+//   qs = round_T(q * round_T(scale*log2e)), s2 = qs . k, visible iff key < T
+//        and, when causal, key <= query position
+//   A-K1: online softmax in base 2, fp32 running max m (from -1e30) and
+//         denominator l summing the unrounded p; acc += round_T(p) . v;
+//         out = acc / max(l, 1e-30), lse = m*ln2 + log(max(l, 1e-30))
+//   A-K2: p = exp2(s2 - lse*log2e), dq = round_T(scale * sum_k round_T(p (do.v - delta)) k)
 //   A-K3: dv = round_T(sum round_T(p)^T do), dk = round_T(scale * sum ds^T q)
 //         with ds = round_T(p (do.v - delta)) and the UNSCALED q, summed over
 //         the rows of all G heads (the GQA sum is inside the contraction).
 //
-// Bound: the pair does 14*B*H*Dh*sum_visible flops (dq 6, dk/dv 8: S and dP
-// are recomputed by both) on O(T*Dh) bytes, so operations bound it, at
-// 989 TFLOP/s bf16 on the tensor cores. What the design does about that:
+// Bound: the three do 4, 6 and 8 x B*H*Dh*sum_visible flops (the backward
+// recomputes S, and dP in both kernels) on O(T*Dh) bytes, so operations
+// bound them, at 989 TFLOP/s bf16 on the tensor cores. What the design
+// does about that:
 //   - every product is a wgmma (m64nNk16, bf16/fp16 in, fp32 accumulate):
 //     S = Qs K^T and dP = dO V^T with both operands in shared memory,
-//     dQ += dS K, dV += P^T dO and dK += dS^T q with the left operand
-//     converted from the accumulator layout into registers and the right
-//     one read MN-major (transposed) from the same tile;
+//     O += P V, dQ += dS K, dV += P^T dO and dK += dS^T q with the left
+//     operand converted from the accumulator layout into registers (where
+//     P and dS are rounded) and the right one read MN-major (transposed)
+//     from the same tile;
 //   - operands stay in shared memory as stored, 128B-swizzled (each
 //     64-column block of a tile is a run of 8-row x 128-byte atoms), so
 //     wgmma reads them without bank conflicts and nothing is converted;
-//   - one warpgroup per CTA owns 64 rows: A-K2's folded (head, position)
-//     rows, so a K/V tile serves all G heads; A-K3's 64 keys, walking the
-//     q/dO chunks of all G heads, so the group sum costs nothing;
-//   - cp.async copies the next K/V tile (A-K2) or q/dO chunk (A-K3) into a
-//     second stage while the tensor cores work on the current one, and two
-//     CTAs share an SM, so one's softmax overlaps the other's products;
+//   - a warpgroup owns 64 rows: folded (head, position) rows in A-K1 and
+//     A-K2, so a K/V tile serves all G heads; A-K3's 64 keys, walking the
+//     q/dO chunks of all G heads, so the group sum costs nothing. A-K1's
+//     CTA is three warpgroups (192 rows) on one K/V ring, which copies
+//     each K/V byte from L2 a third as often as one warpgroup per CTA
+//     would; its softmax statistics stay in the 4 lanes that hold a row
+//     of the accumulator (a quad shuffle). A-K2 and A-K3 are one
+//     warpgroup per CTA, two CTAs per SM;
+//   - cp.async copies the next K/V tile (A-K1, A-K2) or q/dO chunk (A-K3)
+//     into a second stage while the tensor cores work on the current one,
+//     and the warpgroups on an SM (A-K1's three, two CTAs' in A-K2/A-K3)
+//     overlap one's softmax with another's products;
 //   - tiles above the causal diagonal are neither loaded nor computed; only
-//     tiles that straddle it or the end of T are masked, and P and dS are
-//     zeroed there (zero-filled rows alone would still give p = 1);
+//     tiles that straddle it or the end of T are masked (S to -inf in A-K1,
+//     P and dS to zero in the backward: zero-filled rows alone give p = 1);
 //   - CTAs start longest first, and every output element is written by one
-//     CTA without atomics, so both kernels are deterministic.
+//     CTA without atomics, so all three kernels are deterministic.
 // Dh 32 runs as Dh 64 with zero columns (wgmma's swizzled tiles are 64
 // wide). Nothing is allocated here; the Python wrapper allocates outputs.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 #include <string.h>
 
 namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kThreads = 128;  // one warpgroup
-constexpr int kRows = 64;      // wgmma M: A-K2's folded rows, A-K3's keys
-constexpr int kDqKeys = 64;    // K/V tile of A-K2
-constexpr int kDkvRows = 32;   // q/dO rows per A-K3 chunk
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kNegInf = -1e30f;  // the TPU kernels' NEG_INF (running-max init)
+constexpr int kThreads = 128;      // one warpgroup
+constexpr int kRows = 64;          // wgmma M: a warpgroup's rows (A-K3: keys)
+constexpr int kFwdGroups = 3;      // A-K1's warpgroups: 192 folded rows share a K/V tile
+constexpr int kFwdThreads = kFwdGroups * kThreads;
+constexpr int kFwdRows = kFwdGroups * kRows;
+constexpr int kFwdKeys = 64;       // K/V tile of A-K1
+constexpr int kDqKeys = 64;        // K/V tile of A-K2
+constexpr int kDkvRows = 32;       // q/dO rows per A-K3 chunk
 
 template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
@@ -262,11 +282,12 @@ __device__ __forceinline__ void to_frags(const float (&x)[K / 2], uint32_t (&f)[
     for (int i = 0; i < 4; ++i) f[kk][i] = pack2<T>(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
 }
 
-// q * qmul rounded to T, in place over n bytes of shared memory (the
-// TPU kernels' scaled q; elementwise, so the swizzle does not matter)
-template <typename T>
+// q * qmul rounded to T, from n bytes of shared memory to dst, by NT
+// threads (the TPU kernels' scaled q; elementwise, so the swizzle does not
+// matter)
+template <typename T, int NT = kThreads>
 __device__ __forceinline__ void scale_round(uint8_t* dst, const uint8_t* src, int n, float qmul) {
-  for (int i = threadIdx.x * 16; i < n; i += kThreads * 16) {
+  for (int i = threadIdx.x * 16; i < n; i += NT * 16) {
     uint4 raw = *reinterpret_cast<const uint4*>(src + i);
     T* e = reinterpret_cast<T*>(&raw);
 #pragma unroll
@@ -275,7 +296,60 @@ __device__ __forceinline__ void scale_round(uint8_t* dst, const uint8_t* src, in
   }
 }
 
+// max / sum over the 4 lanes that hold one row of a wgmma accumulator
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
 template <int DH> __host__ __device__ constexpr int padded() { return DH < 64 ? 64 : DH; }
+
+// cp.async, by NT threads, of an R-row tile of folded rows of src ([B, T,
+// H, DH]): row r is head kv*G + r/BQ at position q0 + r%BQ; rows past G*BQ
+// or T and the padding columns land as zeros
+template <typename T, int DH, int R = kRows, int NT = kThreads>
+__device__ __forceinline__ void load_rows(uint32_t dst, const T* src, int b, int kv, int G,
+                                          int BQ, int q0, int T_, int H) {
+  constexpr int CH = padded<DH>() / 8;  // 16-byte chunks of a row
+  for (int i = threadIdx.x; i < R * CH; i += NT) {
+    const int r = i / CH, c = i % CH;
+    const int t = q0 + r % BQ;
+    const bool ok = r < G * BQ && t < T_ && c < DH / 8;
+    const T* p =
+        ok ? src + ((static_cast<size_t>(b) * T_ + t) * H + kv * G + r / BQ) * DH + c * 8 : src;
+    cp16(dst + tile_off(R, r, c), p, ok);
+  }
+}
+
+// cp.async, by NT threads, of keys k0..k0+BK-1 of K/V head kv ([B, T, KV,
+// DH]) into a K tile at dst and a V tile right after it; keys past T land
+// as zeros
+template <typename T, int DH, int BK, int NT = kThreads>
+__device__ __forceinline__ void load_keys(uint32_t dst, const T* k, const T* v, int b, int kv,
+                                          int k0, int T_, int KV) {
+  constexpr int CH = padded<DH>() / 8;
+  constexpr uint32_t kTile = BK * padded<DH>() * 2;
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    const T* base = m ? v : k;
+    for (int i = threadIdx.x; i < BK * CH; i += NT) {
+      const int j = i / CH, c = i % CH;
+      const int key = k0 + j;
+      const bool ok = key < T_ && c < DH / 8;
+      const T* p =
+          ok ? base + ((static_cast<size_t>(b) * T_ + key) * KV + kv) * DH + c * 8 : base;
+      cp16(dst + m * kTile + tile_off(BK, j, c), p, ok);
+    }
+  }
+}
+
+template <int DH> constexpr size_t fwd_smem() {
+  return 1024 + static_cast<size_t>(kFwdRows + 4 * kFwdKeys) * padded<DH>() * 2;
+}
 template <int DH> constexpr size_t dq_smem() {
   return 1024 + static_cast<size_t>(2 * kRows + 4 * kDqKeys) * padded<DH>() * 2;
 }
@@ -284,11 +358,152 @@ template <int DH> constexpr size_t dkv_smem() {
          2 * 2 * kDkvRows * sizeof(float);
 }
 
-// ------------------------------------------------------------------ A-K2
+// ------------------------------------------------------------------ A-K1
 
 // 1-D grid of B*KV x q-tiles, the tiles with the most keys first. Row r =
-// g*BQ + i of the CTA is head kv*G + g at position q0 + i. Thread (warp w,
-// lane l) holds accumulator rows 16w + l/4 and 16w + l/4 + 8.
+// g*BQ + i of the CTA (BQ = 192/G) is head kv*G + g at position q0 + i.
+// Warpgroup w owns rows 64w..64w+63; its thread (warp u, lane l) holds
+// accumulator rows 64w + 16u + l/4 and +8, and the running max and
+// denominator of both. Per K/V tile, each warpgroup: S = Qs K^T, the online
+// softmax on S in registers, O += round_T(P) V.
+template <typename T, int DH>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
+                        int T_, int H, int KV, int BQ, int n_bkv, int causal, float qmul) {
+  constexpr int DP = padded<DH>();
+  constexpr int R = kFwdRows;
+  constexpr int NT = kFwdThreads;
+  constexpr int BK = kFwdKeys;
+  constexpr uint32_t kRowTile = R * DP * 2;
+  constexpr uint32_t kKeyTile = BK * DP * 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  uint8_t* smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  const uint32_t sq = smem_addr(smem);  // qs, at the end out [R][DP]
+  const uint32_t skv = sq + kRowTile;   // 2 stages of K, V [BK][DP]
+
+  const int G = H / KV;
+  const int bkv = blockIdx.x % n_bkv;
+  const int b = bkv / KV;
+  const int kv = bkv % KV;
+  const int n_qt = gridDim.x / n_bkv;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x) / n_bkv) * BQ;
+  const int rows = G * BQ;
+
+  const int q_last = min(q0 + BQ - 1, T_ - 1);
+  const int n_tiles = causal ? q_last / BK + 1 : (T_ + BK - 1) / BK;
+  load_rows<T, DH, R, NT>(sq, q, b, kv, G, BQ, q0, T_, H);
+  load_keys<T, DH, BK, NT>(skv, k, v, b, kv, 0, T_, KV);
+  cp_commit();
+
+  const int wg = threadIdx.x / kThreads;
+  const int warp = (threadIdx.x % kThreads) >> 5, lane = threadIdx.x & 31;
+  const uint32_t sa = sq + wg * kRows * 128;  // this warpgroup's rows of qs
+  int pos[2];
+  float m[2], l[2];
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    pos[a] = q0 + (kRows * wg + 16 * warp + lane / 4 + 8 * a) % BQ;
+    m[a] = kNegInf;
+    l[a] = 0.f;
+  }
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+
+  cp_wait_all();
+  __syncthreads();
+  scale_round<T, NT>(smem, smem, kRowTile, qmul);
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    cp_wait_all();
+    fence_async_smem();
+    __syncthreads();  // tile kt has landed; tile kt-1's stage is free
+    if (kt + 1 < n_tiles)
+      load_keys<T, DH, BK, NT>(skv + ((kt + 1) & 1) * 2 * kKeyTile, k, v, b, kv, (kt + 1) * BK,
+                               T_, KV);
+    cp_commit();
+    const uint32_t sk = skv + (kt & 1) * 2 * kKeyTile;
+    const uint32_t sv = sk + kKeyTile;
+
+    float s[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+    pin(s);
+    wg_fence();
+    gemm_ss<T, BK, DP>(s, sa, R, sk);
+    wg_commit();
+    wg_wait_all();
+    pin(s);
+
+    // element i is row a = (i >> 1) & 1 at key k0 + 8(i >> 2) + 2(lane & 3)
+    // + (i & 1); mask only a tile that straddles the diagonal or T
+    const int k0 = kt * BK;
+    if ((causal && k0 + BK - 1 > q0) || k0 + BK > T_) {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const int key = k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+        if (key >= T_ || (causal && key > pos[(i >> 1) & 1])) s[i] = -INFINITY;
+      }
+    }
+    float mx[2] = {-INFINITY, -INFINITY}, alpha[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      const float m_new = fmaxf(m[a], quad_max(mx[a]));
+      alpha[a] = exp2f(m[a] - m_new);
+      m[a] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      s[i] = exp2f(s[i] - m[(i >> 1) & 1]);
+      psum[(i >> 1) & 1] += s[i];  // l sums p unrounded; P V takes round_T(p)
+    }
+#pragma unroll
+    for (int a = 0; a < 2; ++a) l[a] = l[a] * alpha[a] + quad_sum(psum[a]);
+    uint32_t pf[BK / 16][4];
+    to_frags<T, BK>(s, pf);
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    pin(acc);
+    wg_fence();
+    gemm_rs<T, DP, BK>(acc, pf, sv, BK);
+    wg_commit();
+    wg_wait_all();
+    pin(acc);
+  }
+
+  // out through the qs tile (swizzled, so the 4-byte writes of a warp hit
+  // 32 banks), then to global memory 16 bytes a thread
+  __syncthreads();  // every product's reads of qs are done
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    const int r = kRows * wg + 16 * warp + lane / 4 + 8 * a;
+    const float den = fmaxf(l[a], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j)
+      *reinterpret_cast<uint32_t*>(smem + tile_off(R, r, j) + 4 * (lane & 3)) =
+          pack2<T>(acc[4 * j + 2 * a] / den, acc[4 * j + 2 * a + 1] / den);
+    if ((lane & 3) == 0 && r < rows && pos[a] < T_)
+      lse[(static_cast<size_t>(bkv) * G + r / BQ) * T_ + pos[a]] = m[a] * kLn2 + logf(den);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < R * (DH / 8); i += NT) {
+    const int r = i / (DH / 8), c = i % (DH / 8);
+    const int t = q0 + r % BQ;
+    if (r < rows && t < T_)
+      *reinterpret_cast<uint4*>(out + ((static_cast<size_t>(b) * T_ + t) * H + kv * G + r / BQ) *
+                                          DH + c * 8) =
+          *reinterpret_cast<const uint4*>(smem + tile_off(R, r, c));
+  }
+}
+
+// ------------------------------------------------------------------ A-K2
+
+// 1-D grid and rows as in A-K1, with one warpgroup and BQ = 64/G. Per K/V
+// tile: S = Qs K^T and dP = dO V^T, dS = round_T(P (dP - delta)), dQ += dS K.
 template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads, 2)
     flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -298,7 +513,6 @@ __global__ void __launch_bounds__(kThreads, 2)
                            int causal, float qmul, float scale) {
   constexpr int DP = padded<DH>();
   constexpr int BK = kDqKeys;
-  constexpr int CH = DP / 8;  // 16-byte chunks of a row
   constexpr uint32_t kRowTile = kRows * DP * 2;
   constexpr uint32_t kKeyTile = BK * DP * 2;
   extern __shared__ uint8_t smem_raw[];
@@ -317,33 +531,11 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int rows = G * BQ;
   const int tid = threadIdx.x;
 
-  auto load_rows = [&](uint32_t dst, const T* src) {
-    for (int i = tid; i < kRows * CH; i += kThreads) {
-      const int r = i / CH, c = i % CH;
-      const int t = q0 + r % BQ;
-      const bool ok = r < rows && t < T_ && c < DH / 8;
-      const T* p = ok ? src + ((static_cast<size_t>(b) * T_ + t) * H + kv * G + r / BQ) * DH + c * 8
-                      : src;
-      cp16(dst + tile_off(kRows, r, c), p, ok);
-    }
-  };
-  auto load_kv = [&](int kt) {
-    const uint32_t dst = skv + (kt & 1) * 2 * kKeyTile;
-    for (int i = tid; i < 2 * BK * CH; i += kThreads) {
-      const int m = i / (BK * CH), j = (i / CH) % BK, c = i % CH;
-      const int key = kt * BK + j;
-      const bool ok = key < T_ && c < DH / 8;
-      const T* base = m ? v : k;
-      const T* p = ok ? base + ((static_cast<size_t>(b) * T_ + key) * KV + kv) * DH + c * 8 : base;
-      cp16(dst + m * kKeyTile + tile_off(BK, j, c), p, ok);
-    }
-  };
-
   const int q_last = min(q0 + BQ - 1, T_ - 1);
   const int n_tiles = causal ? q_last / BK + 1 : (T_ + BK - 1) / BK;
-  load_rows(sq, q);
-  load_rows(sdo, dout);
-  load_kv(0);
+  load_rows<T, DH>(sq, q, b, kv, G, BQ, q0, T_, H);
+  load_rows<T, DH>(sdo, dout, b, kv, G, BQ, q0, T_, H);
+  load_keys<T, DH, BK>(skv, k, v, b, kv, 0, T_, KV);
   cp_commit();
 
   const int warp = tid >> 5, lane = tid & 31;
@@ -370,7 +562,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     cp_wait_all();
     fence_async_smem();
     __syncthreads();  // tile kt has landed; tile kt-1's stage is free
-    if (kt + 1 < n_tiles) load_kv(kt + 1);
+    if (kt + 1 < n_tiles)
+      load_keys<T, DH, BK>(skv + ((kt + 1) & 1) * 2 * kKeyTile, k, v, b, kv, (kt + 1) * BK, T_,
+                           KV);
     cp_commit();
     const uint32_t sk = skv + (kt & 1) * 2 * kKeyTile;
     const uint32_t sv = sk + kKeyTile;
@@ -460,14 +654,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int k0 = static_cast<int>(blockIdx.x) / n_bkv * kRows;
   const int tid = threadIdx.x;
 
-  for (int i = tid; i < 2 * kRows * CH; i += kThreads) {
-    const int m = i / (kRows * CH), j = (i / CH) % kRows, c = i % CH;
-    const int key = k0 + j;
-    const bool ok = key < T_ && c < DH / 8;
-    const T* base = m ? v : k;
-    const T* p = ok ? base + ((static_cast<size_t>(b) * T_ + key) * KV + kv) * DH + c * 8 : base;
-    cp16(sk + m * kKeyTile + tile_off(kRows, j, c), p, ok);
-  }
+  load_keys<T, DH, kRows>(sk, k, v, b, kv, k0, T_, KV);  // K at sk, V at sv
 
   const int n_chunks = (T_ + RQ - 1) / RQ;
   const int c_lo = causal ? k0 / RQ : 0;  // rows before k0 see none of these keys
@@ -586,12 +773,27 @@ struct Args {
   const void* dout;
   const void* lse;
   const void* delta;
-  void* o0;  // dq / dk
-  void* o1;  // dv
+  void* o0;  // out / dq / dk
+  void* o1;  // lse / dv
   int B, T, H, KV, causal;
   float qmul, scale;
   cudaStream_t stream;
 };
+
+template <typename T, int DH>
+int launch_fwd(const Args& a) {
+  const int BQ = kFwdRows / (a.H / a.KV);
+  const long long blocks = static_cast<long long>((a.T + BQ - 1) / BQ) * a.B * a.KV;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = flash_fwd_tc_kernel<T, DH>;
+  const size_t smem = fwd_smem<DH>();
+  if (int err = set_smem(kernel, smem)) return err;
+  kernel<<<static_cast<unsigned>(blocks), kFwdThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<T*>(a.o0), static_cast<float*>(a.o1), a.T, a.H, a.KV, BQ, a.B * a.KV, a.causal,
+      a.qmul);
+  return static_cast<int>(cudaGetLastError());
+}
 
 template <typename T, int DH>
 int launch_dq(const Args& a) {
@@ -626,33 +828,42 @@ int launch_dkv(const Args& a) {
 
 // element kinds shared with the Python wrapper (fp32, 0, is not taken here)
 enum Kind { kBF16 = 1, kF16 = 2 };
+enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 
 template <typename T, int DH>
-int launch_one(bool dkv, const Args& a) {
-  return dkv ? launch_dkv<T, DH>(a) : launch_dq<T, DH>(a);
-}
-
-template <typename T>
-int launch_dh(bool dkv, int Dh, const Args& a) {
-  switch (Dh) {
-    case 32:
-      return launch_one<T, 32>(dkv, a);
-    case 64:
-      return launch_one<T, 64>(dkv, a);
-    case 128:
-      return launch_one<T, 128>(dkv, a);
+int launch_one(int which, const Args& a) {
+  switch (which) {
+    case kFwd:
+      return launch_fwd<T, DH>(a);
+    case kDq:
+      return launch_dq<T, DH>(a);
+    case kDkv:
+      return launch_dkv<T, DH>(a);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-int launch(bool dkv, int kind, int Dh, const Args& a) {
+template <typename T>
+int launch_dh(int which, int Dh, const Args& a) {
+  switch (Dh) {
+    case 32:
+      return launch_one<T, 32>(which, a);
+    case 64:
+      return launch_one<T, 64>(which, a);
+    case 128:
+      return launch_one<T, 128>(which, a);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int launch(int which, int kind, int Dh, const Args& a) {
   if (a.B <= 0 || a.T <= 0 || a.KV <= 0 || a.H % a.KV != 0 || a.H / a.KV > kRows)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (kind) {
     case kBF16:
-      return launch_dh<__nv_bfloat16>(dkv, Dh, a);
+      return launch_dh<__nv_bfloat16>(which, Dh, a);
     case kF16:
-      return launch_dh<__half>(dkv, Dh, a);
+      return launch_dh<__half>(which, Dh, a);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -661,12 +872,22 @@ int launch(bool dkv, int kind, int Dh, const Args& a) {
 
 extern "C" {
 
-// The signatures of flash_attention.cu's flash_bwd_dq_launch and
-// flash_bwd_dkv_launch: tensors on the device, contiguous, q/do/dq
-// [B, T, H, Dh] and k/v/dk/dv [B, T, KV, Dh] of `kind` (bf16 or fp16);
-// lse/delta fp32 [B*KV, H/KV, T]. Each returns cudaGetLastError() after
-// its launch (0 on success), or cudaErrorInvalidValue for a shape or type
-// it does not take.
+// The signatures of flash_attention.cu's flash_forward_launch,
+// flash_bwd_dq_launch and flash_bwd_dkv_launch: tensors on the device,
+// contiguous, q/out/do/dq [B, T, H, Dh] and k/v/dk/dv [B, T, KV, Dh] of
+// `kind` (bf16 or fp16); lse/delta fp32 [B*KV, H/KV, T]. qmul is
+// round_T(scale * log2e), scale 1/sqrt(Dh). Each returns cudaGetLastError()
+// after its launch (0 on success), or cudaErrorInvalidValue for a shape or
+// type it does not take.
+
+// A-K1: out and lse (base e) from q, k, v.
+int flash_forward_tc_launch(int kind, const void* q, const void* k, const void* v, void* out,
+                            void* lse, int B, int T, int H, int KV, int Dh, int causal,
+                            float qmul, void* stream) {
+  const Args a{q, k, v, nullptr, nullptr, nullptr, out, lse, B, T, H, KV, causal, qmul, 0.f,
+               static_cast<cudaStream_t>(stream)};
+  return launch(kFwd, kind, Dh, a);
+}
 
 // A-K2: dq from q, k, v, dO, lse and delta = rowsum(dO * out).
 int flash_bwd_dq_tc_launch(int kind, const void* q, const void* k, const void* v,
@@ -675,7 +896,7 @@ int flash_bwd_dq_tc_launch(int kind, const void* q, const void* k, const void* v
                            void* stream) {
   const Args a{q, k, v, dout, lse, delta, dq, nullptr, B, T, H, KV, causal, qmul, scale,
                static_cast<cudaStream_t>(stream)};
-  return launch(false, kind, Dh, a);
+  return launch(kDq, kind, Dh, a);
 }
 
 // A-K3: dk and dv from the same inputs.
@@ -685,7 +906,7 @@ int flash_bwd_dkv_tc_launch(int kind, const void* q, const void* k, const void* 
                             float scale, void* stream) {
   const Args a{q, k, v, dout, lse, delta, dk, dv, B, T, H, KV, causal, qmul, scale,
                static_cast<cudaStream_t>(stream)};
-  return launch(true, kind, Dh, a);
+  return launch(kDkv, kind, Dh, a);
 }
 
 }  // extern "C"

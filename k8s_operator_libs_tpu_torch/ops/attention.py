@@ -7,10 +7,11 @@ flash forward (A-K1, ``_flash_kernel``), the dq backward (A-K2,
 ``_flash_bwd_dkv_kernel``), joined by the custom VJP of
 ``flash_attention``. The kernels are CUDA C++ for ``sm_90a``, built at
 first use by :mod:`.build` and called through ``ctypes`` on PyTorch's
-current stream: A-K1 and the fp32 backward in ``csrc/flash_attention.cu``
-(FMA units), the bf16/fp16 backward in ``csrc/flash_attention_bwd.cu``
-(tensor cores, ``wgmma``). :func:`backward_route` picks the backward's
-source by dtype: TF32, the tensor cores' fp32, would not hold fp32 parity.
+current stream: bf16 and fp16 on the tensor cores (``wgmma``) in
+``csrc/flash_attention_tc.cu``, fp32 on the FMA units in
+``csrc/flash_attention.cu``. :func:`kernel_route` picks the source of
+both directions by dtype: TF32, the tensor cores' fp32, would not hold
+fp32 parity.
 
 Dispatch: :func:`flash_forward` and :func:`flash_backward` launch the
 kernels for CUDA tensors (or raise: there is no fallback) and take the
@@ -39,8 +40,8 @@ LOG2E = 1.4426950408889634
 NEG_INF = -1e30
 
 # launches per kernel since the last reset (A-K1, A-K2, A-K3 in PERF.md),
-# the backward launches by route (see backward_route), and the plain
-# versions' calls that stand in for the kernels on the CPU
+# the same launches by route (see kernel_route), and the plain versions'
+# calls that stand in for the kernels on the CPU
 LAUNCHES = {"flash_forward": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 ROUTE_LAUNCHES = {"wgmma": 0, "fma": 0}
 PLAIN_CALLS = {"flash_forward": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
@@ -52,9 +53,9 @@ MAX_GROUP = 64          # query heads per K/V head: the kernels' 64-row tile
 _fns = {}
 
 
-# route -> (CUDA source, suffix of the backward's entry points)
+# route -> (CUDA source, suffix of its entry points)
 _ROUTE_SOURCES = {"fma": ("flash_attention", ""),
-                  "wgmma": ("flash_attention_bwd", "_tc")}
+                  "wgmma": ("flash_attention_tc", "_tc")}
 
 
 def reset_launch_counts() -> None:
@@ -63,22 +64,23 @@ def reset_launch_counts() -> None:
             counts[name] = 0
 
 
-def backward_route(dtype: torch.dtype, head_dim: int) -> str:
-    """The backward kernels that take q of ``dtype`` and ``head_dim``:
-    "wgmma" (``csrc/flash_attention_bwd.cu``, the tensor cores) for bf16
-    and fp16, "fma" (``csrc/flash_attention.cu``) for fp32, whose parity
-    TF32 would break. Raises ValueError for what neither takes."""
+def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernels, forward and backward, that take q of ``dtype`` and
+    ``head_dim``: "wgmma" (``csrc/flash_attention_tc.cu``, the tensor
+    cores) for bf16 and fp16, "fma" (``csrc/flash_attention.cu``) for fp32,
+    whose parity TF32 would break. Raises ValueError for what neither
+    takes."""
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"head_dim {head_dim} not in {HEAD_DIMS}")
     if dtype in (torch.bfloat16, torch.float16):
         return "wgmma"
     if dtype == torch.float32:
         return "fma"
-    raise ValueError(f"dtype {dtype}: the backward kernels take fp32, "
-                     f"bf16 or fp16")
+    raise ValueError(f"dtype {dtype}: the flash kernels take fp32, bf16 "
+                     f"or fp16")
 
 
-def _launcher(name: str, route: str = "fma"):
+def _launcher(name: str, route: str):
     source, suffix = _ROUTE_SOURCES[route]
     key = name + suffix
     fn = _fns.get(key)
@@ -226,13 +228,14 @@ def _raise_on(rc: int, name: str) -> None:
 def flash_forward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        causal: bool = True
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch A-K1 on the current stream: (out like q, lse fp32
-    [B * KV, G, T])."""
+    """Launch A-K1 on the current stream, on the kernel
+    :func:`kernel_route` names: (out like q, lse fp32 [B * KV, G, T])."""
     _check(q, k, v)
     B, T, H, KV, G, Dh = _shape(q, k)
+    route = kernel_route(q.dtype, Dh)
     out = torch.empty_like(q)
     lse = torch.empty((B * KV, G, T), dtype=torch.float32, device=q.device)
-    fn = _launcher("flash_forward")
+    fn = _launcher("flash_forward", route)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(_KIND[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -240,6 +243,7 @@ def flash_forward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 _q_multiplier(q.dtype, Dh), stream)
     _raise_on(rc, "flash_forward")
     LAUNCHES["flash_forward"] += 1
+    ROUTE_LAUNCHES[route] += 1
     return out, lse
 
 
@@ -254,11 +258,11 @@ def _check_residuals(q, lse, delta, dout):
 
 def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal=True):
     """Launch A-K2 on the current stream, on the kernel
-    :func:`backward_route` names: dq like q."""
+    :func:`kernel_route` names: dq like q."""
     _check(q, k, v, dout, lse, delta)
     _check_residuals(q, lse, delta, dout)
     B, T, H, KV, _, Dh = _shape(q, k)
-    route = backward_route(q.dtype, Dh)
+    route = kernel_route(q.dtype, Dh)
     dq = torch.empty_like(q)
     fn = _launcher("flash_bwd_dq", route)
     with torch.cuda.device(q.device):
@@ -275,11 +279,11 @@ def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal=True):
 
 def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, causal=True):
     """Launch A-K3 on the current stream, on the kernel
-    :func:`backward_route` names: (dk like k, dv like v)."""
+    :func:`kernel_route` names: (dk like k, dv like v)."""
     _check(q, k, v, dout, lse, delta)
     _check_residuals(q, lse, delta, dout)
     B, T, H, KV, _, Dh = _shape(q, k)
-    route = backward_route(q.dtype, Dh)
+    route = kernel_route(q.dtype, Dh)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     fn = _launcher("flash_bwd_dkv", route)

@@ -170,9 +170,10 @@ def test_with_lse_matches_reference_layout():
                                          (torch.float16, "wgmma"),
                                          (torch.float32, "fma")])
 def test_backward_route_by_dtype(dtype, route, Dh):
-    """bf16/fp16 take the tensor-core kernels (flash_attention_bwd.cu);
-    fp32 keeps the FMA kernels, whose fp32 parity TF32 would break."""
-    assert tattn.backward_route(dtype, Dh) == route
+    """bf16/fp16 take the tensor-core kernels (flash_attention_tc.cu), in
+    both directions; fp32 keeps the FMA kernels, whose fp32 parity TF32
+    would break."""
+    assert tattn.kernel_route(dtype, Dh) == route
 
 
 @pytest.mark.parametrize("dtype,Dh", [(torch.float64, 128), (torch.int8, 64),
@@ -180,7 +181,46 @@ def test_backward_route_by_dtype(dtype, route, Dh):
                                       (torch.float32, 256)])
 def test_backward_route_refuses_what_neither_takes(dtype, Dh):
     with pytest.raises(ValueError):
-        tattn.backward_route(dtype, Dh)
+        tattn.kernel_route(dtype, Dh)
+
+
+@pytest.mark.parametrize("name", ["flash_forward", "flash_bwd_dq",
+                                  "flash_bwd_dkv"])
+@pytest.mark.parametrize("route,source,symbol_suffix", [
+    ("wgmma", "flash_attention_tc", "_tc_launch"),
+    ("fma", "flash_attention", "_launch"),
+])
+def test_launcher_resolves_the_route_source_and_entry_point(
+        monkeypatch, name, route, source, symbol_suffix):
+    """Each route's launcher loads its own source and binds the entry point
+    that the source defines, with one ctypes argument per C parameter: the
+    wgmma forward is ``flash_forward_tc_launch`` of flash_attention_tc.cu.
+    Checked through a stand-in for the built library (no GPU, no nvcc)."""
+    loaded = []
+
+    class Library:
+        def __getattr__(self, symbol):
+            fn = type("Fn", (), {})()
+            fn.symbol = symbol
+            return fn
+
+    def fake_load(src):
+        loaded.append(src)
+        return Library()
+
+    monkeypatch.setattr(tattn.build, "load", fake_load)
+    monkeypatch.setattr(tattn, "_fns", {})
+    fn = tattn._launcher(name, route)
+    symbol = name + symbol_suffix
+    assert loaded == [source] and tattn._ROUTE_SOURCES[route][0] == source
+    assert fn.symbol == symbol
+    text = (tattn.build.CSRC_DIR / f"{source}.cu").read_text()
+    head = f"int {symbol}(int kind,"
+    assert text.count(head) == 1
+    params = text[text.index(head):].split(")", 1)[0].split(",")
+    assert len(fn.argtypes) == len(params)
+    assert tattn._launcher(name, route) is fn          # bound once
+    assert loaded == [source]
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():

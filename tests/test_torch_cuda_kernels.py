@@ -32,7 +32,7 @@ def cuda():
 
 
 @pytest.mark.parametrize("name", ["paged_decode", "flash_attention",
-                                  "flash_attention_bwd"])
+                                  "flash_attention_tc"])
 def test_library_name_tracks_source_and_flags(name):
     path = build.library_path(name)
     assert path.parent == build.BUILD_DIR
@@ -202,6 +202,42 @@ def test_flash_kernels_match_plain(cuda, dtype, B, T, H, KV, Dh, causal):
         assert reading <= 1.0, (name, reading)
 
 
+def _hold_forward(q, k, v, causal, dtype):
+    out, lse = fa.flash_forward(q, k, v, causal)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = fa.reference_attention_with_lse(q, k, v, causal)
+    rtol, atol, lse_tol = FLASH_TOL[dtype]
+    assert out.shape == ref_out.shape and out.dtype == ref_out.dtype
+    assert lse.shape == ref_lse.shape and lse.dtype == torch.float32
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    assert float((lse - ref_lse).abs().max()) <= lse_tol
+    reading = _reading(out, ref_out, rtol, atol)
+    assert reading <= 1.0, reading
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("G", [1, 8])
+@pytest.mark.parametrize("T", [1, 63, 65, 129])
+def test_tensor_core_forward_at_tile_edges(cuda, dtype, causal, Dh, G, T):
+    """The wgmma forward at the edges of its 64-key tiles and 64-row
+    q-tiles: one row, one short of a tile, one past, two tiles and one; G 8
+    folds 8 positions per tile. out and lse against the plain version."""
+    KV = 2
+    q, k, v, _ = _qkv(cuda, dtype, 1, T, G * KV, KV, Dh, seed=T)
+    _hold_forward(q, k, v, causal, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("G,Dh", [(64, 64), (2, 32)])
+def test_tensor_core_forward_group_of_64_and_head_dim_32(cuda, dtype, G, Dh):
+    """G = 64: each position is a whole 64-row tile (BQ 1); Dh 32 runs as
+    Dh 64 with zero columns."""
+    q, k, v, _ = _qkv(cuda, dtype, 1, 70, G, 1, Dh, seed=6)
+    _hold_forward(q, k, v, True, dtype)
+
+
 def _hold_backward(q, k, v, do, causal, dtype):
     out, lse = fa.flash_forward(q, k, v, causal)
     dq, dk, dv = fa.flash_backward(q, k, v, out, lse, do, causal)
@@ -244,10 +280,16 @@ def test_tensor_core_backward_group_of_64(cuda, dtype):
                                          (torch.float16, "wgmma"),
                                          (torch.float32, "fma")])
 def test_backward_takes_the_route_of_its_dtype(cuda, dtype, route):
-    """bf16/fp16 backward launches go to flash_attention_bwd.cu's entry
-    points, fp32 ones to flash_attention.cu's FMA kernels."""
+    """bf16/fp16 launches, forward and backward, go to
+    flash_attention_tc.cu's entry points, fp32 ones to flash_attention.cu's
+    FMA kernels."""
     q, k, v, do = _qkv(cuda, dtype, 1, 96, 8, 2, 64)
+    fa.reset_launch_counts()
     out, lse = fa.flash_forward(q, k, v, True)
+    torch.cuda.synchronize()
+    assert fa.ROUTE_LAUNCHES == {"wgmma": 0, "fma": 0, route: 1}
+    assert fa.LAUNCHES == {"flash_forward": 1, "flash_bwd_dq": 0,
+                           "flash_bwd_dkv": 0}
     fa.reset_launch_counts()
     fa.flash_backward(q, k, v, out, lse, do, True)
     torch.cuda.synchronize()
