@@ -10,25 +10,32 @@ Phases, each fatal on failure:
 1. Device and build: the card's name and power limit (``nvidia-smi``),
    then the port's CUDA sources built with one ``nvcc`` each, all at once,
    with each kernel's registers and spills. The tensor-core flash kernels
-   (``flash_attention_tc.cu``: A-K1, A-K2, A-K3 for bf16/fp16) must spill
-   nothing and, where ``cuobjdump`` is installed, hold ``HGMMA``
+   (``flash_attention_tc.cu``: A-K1, A-K2, A-K3 for bf16/fp16) and the
+   paged-decode split and merge kernels must spill nothing, and the
+   flash ones, where ``cuobjdump`` is installed, hold ``HGMMA``
    instructions.
 
    Which units run what: the flash forward and backward in bf16/fp16 run
    on the tensor cores (``wgmma``, ``flash_attention_tc.cu``); in fp32
    on the FMA units (``flash_attention.cu``: TF32 would break fp32
    parity); paged decode (A-K4, A-K5, ``paged_decode.cu``) on the FMA
-   units.
-2. Kernels against their plain PyTorch versions. Paged decode at the
-   Llama-3-8B decode attention shape (H 32, KV 8, Dh 128, block 16, 4
-   sequences of capacity 1024, ragged lengths 0/17/300/1023, a shuffled
-   table, NaN in every dead block): A-K4 on bf16 pools, A-K5 on int8
-   pools. Flash attention (A-K1 forward, A-K2 dq, A-K3 dk/dv; on the
-   tensor cores for bf16, on the FMA kernels for fp32, each forward's
-   route checked) at four shapes: the training shape below (B 2, T 2048,
-   H 32, KV 8, Dh 128, bf16, causal), T 1000 non-causal, H 12 / KV 4 /
-   Dh 64, and fp32; every
-   element of out, dq, dk and dv within a tolerance relative to its own
+   units, each sequence's live blocks split over many CTAs whose partial
+   softmaxes a second kernel merges (flash-decoding): it is bound by
+   bytes, not operations.
+2. Kernels against their plain PyTorch versions. Paged decode (A-K4 on
+   bf16 pools, A-K5 on int8 pools) at the Llama-3-8B decode attention
+   widths (H 32, KV 8, Dh 128, block 16, a shuffled table, NaN in every
+   dead block) at two shapes: the serving shape of phase 3 (4 sequences
+   of capacity 1024, lengths 0/17/300/1023) and a full batch (32
+   sequences of capacity 4096, lengths drawn from seed 0), each element
+   within 1e-2 x max(1, |plain|), the same bits on a second call; at the
+   serving shape the tolerance must reject three planted faults of the
+   longest sequence (a skipped live block, a dropped split, a merge
+   without its e^(m_i - M) rescale). Flash attention (A-K1 forward, A-K2
+   dq, A-K3 dk/dv; on the tensor cores for bf16, on the FMA kernels for
+   fp32, each forward's route checked) at four shapes: the training shape
+   below (B 2, T 2048, H 32, KV 8, Dh 128, bf16, causal), T 1000
+   non-causal, H 12 / KV 4 / Dh 64, and fp32; every element of out, dq, dk and dv within a tolerance relative to its own
    row, lse within a tolerance in nats, and each tolerance shown to
    reject a kernel that skipped one tile (``planted_faults``). Times at
    the main shapes with CUDA events on a cold L2: kernel, plain version,
@@ -81,10 +88,17 @@ H100_BF16_FLOPS = 989e12        # dense tensor-core peak
 BS, CAPACITY, SLOTS, CHUNK, MAX_NEW = 16, 1024, 4, 4, 32
 PROMPT_LENS = (24, 100, 300, 700)
 KERNEL_LENGTHS = (0, 17, 300, 1023)
+FULL_BATCH, FULL_CAPACITY = 32, 4096     # phase 2's full-batch shape
 SOURCES = ("paged_decode", "flash_attention", "flash_attention_tc")
 # kernels that must spill nothing and run on the tensor cores (phase 1)
 TENSOR_CORE_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
                        "flash_bwd_dkv_tc_kernel")
+# kernels that must spill nothing (phase 1)
+NO_SPILL_KERNELS = TENSOR_CORE_KERNELS + ("paged_decode_split_kernel",
+                                          "paged_decode_merge_kernel")
+# paged decode: one bf16 rounding of the output (2^-8 relative) plus fp32
+# summation order, scaled by max(1, |plain|)
+PAGED_TOL = 1e-2
 CSRC = "k8s_operator_libs_tpu_torch/csrc/{}.cu"
 
 
@@ -130,8 +144,9 @@ def time_cold_ms(torch, fn, iters=25):
 
 def phase_build():
     """Build every CUDA source at once: one nvcc per source, started
-    together. Fails if a tensor-core kernel spills or, where cuobjdump is
-    installed, holds no HGMMA (wgmma) instruction."""
+    together. Fails if a tensor-core or paged-decode kernel spills or, where
+    cuobjdump is installed, a tensor-core kernel holds no HGMMA (wgmma)
+    instruction."""
     import shutil
 
     from k8s_operator_libs_tpu_torch.ops import build
@@ -146,7 +161,7 @@ def phase_build():
                                 line.split("'")[1])[:64]
             elif "spill" in line:
                 spills = line.strip()
-                if any(k in kernel for k in TENSOR_CORE_KERNELS):
+                if any(k in kernel for k in NO_SPILL_KERNELS):
                     check(" 0 bytes spill stores, 0 bytes spill loads" in
                           line, f"{kernel} spills: {spills}")
             elif "registers" in line:
@@ -175,16 +190,17 @@ def phase_build():
             f"per instance {min(counts)}-{max(counts)} (cuobjdump -sass)")
 
 
-def kernel_case(torch, int8, seed=0):
-    """The Llama-3-8B decode-attention inputs of one batcher step."""
+def kernel_case(torch, int8, lengths, capacity, seed=0):
+    """The Llama-3-8B decode-attention inputs of one batcher step over
+    sequences of ``capacity`` at ``lengths``."""
     import numpy as np
-    H, KV, Dh, MB = 32, 8, 128, CAPACITY // BS
-    B = len(KERNEL_LENGTHS)
+    H, KV, Dh, MB = 32, 8, 128, capacity // BS
+    B = len(lengths)
     NB = B * MB + 1
     gen = np.random.default_rng(seed)
     table = gen.permutation(NB)[:B * MB].reshape(B, MB).astype(np.int32)
     live = {int(table[b, m]) for b in range(B)
-            for m in range(KERNEL_LENGTHS[b] // BS + 1)}
+            for m in range(lengths[b] // BS + 1)}
     dead = sorted(set(range(NB)) - live)
     g = torch.Generator(device="cuda").manual_seed(seed)
     f = torch.randn((2, NB, BS, KV, Dh), generator=g, device="cuda")
@@ -202,9 +218,8 @@ def kernel_case(torch, int8, seed=0):
         pools[:, dead] = float("nan")
     k, v = pools[0].contiguous(), pools[1].contiguous()
     tbl = torch.as_tensor(table, device="cuda")
-    lengths = torch.as_tensor(np.asarray(KERNEL_LENGTHS, np.int32),
-                              device="cuda")
-    return (q, k, v, tbl, lengths, ks, vs), live
+    lens = torch.as_tensor(np.asarray(lengths, np.int32), device="cuda")
+    return (q, k, v, tbl, lens, ks, vs), live
 
 
 def bound_ms(q, k_pool, n_live_blocks, lengths, int8):
@@ -227,71 +242,141 @@ def bound_ms(q, k_pool, n_live_blocks, lengths, int8):
                                  else "operations")
 
 
+def paged_reading(got, ref):
+    """The largest share of its tolerance (|kernel - plain| <= PAGED_TOL x
+    max(1, |plain|)) that an element of ``got`` uses: at most 1 passes."""
+    err = (got.float() - ref.float()).abs()
+    return float((err / (PAGED_TOL * ref.float().abs().clamp_min(1.0)))
+                 .max())
+
+
+def paged_faults(attn, args, split_blocks):
+    """What the check would read had the kernel, on the longest sequence,
+    skipped its middle live block, dropped its middle live split, or
+    merged its splits without the e^(m_i - M) rescale: {fault: change of
+    the plain output}, from the plain split partials of this case's own
+    data."""
+    q, k, v, table, lengths, ks, vs = args
+    B, _, H, Dh = q.shape
+    MB = table.shape[1]
+    visible = attn.visible_keys(lengths, MB, BS)
+    parts = attn.split_partials(q, k, v, table, visible, split_blocks, ks,
+                                vs)
+    sound = attn.merge_partials(*parts)
+    b = int(lengths.argmax())
+    n_live = min(int(lengths[b]) // BS + 1, MB)
+    mid = n_live // 2
+    skip = visible.clone()
+    skip[b, mid * BS:(mid + 1) * BS] = False
+    m, l, acc = (x.clone() for x in parts)
+    i = (n_live - 1) // split_blocks // 2
+    m[b, :, :, i] = float("-inf")
+    l[b, :, :, i] = 0.0
+    acc[b, :, :, i] = 0.0
+    m0, l0, acc0 = parts
+    faults = {
+        "skipped block": attn.merge_partials(*attn.split_partials(
+            q, k, v, table, skip, split_blocks, ks, vs)),
+        "dropped split": attn.merge_partials(m, l, acc),
+        "merge without rescale": (acc0.sum(-2)
+                                  / l0.sum(-1).clamp_min(1e-30)[..., None]),
+    }
+    return {name: (f - sound).reshape(B, 1, H, Dh)
+            for name, f in faults.items()}
+
+
 def phase_kernels(torch):
+    import numpy as np
     import torch.nn.functional as F
 
     from k8s_operator_libs_tpu_torch.ops import paged_attention as attn
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    full = tuple(int(x) for x in np.random.default_rng(0).integers(
+        0, FULL_CAPACITY, FULL_BATCH))
     results = {}
-    for name, int8 in (("paged_decode", False), ("paged_decode_int8", True)):
-        args, live = kernel_case(torch, int8)
-        q, k, v, table, lengths, ks, vs = args
-        got = attn.paged_decode_cuda(*args)
-        torch.cuda.synchronize()
-        ref = attn.paged_decode_plain(*args)
-        check(torch.isfinite(got).all().item(),
-              f"{name}: non-finite output (a dead block leaked)")
-        err = (got.float() - ref.float()).abs()
-        # one bf16 rounding of the output (2^-8 relative) plus fp32
-        # summation order, scaled by max(1, |plain|)
-        tol = 1e-2
-        ok = (err <= tol * ref.float().abs().clamp_min(1.0)).all().item()
-        max_err = float(err.max())
-        log(f"phase 2: {name} max_abs_err {max_err:.3e} "
-            f"(tolerance {tol} x max(1, |plain|)) "
-            f"{'ok' if ok else 'FAILED'}")
-        check(ok, f"{name} disagrees with its plain version")
+    for shape, lengths, capacity in (("serving", KERNEL_LENGTHS, CAPACITY),
+                                     ("full_batch", full, FULL_CAPACITY)):
+        MB = capacity // BS
+        split_blocks, n_split = attn.split_plan(len(lengths), 8, MB, BS, sms)
+        live_ctas = 8 * sum(-(-min(n // BS + 1, MB) // split_blocks)
+                            for n in lengths)
+        log(f"phase 2: paged decode, {shape} shape: {len(lengths)} sequences "
+            f"of capacity {capacity}, mean length "
+            f"{sum(lengths) / len(lengths):.1f}; split {split_blocks} blocks "
+            f"x {n_split} on {sms} SMs: {live_ctas} live CTAs")
+        for name, int8 in (("paged_decode", False),
+                           ("paged_decode_int8", True)):
+            args, live = kernel_case(torch, int8, lengths, capacity)
+            q, k, v, table, lens, ks, vs = args
+            got = attn.paged_decode_cuda(*args)
+            torch.cuda.synchronize()
+            ref = attn.paged_decode_plain(*args)
+            check(torch.isfinite(got).all().item(),
+                  f"{name}: non-finite output (a dead block leaked)")
+            max_err = float((got.float() - ref.float()).abs().max())
+            reading = paged_reading(got, ref)
+            check(reading <= 1.0, f"{name} ({shape}) disagrees with its "
+                                  f"plain version: reads {reading:.3f}")
+            check(torch.equal(attn.paged_decode_cuda(*args), got),
+                  f"{name} ({shape}): other bits on a second call")
+            faults = ""
+            if shape == "serving":
+                for fault, change in paged_faults(attn, args,
+                                                  split_blocks).items():
+                    r = paged_reading(got.float() + change, ref)
+                    check(r > 1.0, f"{name}: the tolerance would pass a "
+                                   f"{fault} (reads {r:.3f})")
+                    faults += f", {fault} {r:.3g}"
+            log(f"phase 2: {name} ({shape}) max_abs_err {max_err:.3e}, "
+                f"{reading:.3f} of the tolerance ({PAGED_TOL} x max(1, "
+                f"|plain|)){faults}; same bits on a second call; ok")
 
-        B = q.shape[0]
-        MB = table.shape[1]
-        cap = MB * BS
-        view_k = k[table.long()].reshape(B, cap, 8, 128)
-        view_v = v[table.long()].reshape(B, cap, 8, 128)
-        if int8:
-            view_k = (view_k.float() * ks[table.long()].reshape(
-                B, cap, 8)[..., None])
-            view_v = (view_v.float() * vs[table.long()].reshape(
-                B, cap, 8)[..., None])
-        view_k = torch.nan_to_num(view_k.to(torch.bfloat16))
-        view_v = torch.nan_to_num(view_v.to(torch.bfloat16))
-        kq = view_k.permute(0, 2, 1, 3).contiguous()        # [B, KV, cap, D]
-        vq = view_v.permute(0, 2, 1, 3).contiguous()
-        qq = q.permute(0, 2, 1, 3).contiguous()             # [B, H, 1, D]
-        mask = (torch.arange(cap, device="cuda")[None, :]
-                <= lengths.long()[:, None])[:, None, None, :]
+            B = q.shape[0]
+            cap = MB * BS
+            view_k = k[table.long()].reshape(B, cap, 8, 128)
+            view_v = v[table.long()].reshape(B, cap, 8, 128)
+            if int8:
+                view_k = (view_k.float() * ks[table.long()].reshape(
+                    B, cap, 8)[..., None])
+                view_v = (view_v.float() * vs[table.long()].reshape(
+                    B, cap, 8)[..., None])
+            view_k = torch.nan_to_num(view_k.to(torch.bfloat16))
+            view_v = torch.nan_to_num(view_v.to(torch.bfloat16))
+            kq = view_k.permute(0, 2, 1, 3).contiguous()    # [B, KV, cap, D]
+            vq = view_v.permute(0, 2, 1, 3).contiguous()
+            del view_k, view_v
+            qq = q.permute(0, 2, 1, 3).contiguous()         # [B, H, 1, D]
+            mask = (torch.arange(cap, device="cuda")[None, :]
+                    <= lens.long()[:, None])[:, None, None, :]
 
-        def library():
-            return F.scaled_dot_product_attention(qq, kq, vq,
-                                                  attn_mask=mask,
-                                                  enable_gqa=True)
+            def library():
+                return F.scaled_dot_product_attention(qq, kq, vq,
+                                                      attn_mask=mask,
+                                                      enable_gqa=True)
 
-        try:
-            lib = library()
-        except TypeError:           # no enable_gqa: repeat K/V heads
-            kq = kq.repeat_interleave(4, dim=1)
-            vq = vq.repeat_interleave(4, dim=1)
-            lib = library()
-        lib_err = float((lib.permute(0, 2, 1, 3).float()
-                         - ref.float()).abs().max())
-        ms = time_cold_ms(torch, lambda: attn.paged_decode_cuda(*args))
-        plain_ms = time_cold_ms(torch, lambda: attn.paged_decode_plain(*args))
-        library_ms = time_cold_ms(torch, library)
-        b_ms, bound_by = bound_ms(q, k, len(live), KERNEL_LENGTHS, int8)
-        log(f"phase 2: {name} ms {ms:.4f} plain_ms {plain_ms:.4f} "
-            f"library_ms {library_ms:.4f} (sdpa max diff {lib_err:.2e}) "
-            f"bound_ms {b_ms:.5f} ({bound_by}) -> {b_ms / ms:.1%} of bound")
-        results[name] = {"max_abs_err": max_err, "ms": ms,
-                         "plain_ms": plain_ms, "bound_ms": b_ms,
-                         "bound_by": bound_by, "library_ms": library_ms}
+            try:
+                lib = library()
+            except TypeError:           # no enable_gqa: repeat K/V heads
+                kq = kq.repeat_interleave(4, dim=1)
+                vq = vq.repeat_interleave(4, dim=1)
+                lib = library()
+            lib_err = float((lib.permute(0, 2, 1, 3).float()
+                             - ref.float()).abs().max())
+            ms = time_cold_ms(torch, lambda: attn.paged_decode_cuda(*args))
+            plain_ms = time_cold_ms(torch,
+                                    lambda: attn.paged_decode_plain(*args),
+                                    iters=10)
+            library_ms = time_cold_ms(torch, library)
+            b_ms, bound_by = bound_ms(q, k, len(live), lengths, int8)
+            log(f"phase 2: {name} ({shape}) ms {ms:.4f} plain_ms "
+                f"{plain_ms:.4f} library_ms {library_ms:.4f} (sdpa max diff "
+                f"{lib_err:.2e}) bound_ms {b_ms:.5f} ({bound_by}) -> "
+                f"{b_ms / ms:.1%} of bound, {ms / library_ms:.2f}x sdpa")
+            key = name if shape == "serving" else f"{name}_{shape}"
+            results[key] = {"max_abs_err": max_err, "ms": ms,
+                            "plain_ms": plain_ms, "bound_ms": b_ms,
+                            "bound_by": bound_by, "library_ms": library_ms}
+            del args, got, ref, lib, kq, vq, q, k, v, ks, vs
     return results
 
 
@@ -1076,6 +1161,10 @@ def main():
              serve["launches"]),
             ("paged_decode_int8", "paged_decode", f"{jax_attn}:828",
              parity["launches_int8"]),
+            ("paged_decode_full_batch", "paged_decode", f"{jax_attn}:734",
+             serve["launches"]),
+            ("paged_decode_int8_full_batch", "paged_decode",
+             f"{jax_attn}:828", parity["launches_int8"]),
             ("flash_forward", "flash_attention_tc", f"{jax_attn}:236",
              training["launches_flash_forward"]),
             ("flash_bwd_dq", "flash_attention_tc", f"{jax_attn}:439",

@@ -223,6 +223,43 @@ def test_launcher_resolves_the_route_source_and_entry_point(
     assert loaded == [source]
 
 
+def test_paged_launcher_binds_the_c_signature(monkeypatch):
+    """The paged-decode wrapper binds ``paged_decode_launch`` of
+    paged_decode.cu with one ctypes argument per C parameter, pointers
+    (the workspace included) as c_void_p. Checked through a stand-in for
+    the built library (no GPU, no nvcc)."""
+    import ctypes
+
+    from k8s_operator_libs_tpu_torch.ops import paged_attention as pattn
+    loaded = []
+
+    class Library:
+        def __getattr__(self, symbol):
+            fn = type("Fn", (), {})()
+            fn.symbol = symbol
+            return fn
+
+    def fake_load(src):
+        loaded.append(src)
+        return Library()
+
+    monkeypatch.setattr(pattn.build, "load", fake_load)
+    monkeypatch.setattr(pattn, "_fn", None)
+    fn = pattn._launcher()
+    assert loaded == ["paged_decode"] and fn.symbol == "paged_decode_launch"
+    text = (pattn.build.CSRC_DIR / "paged_decode.cu").read_text()
+    head = "int paged_decode_launch("
+    assert text.count(head) == 1
+    params = [p.split() for p in text[text.index(head) + len(head):]
+              .split(")", 1)[0].split(",")]
+    assert len(fn.argtypes) == len(params) == 21
+    for (ctype, *_), argtype in zip(params, fn.argtypes):
+        want = ctypes.c_int if ctype == "int" else ctypes.c_void_p
+        assert argtype is want, (ctype, argtype)
+    assert pattn._launcher() is fn                    # bound once
+    assert loaded == ["paged_decode"]
+
+
 def test_cuda_wrappers_refuse_cpu_tensors():
     _, (q, k, v, g) = _inputs(1, 16, 4, 2, 64)
     lse = torch.zeros((2, 2, 16))

@@ -50,8 +50,10 @@ def test_cuda_entry_points_refuse_to_fall_back():
 
 
 def _case(device, pool_dtype, q_dtype, lengths, H=32, KV=8, Dh=128, BS=16,
-          MB=64, seed=0):
-    """Ragged lengths, a shuffled table and NaN in every dead block."""
+          MB=64, seed=0, poison_tail=False):
+    """Ragged lengths, a shuffled table and NaN in every dead block; with
+    ``poison_tail`` also in the rows past each length inside its last live
+    block (the scales of those rows for int8 pools)."""
     gen = np.random.default_rng(seed)
     B = len(lengths)
     NB = B * MB + 1
@@ -59,6 +61,8 @@ def _case(device, pool_dtype, q_dtype, lengths, H=32, KV=8, Dh=128, BS=16,
     live = {int(table[b, m]) for b in range(B)
             for m in range(min(lengths[b] // BS + 1, MB))}
     dead = sorted(set(range(NB)) - live)
+    tail = [(int(table[b, lengths[b] // BS]), lengths[b] % BS + 1)
+            for b in range(B) if poison_tail and lengths[b] // BS < MB]
     f = torch.as_tensor(gen.standard_normal((2, NB, BS, KV, Dh)),
                         dtype=torch.float32)
     q = torch.as_tensor(gen.standard_normal((B, 1, H, Dh)),
@@ -69,10 +73,14 @@ def _case(device, pool_dtype, q_dtype, lengths, H=32, KV=8, Dh=128, BS=16,
         pools = torch.clamp(torch.round(f / s[..., None]), -127, 127)
         pools = pools.to(torch.int8)
         s[:, dead] = float("nan")
+        for blk, row in tail:
+            s[:, blk, row:] = float("nan")
         ks, vs = (x.contiguous().to(device) for x in s)
     else:
         pools = f.to(pool_dtype)
         pools[:, dead] = float("nan")
+        for blk, row in tail:
+            pools[:, blk, row:] = float("nan")
     k, v = (x.contiguous().to(device) for x in pools)
     return (q, k, v, torch.as_tensor(table, device=device),
             torch.as_tensor(np.asarray(lengths, np.int32), device=device),
@@ -111,6 +119,67 @@ def test_kernel_other_geometries(cuda, BS, Dh, G):
     got = attn.paged_decode(*args)
     ref = attn.paged_decode_plain(*args)
     torch.testing.assert_close(got, ref, rtol=2e-5, atol=2e-5)
+
+
+def _hold(args, tol):
+    got = attn.paged_decode(*args)
+    torch.cuda.synchronize()
+    ref = attn.paged_decode_plain(*args)
+    assert torch.isfinite(got).all(), "a row past a length leaked"
+    err = (got.float() - ref.float()).abs()
+    assert (err <= tol * ref.float().abs().clamp_min(1.0)).all(), \
+        float(err.max())
+    return got
+
+
+# (pool, q, tolerance) as in test_kernel_matches_plain
+SPLIT_CASES = [(torch.float32, torch.float32, 2e-5),
+               (torch.bfloat16, torch.bfloat16, 1e-2),
+               (torch.int8, torch.bfloat16, 1e-2)]
+
+
+@pytest.mark.parametrize("pool_dtype,q_dtype,tol", SPLIT_CASES)
+def test_kernel_at_split_edges(cuda, pool_dtype, q_dtype, tol):
+    """Lengths 0, one short of the first split boundary (n_live ends on
+    it), on it, and the whole capacity, at the split the wrapper picks
+    for this card; NaN past every length in its last live block."""
+    MB, BS = 64, 16
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    sb, _ = attn.split_plan(4, 8, MB, BS, sms)
+    lengths = [0, sb * BS - 1, sb * BS, MB * BS - 1]
+    _hold(_case(cuda, pool_dtype, q_dtype, lengths, MB=MB, BS=BS,
+                poison_tail=True), tol)
+
+
+@pytest.mark.parametrize("pool_dtype,q_dtype,tol", SPLIT_CASES)
+def test_kernel_32_ragged_sequences(cuda, pool_dtype, q_dtype, tol):
+    lengths = np.random.default_rng(11).integers(0, 1024, 32).tolist()
+    _hold(_case(cuda, pool_dtype, q_dtype, lengths, poison_tail=True,
+                seed=2), tol)
+
+
+@pytest.mark.parametrize("pool_dtype,q_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.int8, torch.float32)])
+def test_kernel_is_deterministic(cuda, pool_dtype, q_dtype):
+    """The merge sums the splits in order, without atomics: the same bits
+    on every call."""
+    args = _case(cuda, pool_dtype, q_dtype, [0, 17, 300, 1023, 511] * 4)
+    assert torch.equal(attn.paged_decode(*args), attn.paged_decode(*args))
+
+
+def test_wrapper_reads_nothing_back_from_the_card(cuda):
+    """No host synchronisation inside a call: the split comes from the
+    shapes, never from the lengths on the card."""
+    args = _case(cuda, torch.bfloat16, torch.bfloat16, [0, 17, 300, 1023])
+    attn.paged_decode(*args)                    # builds and loads first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = attn.paged_decode(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
 
 
 def test_batcher_decodes_through_the_kernel(cuda):

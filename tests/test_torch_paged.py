@@ -109,6 +109,79 @@ def test_plain_paged_decode_matches_reference_kernel(lengths, int8):
     np.testing.assert_allclose(got, ref, rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("split_blocks", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("int8", [False, True])
+def test_split_plain_matches_reference_kernel(split_blocks, int8):
+    """The kernel's split and merge, in plain PyTorch, against the
+    reference kernel and the unsplit plain version (2e-5, fp32 summation
+    order). Lengths 0, one short of a split boundary (n_live ends exactly
+    on it), on it, and the full capacity; split 4 is the whole table
+    (one split), split 8 wider than it."""
+    bs, mb = 8, 4
+    cap = bs * mb
+    lengths = np.asarray([0, min(split_blocks * bs - 1, cap - 1),
+                          min(split_blocks * bs, cap - 1), cap - 1],
+                         np.int32)
+    rng = np.random.default_rng(10 * split_blocks + int8)
+    k_pool, v_pool, table, dead = _pools(rng, lengths, nb=20, bs=bs, mb=mb)
+    q = rng.standard_normal((len(lengths), 1, KCFG.n_heads,
+                             KCFG.head_dim)).astype(np.float32)
+    ks = vs = None
+    if int8:
+        k_pool, ks = _quant(k_pool)
+        v_pool, vs = _quant(v_pool)
+        ks[dead] = np.nan
+        vs[dead] = np.nan
+    else:
+        k_pool[dead] = np.nan
+        v_pool[dead] = np.nan
+    ref = _jax_kernel(q, k_pool, v_pool, table, lengths, ks, vs)
+    t = [torch.as_tensor(a) for a in (q, k_pool, v_pool, table, lengths)]
+    ts = [None, None] if ks is None else [torch.as_tensor(ks),
+                                          torch.as_tensor(vs)]
+    got = tattn.paged_decode_split_plain(*t, *ts,
+                                         split_blocks=split_blocks).numpy()
+    assert np.isfinite(got).all(), "a dead block leaked into the output"
+    np.testing.assert_allclose(got, ref, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got, tattn.paged_decode_plain(*t, *ts).numpy(),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("BS", [8, 16, 32])
+def test_split_plan_puts_every_block_in_one_split(BS):
+    """For every MB up to 256: splits of at most MAX_SPLIT_KEYS keys that
+    partition the table row, none of them always empty, so every live
+    block, whatever the length, lies in exactly one split."""
+    for MB in range(1, 257):
+        for B, KV, sms in ((1, 1, 132), (4, 8, 132), (32, 8, 132),
+                           (2, 2, 1)):
+            sb, n = tattn.split_plan(B, KV, MB, BS, sms)
+            assert type(sb) is int and type(n) is int
+            assert 1 <= sb and sb * BS <= tattn.MAX_SPLIT_KEYS
+            assert (n - 1) * sb < MB <= n * sb
+            owner = [m // sb for m in range(MB)]
+            assert all(owner.count(i) == min(sb, MB - i * sb)
+                       for i in range(n))
+
+
+def test_split_plan_fills_the_card_at_the_serving_shape():
+    """Llama-3-8B decode (B 4, KV 8, capacity 1024, block 16) on 132 SMs,
+    lengths 0/17/300/1023: at least two live CTAs per SM."""
+    sb, n = tattn.split_plan(4, 8, 64, 16, 132)
+    live = sum(-(-(length // 16 + 1) // sb) for length in (0, 17, 300, 1023))
+    assert (sb, n) == (2, 32)
+    assert live * 8 >= 2 * 132
+
+
+@pytest.mark.parametrize("bad", ["tensor", np.int64(4), 4.0, True, 0])
+def test_split_plan_takes_positive_ints_only(bad):
+    """A tensor (the lengths' kind) would mean a host sync per layer."""
+    if isinstance(bad, str):        # made here: no tensor at collection
+        bad = torch.tensor(4)
+    with pytest.raises(TypeError):
+        tattn.split_plan(bad, 8, 64, 16, 132)
+
+
 def test_paged_decode_cuda_wrapper_refuses_cpu_tensors():
     rng = np.random.default_rng(5)
     k_pool, v_pool, table, _ = _pools(rng, [3])
