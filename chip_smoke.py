@@ -49,10 +49,29 @@ Phases, each fatal on failure:
    one decode step's logits through the kernel and through the plain
    version must agree. Prints the weight bytes a decode step streams and
    the floor they set at the card's memory rate.
+   3b. Speculative serving on the same weights: a replica with the
+   self-int8 draft (the weights quantized to int8, k 4) streams phase 3's
+   four requests over SSE. Each stream must be gapless and end in its
+   own tokens, the tokens must equal phase 3's up to the first position
+   whose plain top-2 logit gap is under ``SPEC_GAP_EPS`` (a bf16 verify
+   at T = k + 1 rounds other than a T = 1 step), and A-K4 must launch
+   rounds x (k + 1) x 32 times. Prints the acceptance, ms per round,
+   confirmed tokens per round per slot, ``weight_stream_gbs`` and the ms
+   of one draft step, one target decode step and one verify.
+   3c. Live migration over HTTP: two replicas at full size (one set of
+   weights shared in the process); a stream from A is frozen after a
+   few tokens, ``/drain`` arms A's drain hold (A's stepper then runs
+   free and must stay held), ``/export`` must answer 200, B ``/adopt``s
+   and the rest is read from B's ``/stream``. The spliced stream must be
+   gapless and equal B's undisturbed run, and both hops' ``/trace``
+   carry one trace id.
 4. Token parity in fp32 at Llama-3-8B width, 2 layers: the batcher's
    greedy tokens (through A-K4) against the contiguous ``generate``
    (plain), and ``paged_generate(kv_int8=True)`` through A-K5 against the
-   same call with the plain version.
+   same call with the plain version. 4c: the speculative batcher (its
+   draft steps through A-K4) against the plain batcher, and
+   ``paged_quantized_generate(kv_int8=True)`` (int8 weights and KV)
+   through A-K5 against the same call with the plain version.
 5. Training at full width: Llama-3-8B width cut to 8 layers (the 32 need
    ~64 GB for parameters, gradients and two moments alone), bf16, remat,
    B 2 x T 2048, seeded weights; one warm-up and 5 timed steps on one
@@ -87,6 +106,15 @@ H100_BF16_FLOPS = 989e12        # dense tensor-core peak
 
 BS, CAPACITY, SLOTS, CHUNK, MAX_NEW = 16, 1024, 4, 4, 32
 PROMPT_LENS = (24, 100, 300, 700)
+# phase 3b: speculation depth; a bf16 verify at T = k + 1 rounds other than
+# a T = 1 decode step (phase 3 read 0.0781 between two roundings of one
+# step's logits; bf16 logits near 5 lie on a 2^-5 grid, so 0.25 is 8 of
+# its steps), so 3b's tokens must equal phase 3's up to the first position
+# whose plain top-2 logit gap is under SPEC_GAP_EPS, and where they first
+# differ that gap must be under SPEC_GAP_EPS too
+SPEC_K, SPEC_GAP_EPS = 4, 0.25
+# phase 3c: prompt length, tokens, and the tokens A decodes before /drain
+MIGRATE_PROMPT, MIGRATE_NEW, MIGRATE_AFTER = 200, 24, 6
 KERNEL_LENGTHS = (0, 17, 300, 1023)
 FULL_BATCH, FULL_CAPACITY = 32, 4096     # phase 2's full-batch shape
 SOURCES = ("paged_decode", "flash_attention", "flash_attention_tc")
@@ -754,8 +782,329 @@ def phase_serve(torch):
     check(diff <= tol, "decode logits through the kernel disagree")
     stats["logit_max_diff"] = diff
     stats.update(profile_decode(torch, srv, CHUNK))
-    del params, srv, rt, cache, lk, lp
+    del srv, rt, cache, lk, lp
+    plain_tokens = [body["tokens"] for _, body in results]
+    stats.update(phase_spec_serve(torch, params, cfg, prompts, plain_tokens))
+    stats.update(phase_migrate(torch, params, cfg))
+    del params
     return stats
+
+
+class SSEReader(threading.Thread):
+    """Reads one SSE response to its end: ``events`` in order, ``error``
+    if the read failed."""
+
+    def __init__(self, url, body=None):
+        super().__init__(daemon=True)
+        data = None if body is None else json.dumps(body).encode()
+        self.req = urllib.request.Request(
+            url, data=data, method="POST" if data is not None else "GET")
+        self.events = []
+        self.error = None
+        self.start()
+
+    def run(self):
+        try:
+            with urllib.request.urlopen(self.req, timeout=900) as resp:
+                for raw in resp:
+                    line = raw.strip()
+                    if line.startswith(b"data: "):
+                        self.events.append(json.loads(line[6:]))
+        except Exception as exc:   # reported by the phase that reads it
+            self.error = repr(exc)
+
+    def tokens(self):
+        return [e for e in self.events if "token" in e]
+
+    def finish(self, what):
+        self.join(timeout=900)
+        check(self.error is None and not self.is_alive(),
+              f"{what}: stream failed ({self.error})")
+        return self
+
+
+def get(url, timeout=120):
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        return resp.status, json.loads(resp.read())
+
+
+def serve_http(rt):
+    """(httpd, thread, base url) of a port replica on a free port."""
+    from k8s_operator_libs_tpu_torch.server import make_server
+    httpd = make_server(rt, "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    return httpd, thread, f"http://127.0.0.1:{httpd.server_address[1]}"
+
+
+def close_http(httpd, thread, rt):
+    httpd.shutdown()
+    httpd.server_close()
+    rt.stop()
+    thread.join(timeout=30)
+
+
+def top2_gaps(torch, params, cfg, tokens, n_prompt):
+    """Top-2 logit gap of the contiguous (plain) forward before each
+    generated token of ``tokens``: gap[j] is taken at the position that
+    predicts tokens[n_prompt + j]."""
+    from k8s_operator_libs_tpu_torch.models.generate import (
+        _forward_cached, init_cache)
+    seq = torch.as_tensor([tokens[:-1]], device="cuda")
+    cache = init_cache(cfg, 1, seq.shape[1], device="cuda")
+    with torch.no_grad():
+        logits, _ = _forward_cached(params, seq, cache, cfg)
+    top = torch.topk(logits[0, n_prompt - 1:], 2, dim=-1).values
+    return (top[:, 0] - top[:, 1]).tolist()
+
+
+def step_ms(torch, fn, iters=5):
+    """Host wall ms of one synchronized call of ``fn`` (median)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.monotonic() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def phase_spec_serve(torch, params, cfg, prompts, plain_tokens):
+    """Phase 3b: phase 3's requests streamed through a speculative replica
+    (self-int8 draft, k SPEC_K) over the same weights."""
+    from k8s_operator_libs_tpu_torch.models.paged import (PagedKVCache,
+                                                          _forward_paged)
+    from k8s_operator_libs_tpu_torch.models.quant import _forward_paged_quant
+    from k8s_operator_libs_tpu_torch.obs.metrics import MetricsHub
+    from k8s_operator_libs_tpu_torch.ops import paged_attention as attn
+    from k8s_operator_libs_tpu_torch.server import ServingRuntime
+
+    hub = MetricsHub()
+    t0 = time.monotonic()
+    rt = ServingRuntime(params, cfg, max_slots=SLOTS, capacity=CAPACITY,
+                        block_size=BS, chunk=CHUNK, hub=hub,
+                        draft="self-int8", spec_k=SPEC_K)
+    srv = rt.srv
+    log(f"phase 3b: self-int8 draft quantized and pools allocated in "
+        f"{time.monotonic() - t0:.1f} s; the draft streams "
+        f"{srv._draft_stream_bytes} weight bytes per step against the "
+        f"target's {srv._stream_bytes}")
+    httpd, thread, base = serve_http(rt)
+    try:
+        warm = SSEReader(base + "/generate", {"tokens": list(range(1, 9)),
+                                              "max_new": 8, "stream": True})
+        warm.finish("warm-up")
+        check(warm.events[-1].get("done"), "speculative warm-up failed")
+        with rt.lock:
+            attn.reset_launch_counts()
+            srv.spec_rounds = srv.spec_accepted = srv.decode_steps = 0
+            srv.decode_seconds = 0.0
+            srv.decode_tokens = 0
+            acc0 = hist(hub, "spec_accept_ratio")
+        t_req = time.monotonic()
+        readers = [SSEReader(base + "/generate",
+                             {"tokens": p, "max_new": MAX_NEW,
+                              "stream": True}) for p in prompts]
+        for i, r in enumerate(readers):
+            r.finish(f"speculative request {i}")
+        wall = time.monotonic() - t_req
+        with rt.lock:
+            launches = attn.LAUNCHES["paged_decode"]
+            rounds, plain_steps = srv.spec_rounds, srv.decode_steps
+            dec_s, dec_tok = srv.decode_seconds, srv.decode_tokens
+            acc1 = hist(hub, "spec_accept_ratio")
+            gbs = hub.gauge("weight_stream_gbs")
+    finally:
+        close_http(httpd, thread, rt)
+    gaps_log = []
+    for i, (p, r, plain) in enumerate(zip(prompts, readers, plain_tokens)):
+        toks = r.tokens()
+        check([e["seq"] for e in toks] == list(range(MAX_NEW)),
+              f"speculative stream {i} is not gapless: "
+              f"{[e['seq'] for e in toks]}")
+        got = p + [e["token"] for e in toks]
+        check(r.events[-1] == {"done": True, "tokens": got},
+              f"speculative stream {i}: done tokens differ from the stream")
+        gaps = top2_gaps(torch, params, cfg, plain, len(p))
+        small = next((j for j, g in enumerate(gaps) if g < SPEC_GAP_EPS),
+                     MAX_NEW)
+        i_diff = first_mismatch(got[len(p):], plain[len(p):])
+        if i_diff is not None and (i_diff < small
+                                   or gaps[i_diff] >= SPEC_GAP_EPS):
+            check(False, f"speculative request {i}: token {i_diff} differs "
+                         f"from phase 3's where the top-2 logit gap is "
+                         f"{gaps[i_diff]:.4f} (first gap under "
+                         f"{SPEC_GAP_EPS} at token {small})")
+        gaps_log.append(f"prompt {len(p)}: "
+                        + ("identical" if i_diff is None else
+                           f"first differs at token {i_diff} (gap there "
+                           f"{gaps[i_diff]:.4f})")
+                        + f", first gap < {SPEC_GAP_EPS} at token "
+                        + (str(small) if small < MAX_NEW else "none")
+                        + f", min gap {min(gaps):.4f}")
+    check(rounds > 0 and plain_steps == 0,
+          f"{rounds} speculative rounds and {plain_steps} plain decode "
+          f"steps ran")
+    check(launches == rounds * (SPEC_K + 1) * cfg.n_layers,
+          f"A-K4 launched {launches} times over {rounds} rounds of "
+          f"{SPEC_K + 1} draft steps x {cfg.n_layers} layers")
+    slot_rounds = acc1[1] - acc0[1]
+    accept = (acc1[0] - acc0[0]) / max(1, slot_rounds)
+    per_slot = dec_tok / max(1, slot_rounds)
+    ms_round = 1e3 * dec_s / rounds
+    log(f"phase 3b: 4 streamed requests (prompts {PROMPT_LENS}, max_new "
+        f"{MAX_NEW}) through /generate stream, all gapless in "
+        f"{wall:.2f} s; A-K4 launches {launches} = {rounds} rounds x "
+        f"{SPEC_K + 1} draft steps x {cfg.n_layers} layers")
+    log(f"phase 3b: mean acceptance {accept:.4f} of {SPEC_K} drafts, "
+        f"{ms_round:.2f} ms per round, {per_slot:.3f} confirmed tokens per "
+        f"round per slot, weight_stream_gbs {gbs} (target + "
+        f"{SPEC_K + 1} x draft bytes per round)")
+    for line in gaps_log:
+        log(f"phase 3b: tokens vs phase 3: {line}")
+
+    # one draft step, one target decode step and one verify on the
+    # pools of four running slots
+    srv = rt.srv
+    for p in prompts:
+        srv.submit(p, 8)
+    srv.step(1)
+    cache, toks = srv.snapshot()
+    dcache = PagedKVCache(k=srv._dk, v=srv._dv, table=cache.table,
+                          lengths=cache.lengths)
+    window = toks.repeat(1, SPEC_K + 1)
+    dparams = srv._spec["params"]
+    with torch.no_grad():
+        ms_draft = step_ms(torch, lambda: _forward_paged_quant(
+            dparams, toks, dcache, cfg))
+        ms_target = step_ms(torch, lambda: _forward_paged(
+            params, toks, cache, cfg))
+        ms_verify = step_ms(torch, lambda: _forward_paged(
+            params, window, cache, cfg))
+    log(f"phase 3b: one draft step (int8 weights, A-K4) {ms_draft:.2f} ms, "
+        f"one target decode step (bf16, A-K4) {ms_target:.2f} ms, one "
+        f"{SPEC_K + 1}-token verify {ms_verify:.2f} ms (host wall, "
+        f"synchronized, {SLOTS} slots)")
+    del srv, rt, cache, dcache, dparams
+    return {"spec_launches": launches, "spec_rounds": rounds,
+            "spec_mean_accept": accept, "spec_ms_per_round": ms_round,
+            "spec_tokens_per_round_per_slot": per_slot,
+            "spec_weight_stream_gbs": gbs, "spec_wall_s": wall,
+            "spec_ms_draft_step": ms_draft,
+            "spec_ms_target_step": ms_target,
+            "spec_ms_verify": ms_verify}
+
+
+class GatedBatcher:
+    """A batcher that freezes after ``left`` more steps (None: never).
+    Frozen, it reads as idle, so the runtime's stepper sleeps with its
+    lock free for the HTTP handlers; everything else goes through."""
+
+    def __init__(self, srv, left):
+        self.srv = srv
+        self.left = left
+
+    def __getattr__(self, name):
+        return getattr(self.srv, name)
+
+    @property
+    def idle(self):
+        return self.left == 0 or self.srv.idle
+
+    def step(self, n=1):
+        if self.left is not None:
+            self.left -= 1
+        return self.srv.step(n)
+
+
+def phase_migrate(torch, params, cfg):
+    """Phase 3c: two port replicas over the same weights; a stream from
+    replica A is drained, exported, adopted by B and read on, over HTTP,
+    and must equal B's undisturbed run of the same request."""
+    import numpy as np
+
+    from k8s_operator_libs_tpu_torch.server import ServingRuntime
+
+    prompt = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, size=MIGRATE_PROMPT).tolist()
+    reps = []
+    for _ in range(2):
+        rt = ServingRuntime(params, cfg, max_slots=SLOTS, capacity=CAPACITY,
+                            block_size=BS, chunk=1, drain_hold_s=60.0)
+        reps.append((rt,) + serve_http(rt))
+    (rt_a, *http_a), (rt_b, *http_b) = reps
+    base_a, base_b = http_a[-1], http_b[-1]
+    # A's batcher freezes after MIGRATE_AFTER steps
+    gate = rt_a.srv = GatedBatcher(rt_a.srv, MIGRATE_AFTER)
+    try:
+        code, body = post(base_b + "/generate",
+                          {"tokens": prompt, "max_new": MIGRATE_NEW})
+        check(code == 200, f"undisturbed run on B returned {code}")
+        want = body["tokens"]
+        t0 = time.monotonic()
+        donor = SSEReader(base_a + "/generate",
+                          {"tokens": prompt, "max_new": MIGRATE_NEW,
+                           "stream": True})
+        while len(donor.tokens()) < MIGRATE_AFTER:
+            check(donor.is_alive() and time.monotonic() - t0 < 600,
+                  f"the donor stream stopped: {donor.events} "
+                  f"{donor.error}")
+            time.sleep(0.01)
+        rid = donor.events[0]["rid"]
+        code, body = post(base_a + "/drain", {})
+        check(code == 200, f"/drain returned {code}")
+        # let A's stepper go: the drain hold must keep the request still
+        gate.left = None
+        time.sleep(0.5)
+        held_tokens = len(donor.tokens())
+        t_exp = time.monotonic()
+        code, body = post(base_a + "/export", {"rid": rid})
+        check(code == 200, f"/export returned {code}, not 200")
+        payload = body["data"]
+        t_adopt = time.monotonic()
+        code, body = post(base_b + "/adopt", payload)
+        check(code == 200, f"/adopt returned {code}")
+        t_done = time.monotonic()
+        new_rid = body["data"]["rid"]
+        rest = SSEReader(f"{base_b}/stream?rid={new_rid}")
+        rest.finish("stream on B")
+        donor.finish("stream on A")
+        _, trace_a = get(f"{base_a}/trace?rid={rid}")
+        _, trace_b = get(f"{base_b}/trace?rid={new_rid}")
+    finally:
+        for rt, httpd, thread, _ in reps:
+            close_http(httpd, thread, rt)
+    check(held_tokens == MIGRATE_AFTER,
+          f"the drain hold let A decode on ({held_tokens} tokens)")
+    check(donor.events[-1] == {"detached": True},
+          f"A's stream ended with {donor.events[-1]}")
+    spliced = donor.tokens() + rest.tokens()
+    check([e["seq"] for e in spliced] == list(range(MIGRATE_NEW)),
+          f"spliced stream seqs {[e['seq'] for e in spliced]}")
+    check(prompt + [e["token"] for e in spliced] == want,
+          "the spliced stream differs from B's undisturbed run")
+    check(rest.events[-1] == {"done": True, "tokens": want},
+          "B's final event is not the undisturbed tokens")
+    ta, tb = trace_a["data"], trace_b["data"]
+    check(ta["trace_id"] == tb["trace_id"] and tb["hop"] == ta["hop"] + 1,
+          f"trace ids {ta['trace_id']} / {tb['trace_id']}, hops "
+          f"{ta['hop']} / {tb['hop']}")
+    kv_bytes = sum(len(payload["kv"][k]["b64"]) * 3 // 4
+                   for k in ("k", "v"))
+    log(f"phase 3c: two replicas (Llama-3-8B, all {cfg.n_layers} layers, "
+        f"one set of weights shared in this process), prompt "
+        f"{MIGRATE_PROMPT}, max_new {MIGRATE_NEW}: A drained after "
+        f"{MIGRATE_AFTER} tokens, held while its stepper ran free; /export "
+        f"200 in {1e3 * (t_adopt - t_exp):.1f} ms ({kv_bytes} KV bytes), "
+        f"/adopt 200 in {1e3 * (t_done - t_adopt):.1f} ms; spliced stream "
+        f"gapless 0..{MIGRATE_NEW - 1} and identical to B's undisturbed "
+        f"run; trace {ta['trace_id']} on both hops (hop {ta['hop']} -> "
+        f"{tb['hop']})")
+    return {"migrate_export_ms": 1e3 * (t_adopt - t_exp),
+            "migrate_adopt_ms": 1e3 * (t_done - t_adopt),
+            "migrate_kv_bytes": kv_bytes}
 
 
 def profile_kernels(torch, fn):
@@ -894,10 +1243,71 @@ def phase_parity(torch):
     failures += mism
     log(f"phase 4b: paged_generate(kv_int8) A-K5 ({launches_k5} launches) "
         f"vs plain, fp32: {'identical' if not mism else 'MISMATCH'}")
+
+    # (c) phase 4c: the speculative batcher (self-int8 draft, its draft
+    # steps through A-K4) against the plain batcher of (a)
+    from k8s_operator_libs_tpu_torch.models.quant import (
+        paged_quantized_generate, quantize_params)
+    attn.reset_launch_counts()
+    spec = ContinuousBatcher(params, cfg, max_slots=SLOTS,
+                             capacity_per_slot=CAPACITY, block_size=BS,
+                             draft="self-int8", spec_k=SPEC_K)
+    spec_rids = [spec.submit(p, MAX_NEW) for p in prompts]
+    spec_out = {}
+    while not spec.idle:
+        spec.step(CHUNK)
+        spec_out.update(spec.poll())
+    launches_spec = attn.LAUNCHES["paged_decode"]
+    check(launches_spec == cfg.n_layers * (
+        (SPEC_K + 1) * spec.spec_rounds + spec.decode_steps) > 0
+        and spec.spec_rounds > 0,
+        f"A-K4 launched {launches_spec} times over {spec.spec_rounds} "
+        f"rounds and {spec.decode_steps} plain steps")
+    mism = []
+    for rid, srid, p in zip(rids, spec_rids, prompts):
+        i = first_mismatch(spec_out[srid].tolist(), out[rid].tolist())
+        if i is not None:
+            gap = logit_gap(torch, params, cfg, out[rid][:i].tolist())
+            mism.append(f"speculative batcher prompt {len(p)}: token "
+                        f"{i - len(p)} differs, plain top-2 logit gap "
+                        f"there {gap:.3e}")
+    failures += mism
+    log(f"phase 4c: speculative batcher (self-int8 draft, k {SPEC_K}, "
+        f"{spec.spec_rounds} rounds, {spec.spec_accepted} drafts "
+        f"accepted, A-K4 {launches_spec} launches) vs the batcher of 4a, "
+        f"fp32: {'identical' if not mism else 'MISMATCH'}")
+    del spec
+
+    # (d) phase 4c: int8 weights + int8 KV through A-K5 against the same
+    # call with the plain decode attention
+    qparams = quantize_params(params)
+    attn.reset_launch_counts()
+    got = paged_quantized_generate(qparams, prompt_t, cfg,
+                                   max_new_tokens=MAX_NEW,
+                                   prompt_lengths=plens, block_size=BS,
+                                   kv_int8=True).cpu().numpy()
+    launches_q = attn.LAUNCHES["paged_decode_int8"]
+    check(launches_q == cfg.n_layers * (MAX_NEW - 1),
+          f"A-K5 launched {launches_q} times under int8 weights, expected "
+          f"{cfg.n_layers * (MAX_NEW - 1)}")
+    ref = paged_quantized_generate(
+        qparams, prompt_t, cfg, max_new_tokens=MAX_NEW,
+        prompt_lengths=plens, block_size=BS, kv_int8=True,
+        decode_attn=attn.paged_decode_plain).cpu().numpy()
+    mism = [f"paged_quantized_generate(kv_int8) row {b}: token {i} differs"
+            for b in range(B)
+            for i in [first_mismatch(got[b, Tp:].tolist(),
+                                     ref[b, Tp:].tolist())] if i is not None]
+    failures += mism
+    log(f"phase 4c: paged_quantized_generate(kv_int8=True), int8 weights "
+        f"and KV, A-K5 ({launches_q} launches) vs plain, fp32: "
+        f"{'identical' if not mism else 'MISMATCH'}")
+    del qparams
     for f in failures:
         log(f"phase 4: {f}")
     check(not failures, "token parity failed")
-    return {"launches_int8": launches_k5}
+    return {"launches_int8": launches_k5, "launches_spec_fp32": launches_spec,
+            "launches_int8_weights": launches_q}
 
 
 # ------------------------------------------------------------ training
@@ -1161,6 +1571,8 @@ def main():
              serve["launches"]),
             ("paged_decode_int8", "paged_decode", f"{jax_attn}:828",
              parity["launches_int8"]),
+            ("paged_decode_speculative", "paged_decode", f"{jax_attn}:734",
+             serve["spec_launches"]),
             ("paged_decode_full_batch", "paged_decode", f"{jax_attn}:734",
              serve["launches"]),
             ("paged_decode_int8_full_batch", "paged_decode",
@@ -1171,7 +1583,10 @@ def main():
              training["launches_flash_bwd_dq"]),
             ("flash_bwd_dkv", "flash_attention_tc", f"{jax_attn}:519",
              training["launches_flash_bwd_dkv"])):
-        k = kernels[name]
+        # the speculative path's draft steps run A-K4 at phase 3's shape,
+        # so its row carries phase 2's serving-shape measurement
+        k = kernels["paged_decode" if name == "paged_decode_speculative"
+                    else name]
         rows.append({"name": name, "route": "cuda",
                      "source": CSRC.format(source), "replaces": replaces,
                      "launches": launches, "max_abs_err": k["max_abs_err"],

@@ -9,7 +9,10 @@ HTTP server, with the paged-decode attention kernels written by hand in
 CUDA C++ for Hopper (``csrc/paged_decode.cu``). Slice 2 ports training on
 one GPU: the training forward, the clipped-AdamW step, the token loader
 and the checkpointing trainer, with flash attention forward and backward
-in CUDA C++ (``csrc/flash_attention.cu``).
+in CUDA C++ (``csrc/flash_attention.cu``). Slice 6 completes the serving
+replica: int8 weights, speculative decoding with the int8 self-draft,
+and the reference server's HTTP surface (SSE streaming, live migration
+by ``/export`` and ``/adopt``, request tracing).
 
 The package imports ``torch``, ``numpy`` and the standard library only.
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU,

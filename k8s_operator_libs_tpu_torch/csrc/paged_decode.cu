@@ -14,10 +14,11 @@
 // 0 .. lengths[b] / BS (capped at MB) of the table row are read, table
 // entries included, so dead blocks may hold anything (NaN included); inside
 // the last live block the rows past lengths[b] are skipped, never multiplied
-// by a zero weight. Roundings: the present ones, not the TPU kernel's. P and
-// p * vs stay fp32 (the TPU kernel rounds P to the pool type before P V and
-// p * vs to q's type); q and the pools are widened to fp32 and every product
-// accumulates in fp32, on the FMA units: fp32 pools must not take TF32.
+// by a zero weight. Roundings: the TPU kernel's. P is rounded to the pool
+// type before P V, and int8's p * vs to q's type (ops/attention.py:815, :899
+// of the JAX package); l sums the unrounded p. q and the pools are widened
+// to fp32 and every product accumulates in fp32, on the FMA units: fp32
+// pools must not take TF32.
 //
 // Bound: bytes. A decode step reads each visible K/V row once and does
 // 4 * Dh flops per (query head, key) — with G query heads per K/V row that
@@ -93,6 +94,11 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(x);
 }
 template <> __device__ __forceinline__ __half from_f32<__half>(float x) { return __float2half(x); }
+
+// x rounded to T (round to nearest even) and widened back
+template <typename T> __device__ __forceinline__ float round_to(float x) {
+  return to_f32<T>(from_f32<T>(x));
+}
 
 // The elements of one 32-bit word of a row, widened to fp32 (exactly).
 template <typename P> __device__ __forceinline__ void unpack(unsigned w, float* dst);
@@ -359,7 +365,11 @@ __global__ void __launch_bounds__(kThreads, MAX_UNITS == 1 ? 6 : 3)
     float l = 0.f;
     for (int k = lane; k < keys; k += 32) {
       const float p = expf(srow[k] - m);  // exactly 0 for an invisible key
-      srow[k] = p;
+      if constexpr (QUANT) {
+        srow[k] = p;  // rounded with its v scale in P V
+      } else {
+        srow[k] = round_to<P>(p);
+      }
       l += p;
     }
     l = warp_sum(l);
@@ -405,7 +415,8 @@ __global__ void __launch_bounds__(kThreads, MAX_UNITS == 1 ? 6 : 3)
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
             if (g0 + r < G) {
-              const float w = QUANT ? p0[r * SK + t] * vsc[t] : p0[r * SK + t];
+              float w = p0[r * SK + t];
+              if constexpr (QUANT) w = round_to<Q>(w * vsc[t]);
 #pragma unroll
               for (int e = 0; e < 4; ++e) acc[ui][r][e] = fmaf(w, vf[e], acc[ui][r][e]);
             }

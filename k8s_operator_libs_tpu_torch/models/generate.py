@@ -18,6 +18,7 @@ import torch
 
 from ..utils.device import DeviceLike, resolve_device
 from .llama import LlamaConfig, rms_norm, rope, swiglu
+from .llama import matmul as _plain_matmul
 
 Params = Dict[str, Any]
 
@@ -61,9 +62,17 @@ def _attend_cached(cfg: LlamaConfig, q: torch.Tensor, k_cache: torch.Tensor,
 
 @torch.no_grad()
 def _forward_cached(params: Params, tokens: torch.Tensor, cache: KVCache,
-                    cfg: LlamaConfig) -> Tuple[torch.Tensor, KVCache]:
+                    cfg: LlamaConfig, matmul=None, ffn=None,
+                    lm_head_fn=None) -> Tuple[torch.Tensor, KVCache]:
     """Forward [B, T] starting at ``cache.length``; appends K/V to the
-    cache in place. Prefill (T = prompt length) and decode (T = 1)."""
+    cache in place. Prefill (T = prompt length) and decode (T = 1).
+    Every contiguous-cache variant shares it through the reference's
+    three hooks: ``matmul(x, layer, name)`` (default ``x @ layer[name]``;
+    int8 weights swap in ``quant._qmat``), ``ffn(h, layer)`` (the MLP)
+    and ``lm_head_fn(x, params)``. Head counts come from the product
+    shapes, so ``{"q", "s"}`` weight dicts work unchanged."""
+    mm = matmul or _plain_matmul
+    lm = lm_head_fn or _plain_lm_head
     B, T = tokens.shape
     Dh = cfg.head_dim
     start = cache.length
@@ -72,25 +81,38 @@ def _forward_cached(params: Params, tokens: torch.Tensor, cache: KVCache,
     x = params["embed"][tokens.long()]
     blocks = params["blocks"]
     for i in range(cfg.n_layers):
-        layer = {name: w[i] for name, w in blocks.items()}
+        layer = layer_weights(blocks, i)
         h = rms_norm(x, layer["attn_norm"])
-        q = h @ layer["wq"]
+        q = mm(h, layer, "wq")
         H = q.shape[-1] // Dh
         q = q.reshape(B, T, H, Dh)
-        k = h @ layer["wk"]
+        k = mm(h, layer, "wk")
         KV = k.shape[-1] // Dh
         k = k.reshape(B, T, KV, Dh)
-        v = (h @ layer["wv"]).reshape(B, T, KV, Dh)
+        v = mm(h, layer, "wv").reshape(B, T, KV, Dh)
         q = rope(q, pos_b, cfg.rope_theta)
         k = rope(k, pos_b, cfg.rope_theta)
         cache.k[i, :, start:start + T] = k.to(cache.k.dtype)
         cache.v[i, :, start:start + T] = v.to(cache.v.dtype)
         attn = _attend_cached(cfg, q, cache.k[i], cache.v[i], positions)
-        x = x + attn.reshape(B, T, H * Dh) @ layer["wo"]
-        x = x + swiglu(rms_norm(x, layer["mlp_norm"]), layer)
+        x = x + mm(attn.reshape(B, T, H * Dh), layer, "wo")
+        h2 = rms_norm(x, layer["mlp_norm"])
+        x = x + (ffn(h2, layer) if ffn is not None
+                 else swiglu(h2, layer, mm))
     x = rms_norm(x, params["final_norm"])
-    logits = (x @ params["lm_head"]).float()
+    logits = lm(x, params).float()
     return logits, dataclasses.replace(cache, length=start + T)
+
+
+def _plain_lm_head(x: torch.Tensor, params: Params) -> torch.Tensor:
+    return x @ params["lm_head"]
+
+
+def layer_weights(blocks: Params, i: int) -> Params:
+    """Layer ``i`` of the stacked blocks; a quantized ``{"q", "s"}`` mat
+    yields ``{"q": q[i], "s": s[i]}``."""
+    return {name: ({k: t[i] for k, t in w.items()} if isinstance(w, dict)
+                   else w[i]) for name, w in blocks.items()}
 
 
 def filter_logits(logits: torch.Tensor, top_k: Optional[int] = None,

@@ -159,11 +159,18 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def swiglu(h: torch.Tensor, layer: Params) -> torch.Tensor:
+def matmul(x: torch.Tensor, layer: Params, name: str) -> torch.Tensor:
+    """``x @ layer[name]``: the default of the forwards' ``matmul`` hook."""
+    return x @ layer[name]
+
+
+def swiglu(h: torch.Tensor, layer: Params, mm=matmul) -> torch.Tensor:
     """The block's MLP: silu(h W_gate) in fp32, cast back, times h W_up,
-    then W_down (the reference computes the gate's silu in fp32)."""
-    gate = torch.nn.functional.silu((h @ layer["w_gate"]).float()).to(h.dtype)
-    return (gate * (h @ layer["w_up"])) @ layer["w_down"]
+    then W_down (the reference computes the gate's silu in fp32). ``mm``
+    is the forwards' ``matmul`` hook (int8 weights pass theirs)."""
+    gate = torch.nn.functional.silu(mm(h, layer, "w_gate").float()
+                                    ).to(h.dtype)
+    return mm(gate * mm(h, layer, "w_up"), layer, "w_down")
 
 
 def param_count(params: Params) -> int:

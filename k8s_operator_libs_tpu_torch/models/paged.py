@@ -34,7 +34,9 @@ from ..convert import (dtype_name, tensor_bytes, tensor_from_bytes,
                        tensor_from_numpy)
 from ..ops.paged_attention import paged_decode
 from ..utils.device import DeviceLike, resolve_device
+from .generate import _plain_lm_head, layer_weights, scan_decode
 from .llama import LlamaConfig, rms_norm, rope, swiglu
+from .llama import matmul as _plain_matmul
 
 Params = Dict[str, Any]
 
@@ -174,7 +176,8 @@ def _dequant_view(pool_l, scale_l, table, dtype):
 
 @torch.no_grad()
 def _forward_paged(params: Params, tokens: torch.Tensor,
-                   cache: PagedKVCache, cfg: LlamaConfig,
+                   cache: PagedKVCache, cfg: LlamaConfig, matmul=None,
+                   ffn=None, lm_head_fn=None,
                    decode_attn=None) -> Tuple[torch.Tensor, PagedKVCache]:
     """Forward [B, T] starting at per-sequence ``cache.lengths``; writes
     this step's K/V into the pools (in place) BEFORE attending, so the
@@ -184,10 +187,16 @@ def _forward_paged(params: Params, tokens: torch.Tensor,
     takes the kernel on the card: the reference's size crossover for its
     kernel was a TPU measurement and is not carried over.
 
-    ``decode_attn`` overrides the single-token attention (default
+    The reference's hooks: ``matmul(x, layer, name)``, ``ffn(h, layer)``
+    and ``lm_head_fn(x, params)`` (see :func:`~.generate._forward_cached`;
+    the int8-weight forward of :mod:`.quant` rides them). Head counts
+    come from the product shapes. ``decode_attn`` overrides the
+    single-token attention (default
     :func:`~..ops.paged_attention.paged_decode`: the kernel on CUDA, its
     plain version on the CPU); ``chip_smoke.py`` passes the plain version
     to hold the kernel against it on the card."""
+    mm = matmul or _plain_matmul
+    lm = lm_head_fn or _plain_lm_head
     attn_fn = decode_attn or paged_decode
     quant = cache.quantized
     B, T = tokens.shape
@@ -198,15 +207,15 @@ def _forward_paged(params: Params, tokens: torch.Tensor,
     x = params["embed"][tokens.long()]
     blocks = params["blocks"]
     for i in range(cfg.n_layers):
-        layer = {name: w[i] for name, w in blocks.items()}
+        layer = layer_weights(blocks, i)
         h = rms_norm(x, layer["attn_norm"])
-        q = h @ layer["wq"]
+        q = mm(h, layer, "wq")
         H = q.shape[-1] // Dh
         q = q.reshape(B, T, H, Dh)
-        k = h @ layer["wk"]
+        k = mm(h, layer, "wk")
         KV = k.shape[-1] // Dh
         k = k.reshape(B, T, KV, Dh)
-        v = (h @ layer["wv"]).reshape(B, T, KV, Dh)
+        v = mm(h, layer, "wv").reshape(B, T, KV, Dh)
         q = rope(q, pos, cfg.rope_theta)
         k = rope(k, pos, cfg.rope_theta)
         k_pool, v_pool = cache.k[i], cache.v[i]
@@ -226,8 +235,8 @@ def _forward_paged(params: Params, tokens: torch.Tensor,
             # decode: walk the block table (no gathered copy on the card)
             attn = attn_fn(q, k_pool, v_pool, table, lengths, ks, vs)
         else:
-            # prefill: gather view + masked attention; int8 dequantizes
-            # the gathered view
+            # prefill and speculative verify: gather view + masked
+            # attention; int8 dequantizes the gathered view
             if quant:
                 k_view = _dequant_view(k_pool, ks, table, q.dtype)
                 v_view = _dequant_view(v_pool, vs, table, q.dtype)
@@ -235,12 +244,46 @@ def _forward_paged(params: Params, tokens: torch.Tensor,
                 k_view = _paged_view(k_pool, table)
                 v_view = _paged_view(v_pool, table)
             attn = _attend_paged(cfg, q, k_view, v_view, pos)
-        x = x + attn.reshape(B, T, H * Dh) @ layer["wo"]
-        x = x + swiglu(rms_norm(x, layer["mlp_norm"]), layer)
+        x = x + mm(attn.reshape(B, T, H * Dh), layer, "wo")
+        h2 = rms_norm(x, layer["mlp_norm"])
+        x = x + (ffn(h2, layer) if ffn is not None
+                 else swiglu(h2, layer, mm))
     x = rms_norm(x, params["final_norm"])
-    logits = (x @ params["lm_head"]).float()
+    logits = lm(x, params).float()
     new_cache = dataclasses.replace(cache, lengths=lengths + T)
     return logits, new_cache
+
+
+def _paged_generate_impl(forward, params: Params, prompt: torch.Tensor,
+                         cfg: LlamaConfig, max_new_tokens: int,
+                         temperature: float,
+                         generator: Optional[torch.Generator],
+                         prompt_lengths: Optional[torch.Tensor],
+                         block_size: int, top_k: Optional[int],
+                         top_p: Optional[float],
+                         kv_int8: bool) -> torch.Tensor:
+    """Shared body of :func:`paged_generate` and the int8-weight twin
+    (:func:`~.quant.paged_quantized_generate`): ``forward(params, tokens,
+    cache, cfg)`` is the paged forward pass, :func:`_forward_paged` or a
+    hooked variant of it."""
+    device = params["embed"].device
+    prompt = prompt.to(device)
+    B, Tp = prompt.shape
+    cache = init_paged_cache(cfg, [Tp + max_new_tokens] * B, block_size,
+                             kv_int8=kv_int8, device=device)
+    if prompt_lengths is None:
+        prompt_lengths = torch.full((B,), Tp, dtype=torch.int32)
+    prompt_lengths = prompt_lengths.to(device=device, dtype=torch.int32)
+    fwd = partial(forward, cfg=cfg)
+    logits, cache = fwd(params, prompt, cache)
+    last = logits[torch.arange(B, device=device),
+                  (prompt_lengths - 1).long()]
+    # shorter sequences wrote padding rows past their length; rewind so
+    # decode continues from each prompt's true end (replace() keeps the
+    # int8 scale pools)
+    cache = dataclasses.replace(cache, lengths=prompt_lengths)
+    return scan_decode(fwd, params, prompt, cache, last, max_new_tokens,
+                       temperature, generator, top_k=top_k, top_p=top_p)
 
 
 @torch.no_grad()
@@ -257,24 +300,10 @@ def paged_generate(params: Params, prompt: torch.Tensor, cfg: LlamaConfig,
     device. prompt [B, Tp] int (right-padded when ragged; pass
     ``prompt_lengths`` [B] so each sequence decodes from its own offset)
     -> [B, Tp + max_new_tokens]. ``kv_int8=True`` stores int8 pools."""
-    from .generate import scan_decode
-    device = params["embed"].device
-    prompt = prompt.to(device)
-    B, Tp = prompt.shape
-    cache = init_paged_cache(cfg, [Tp + max_new_tokens] * B, block_size,
-                             kv_int8=kv_int8, device=device)
-    if prompt_lengths is None:
-        prompt_lengths = torch.full((B,), Tp, dtype=torch.int32)
-    prompt_lengths = prompt_lengths.to(device=device, dtype=torch.int32)
-    fwd = partial(_forward_paged, cfg=cfg, decode_attn=decode_attn)
-    logits, cache = fwd(params, prompt, cache)
-    last = logits[torch.arange(B, device=device),
-                  (prompt_lengths - 1).long()]
-    # shorter sequences wrote padding rows past their length; rewind so
-    # decode continues from each prompt's true end
-    cache = dataclasses.replace(cache, lengths=prompt_lengths)
-    return scan_decode(fwd, params, prompt, cache, last, max_new_tokens,
-                       temperature, generator, top_k=top_k, top_p=top_p)
+    return _paged_generate_impl(
+        partial(_forward_paged, decode_attn=decode_attn), params, prompt,
+        cfg, max_new_tokens, temperature, generator, prompt_lengths,
+        block_size, top_k, top_p, kv_int8)
 
 
 # ------------------------------------------------------- KV migration

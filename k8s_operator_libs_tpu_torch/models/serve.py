@@ -1,7 +1,7 @@
 """Continuous batching over the paged KV cache.
 
-Port of ``ContinuousBatcher`` from ``k8s_operator_libs_tpu/models/serve.py``
-(speculative draft mode waits for a later slice). A fixed fleet of
+Port of ``ContinuousBatcher`` from ``k8s_operator_libs_tpu/models/serve.py``,
+speculative draft mode included. A fixed fleet of
 ``max_slots`` decode slots shares one block pool; per-slot table rows and
 lengths keep slots independent, so admitting or retiring one request never
 touches another's cache. Block accounting is a host-side free list.
@@ -13,6 +13,15 @@ rows back once at the end. Idle slots are stepped too: they park at the
 aligned shared-prefix boundary with table rows on the scratch block, so
 their writes land where no live read looks. On the card each decode step
 runs the paged-decode kernel once per layer.
+
+In draft mode (``draft="self-int8"`` or a ``(params, cfg, forward)``
+triple) each ``step`` is one speculative round instead: ``spec_k + 1``
+single-token draft steps over every slot (each through the paged-decode
+kernel on the card), one ``(spec_k + 1)``-token target verify (the
+gathered attention path), per-slot greedy acceptance, and the rewind of
+each slot's length on the host. The draft keeps its own pools behind the
+same table and lengths. Outputs are the non-speculative batcher's tokens
+for any draft: the target's verify is authoritative.
 """
 
 from __future__ import annotations
@@ -28,7 +37,8 @@ from .llama import LlamaConfig
 from .paged import (DEFAULT_BLOCK_SIZE, KV_WIRE_VERSION, KVPayloadError,
                     PagedKVCache, _forward_paged, export_slot_kv,
                     import_slot_kv)
-from .quant import stream_bytes
+from .quant import _forward_paged_quant, quantize_params, stream_bytes
+from .speculative import accept_counts
 
 Params = Dict[str, Any]
 
@@ -69,16 +79,25 @@ class ContinuousBatcher:
     table row references read-only; the sub-block remainder rides each
     request's own prefill. ``metrics`` (a MetricsHub, duck-typed),
     ``tracer`` (``span(name, **attrs)`` context manager) and ``clock``
-    are the reference's hooks, with the same metric names."""
+    are the reference's hooks, with the same metric names.
+
+    ``forward(params, tokens, cache, cfg)`` overrides the paged forward
+    (default :func:`~.paged._forward_paged`). ``draft`` turns on
+    speculative decoding (see the module docstring): ``"self-int8"``
+    drafts with the target's own weights in int8, or pass ``(params,
+    cfg, forward)`` for an explicit draft model (``forward`` None for
+    the paged forward); ``spec_k`` is the speculation depth."""
 
     payload_version = KV_WIRE_VERSION
 
     def __init__(self, params: Params, cfg: LlamaConfig, max_slots: int = 8,
                  capacity_per_slot: int = 512,
                  block_size: int = DEFAULT_BLOCK_SIZE,
-                 shared_prefix=None, metrics=None, tracer=None, clock=None):
+                 shared_prefix=None, forward=None, metrics=None, tracer=None,
+                 clock=None, draft=None, spec_k: int = 4):
         self.params = params
         self.cfg = cfg
+        self._forward = forward or _forward_paged
         self.device = params["embed"].device
         self.max_slots = max_slots
         self.block_size = block_size
@@ -90,6 +109,9 @@ class ContinuousBatcher:
         self.decode_steps = 0
         self.decode_seconds = 0.0
         self.decode_tokens = 0
+        # draft mode: rounds run and draft tokens confirmed in them
+        self.spec_rounds = 0
+        self.spec_accepted = 0
 
         if shared_prefix is None:
             shared_prefix = np.zeros((0,), np.int32)
@@ -106,6 +128,29 @@ class ContinuousBatcher:
         shape = (L, n_blocks, block_size, KV, Dh)
         self._k = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
         self._v = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
+
+        # draft mode: the draft's own pools behind the SAME table and
+        # lengths, so admission, retirement and recycling stay one path
+        self._spec = None
+        self._draft_stream_bytes = 0
+        if draft is not None:
+            if spec_k < 1:
+                raise ValueError("spec_k must be >= 1")
+            if draft == "self-int8":
+                dparams, dcfg, dfwd = (quantize_params(params), cfg,
+                                       _forward_paged_quant)
+            else:
+                dparams, dcfg, dfwd = draft
+                dfwd = dfwd or _forward_paged
+            dshape = (dcfg.n_layers, n_blocks, block_size, dcfg.n_kv_heads,
+                      dcfg.head_dim)
+            self._dk = torch.zeros(dshape, dtype=dcfg.dtype,
+                                   device=self.device)
+            self._dv = torch.zeros(dshape, dtype=dcfg.dtype,
+                                   device=self.device)
+            self._spec = {"params": dparams, "cfg": dcfg, "fwd": dfwd,
+                          "k": int(spec_k)}
+            self._draft_stream_bytes = stream_bytes(dparams)
 
         self._stream_bytes = stream_bytes(params)
         # host mirrors, uploaded with each device call. Row layout:
@@ -143,7 +188,11 @@ class ContinuousBatcher:
             self._prefill_shared_prefix(shared_prefix[:self._prefix_aligned])
 
     def _fwd(self, tokens, cache):
-        return _forward_paged(self.params, tokens, cache, self.cfg)
+        return self._forward(self.params, tokens, cache, self.cfg)
+
+    def _dfwd(self, tokens, cache):
+        spec = self._spec
+        return spec["fwd"](spec["params"], tokens, cache, spec["cfg"])
 
     def _tensor(self, arr) -> torch.Tensor:
         """A device COPY of a host mirror (on the CPU ``as_tensor`` would
@@ -152,14 +201,16 @@ class ContinuousBatcher:
 
     def _prefill_shared_prefix(self, tokens: np.ndarray) -> None:
         """One forward over the aligned prefix writes its K/V into the
-        shared blocks; the logits are discarded."""
-        cache = PagedKVCache(
-            k=self._k, v=self._v,
-            table=self._tensor(np.arange(self._prefix_blocks,
-                                         dtype=np.int32)[None]),
-            lengths=torch.zeros((1,), dtype=torch.int32,
-                                device=self.device))
-        self._fwd(self._tensor(tokens)[None], cache)
+        shared blocks (the draft's too); the logits are discarded."""
+        table = self._tensor(np.arange(self._prefix_blocks,
+                                       dtype=np.int32)[None])
+        zero = torch.zeros((1,), dtype=torch.int32, device=self.device)
+        prompt = self._tensor(tokens)[None]
+        self._fwd(prompt, PagedKVCache(k=self._k, v=self._v, table=table,
+                                       lengths=zero))
+        if self._spec is not None:
+            self._dfwd(prompt, PagedKVCache(k=self._dk, v=self._dv,
+                                            table=table, lengths=zero))
 
     # ------------------------------------------------------------ device
 
@@ -190,8 +241,51 @@ class ContinuousBatcher:
             k=self._k, v=self._v, table=self._tensor(self._table[slot])[None],
             lengths=torch.full((1,), self._prefix_aligned,
                                dtype=torch.int32, device=self.device))
-        logits, _ = self._fwd(self._tensor(padded)[None], cache)
+        prompt = self._tensor(padded)[None]
+        logits, _ = self._fwd(prompt, cache)
+        if self._spec is not None:
+            # the draft's rows of the prompt, same table row and
+            # positions; its logits are not needed
+            self._dfwd(prompt, dataclasses.replace(cache, k=self._dk,
+                                                   v=self._dv))
         return int(torch.argmax(logits[0, length - 1]))
+
+    @torch.no_grad()
+    def _spec_round(self):
+        """One speculative round over every slot: k + 1 draft steps (the
+        last writes the final proposal's draft row; its own proposal is
+        discarded), one (k+1)-token target verify, per-slot greedy
+        acceptance. Returns (slab [slots, k+1], counts [slots]) with one
+        readback: each slot's accepted drafts, then the target's token
+        at its acceptance index."""
+        kk = self._spec["k"]
+        table = self._tensor(self._table)
+        lengths = self._tensor(self._lengths)
+        last = self._tensor(self._last_tok)
+        tok, props = last, []
+        for _ in range(kk + 1):
+            cache = PagedKVCache(k=self._dk, v=self._dv, table=table,
+                                 lengths=lengths)
+            logits, cache = self._dfwd(tok[:, None], cache)
+            tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+            lengths = cache.lengths
+            props.append(tok)
+        drafts = torch.stack(props[:kk], dim=1)                 # [S, k]
+        window = torch.cat([last[:, None], drafts], dim=1)      # [S, k+1]
+        cache = PagedKVCache(k=self._k, v=self._v, table=table,
+                             lengths=self._tensor(self._lengths))
+        v_logits, _ = self._fwd(window, cache)
+        # greedy[:, i] is the target's pick after window[:, :i+1]
+        greedy = torch.argmax(v_logits, dim=-1).to(torch.int32)
+        acc = accept_counts(drafts == greedy[:, :kk])           # [S]
+        slab = torch.where(
+            torch.arange(kk + 1, device=self.device)[None, :] < acc[:, None],
+            torch.nn.functional.pad(drafts, (0, 1)),
+            torch.gather(greedy, 1, acc[:, None].long()))
+        both = torch.cat([slab, acc[:, None].to(torch.int32)], dim=1)
+        both = both.cpu().numpy()                    # the round's one sync
+        self.spec_rounds += 1
+        return both[:, :kk + 1], both[:, kk + 1]
 
     def snapshot(self):
         """(cache, last tokens [slots, 1]) as the next decode step reads
@@ -285,7 +379,10 @@ class ContinuousBatcher:
         """Quiesce one in-flight request at the step boundary and return
         its migration payload (KV, prompt, generated tokens, pending last
         token, greedy sampler). The request leaves this server and its
-        slot and blocks recycle at once. ``KeyError`` if not running."""
+        slot and blocks recycle at once. ``KeyError`` if not running.
+        In draft mode the draft pools stay behind: the peer's draft
+        starts cold for the slot, which lowers its acceptance, not its
+        tokens."""
         req = self._running.pop(rid)
         s = req.slot
         kv = export_slot_kv(self._k, self._v, self._table[s],
@@ -399,6 +496,14 @@ class ContinuousBatcher:
         # reference, so the chunk simply shrinks to the cap)
         cap = min(self._slot_limit - int(self._lengths[r.slot])
                   for r in self._running.values())
+        if self._spec is not None and cap >= self._spec["k"] + 1:
+            self._step_spec_round(span, t0)
+            return
+        # (draft mode falls through when a slot is within k rows of its
+        # capacity: the (k+1)-wide window no longer fits its table row,
+        # so the step runs plain ticks. The draft cache misses those
+        # rows, so that slot's acceptance drops until it turns over;
+        # tokens do not change, the target decides either way.)
         n = min(n, cap)
         if span is not None:
             span.set("ticks", n)
@@ -428,6 +533,59 @@ class ContinuousBatcher:
                     break
             else:
                 self._last_tok[s] = toks[n - 1, s]
+        for rid in finished:
+            self._retire(self._running.pop(rid))
+        if self._metrics is not None:
+            self._metrics.observe("serve_step_duration_seconds",
+                                  max(0.0, self._clock.now() - t0))
+            self._refresh_gauges()
+
+    def _step_spec_round(self, span, t0) -> None:
+        """One speculative round. Per slot the tokens appended are the
+        pending last token plus that slot's accepted drafts; the target's
+        token at the acceptance index becomes the new pending token. The
+        device wrote k + 1 rows past each slot's length; the host advances
+        lengths over the confirmed ones only, so the rejected rows lie
+        past ``lengths`` and the next round overwrites them."""
+        kk = self._spec["k"]
+        if span is not None:
+            span.set("spec_k", kk)
+        t_dev = self._clock.now()
+        slab, acc = self._spec_round()
+        decode_s = max(0.0, self._clock.now() - t_dev)
+        self.decode_seconds += decode_s
+        finished = []
+        emitted = 0
+        for rid, req in self._running.items():
+            s = req.slot
+            a = int(acc[s])
+            self.spec_accepted += a
+            if self._metrics is not None:
+                self._metrics.observe("spec_accept_ratio", a / kk,
+                                      buckets=_RATIO_BUCKETS)
+            round_toks = ([int(self._last_tok[s])]
+                          + [int(t) for t in slab[s, :a]])
+            for tok in round_toks:
+                req.generated.append(tok)
+                self._lengths[s] += 1
+                emitted += 1
+                if len(req.generated) >= req.max_new:
+                    finished.append(rid)
+                    break
+            else:
+                self._last_tok[s] = int(slab[s, a])
+        self.decode_tokens += emitted
+        if self._metrics is not None and self._running:
+            per_slot = emitted / len(self._running)
+            self._metrics.observe("serve_inter_token_seconds",
+                                  decode_s / max(per_slot, 1.0))
+            if self._stream_bytes:
+                # one target verify stream + k + 1 draft streams per round
+                bytes_round = (self._stream_bytes
+                               + (kk + 1) * self._draft_stream_bytes)
+                self._metrics.set_gauge(
+                    "weight_stream_gbs",
+                    round(bytes_round / max(decode_s, 1e-9) / 1e9, 3))
         for rid in finished:
             self._retire(self._running.pop(rid))
         if self._metrics is not None:

@@ -63,6 +63,9 @@ HELP_TEXTS: Dict[str, str] = {
         "unhealthy, else 0",
     "tpu_workload_serve_draining":
         "1 once the drain began (admission closed), else 0",
+    "tpu_workload_spec_accept_ratio":
+        "Accepted-draft fraction (accepted / spec_k) per running slot "
+        "per speculative round (models/serve.py draft mode)",
     "tpu_workload_weight_stream_gbs":
         "Effective weight-streaming bandwidth of the last decode call "
         "(streamed weight bytes / device seconds; embedding excluded — "

@@ -104,11 +104,15 @@ def paged_decode_plain(q: torch.Tensor, k_pool: torch.Tensor,
                        v_scale: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
     """The kernels' function in plain PyTorch: gather each sequence's
-    table row into a contiguous view, mask keys past its position, softmax
-    in fp32. int8 pools fold the k scale into the score columns and the v
-    scale into the probability columns, as the kernel does. Invisible rows
-    are zeroed before they meet a zero weight, so dead blocks may hold NaN
-    here too. q [B, 1, H, Dh] -> [B, 1, H, Dh] in q's dtype."""
+    table row into a contiguous view, mask keys past its position, and
+    take the kernel's one-split softmax in fp32: p = exp(s - max s),
+    l = sum p, out = (p V) / l. int8 pools fold the k scale into the
+    score columns and the v scale into the probability columns, as the
+    kernel does. The weights meet V rounded as the reference kernel
+    rounds them: p to the pool dtype, int8's p * vs to q's dtype (fp32
+    rounds nothing). Invisible rows are zeroed before they meet a zero
+    weight, so dead blocks may hold NaN here too. q [B, 1, H, Dh] ->
+    [B, 1, H, Dh] in q's dtype."""
     B, _, H, Dh = q.shape
     _, BS, KV, _ = k_pool.shape
     MB = table.shape[1]
@@ -129,13 +133,30 @@ def paged_decode_plain(q: torch.Tensor, k_pool: torch.Tensor,
         s = s * ks.permute(0, 2, 1)[:, :, None, :]
     s = s * (1.0 / math.sqrt(Dh))
     s = s.masked_fill(~visible[:, None, None, :], float("-inf"))
-    p = torch.softmax(s, dim=-1)
+    # key 0 is always visible, so the row max is finite
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1)
+    vs = None
     if v_scale is not None:
         vs = torch.where(visible[:, :, None],
                          v_scale[idx].reshape(B, cap, KV), 0.0)
-        p = p * vs.permute(0, 2, 1)[:, :, None, :]
+        vs = vs.permute(0, 2, 1)[:, :, None, :]
+    p = round_weights(p, vs, q.dtype, v_pool.dtype)
     out = torch.einsum("bkgs,bskd->bkgd", p, v_view)
+    out = out / l.clamp_min(1e-30)[..., None]
     return out.reshape(B, 1, H, Dh).to(q.dtype)
+
+
+def round_weights(p: torch.Tensor, vs: Optional[torch.Tensor],
+                  q_dtype: torch.dtype, pool_dtype: torch.dtype
+                  ) -> torch.Tensor:
+    """The P V weights as the kernels round them (the reference kernels'
+    roundings, ``ops/attention.py:815`` and ``:899`` of the JAX package):
+    p rounded to the pool dtype, or with int8 pools p * vs rounded to q's
+    dtype; back in fp32 for the product."""
+    if vs is not None:
+        return (p * vs).to(q_dtype).float()
+    return p.to(pool_dtype).float()
 
 
 def visible_keys(lengths: torch.Tensor, MB: int, BS: int) -> torch.Tensor:
@@ -152,7 +173,8 @@ def split_partials(q: torch.Tensor, k_pool: torch.Tensor,
                    v_scale: Optional[torch.Tensor] = None) -> tuple:
     """The kernel's per-split partials in plain PyTorch, over the keys
     ``visible`` [B, MB * BS] marks: each split's row max m, sum l of
-    p = exp(s - m) and acc = sum p (* vs) v, fp32, shaped [B, KV, G, n]
+    p = exp(s - m) and acc = sum p (* vs) v with the weights rounded as
+    :func:`round_weights` does, fp32, shaped [B, KV, G, n]
     and [B, KV, G, n, Dh] for n = ceil(MB / split_blocks) splits. A split
     with no visible key has m = -inf and l = acc = 0."""
     B, _, H, Dh = q.shape
@@ -180,11 +202,13 @@ def split_partials(q: torch.Tensor, k_pool: torch.Tensor,
     m = s.amax(-1)
     p = torch.exp(s - torch.where(torch.isinf(m), 0.0, m)[..., None])
     l = p.sum(-1)
+    vs = None
     if v_scale is not None:
         vs = torch.where(visible[:, :, None],
                          v_scale[idx].reshape(B, cap, KV), 0.0)
         vs = torch.nn.functional.pad(vs.permute(0, 2, 1), (0, span - cap))
-        p = p * vs.reshape(B, KV, 1, n, span // n)
+        vs = vs.reshape(B, KV, 1, n, span // n)
+    p = round_weights(p, vs, q.dtype, v_pool.dtype)
     v_view = torch.nn.functional.pad(v_view, (0, 0, 0, 0, 0, span - cap))
     acc = torch.einsum("bkgis,biskd->bkgid", p,
                        v_view.reshape(B, n, span // n, KV, Dh))

@@ -19,10 +19,17 @@ class Clock(abc.ABC):
     @abc.abstractmethod
     def sleep(self, seconds: float) -> None: ...
 
+    def wall(self) -> float:
+        """Unix wall-clock seconds (span start stamps)."""
+        return self.now()
+
 
 class RealClock(Clock):
     def now(self) -> float:
         return time.monotonic()
+
+    def wall(self) -> float:
+        return time.time()
 
     def sleep(self, seconds: float) -> None:
         time.sleep(seconds)

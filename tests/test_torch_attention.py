@@ -48,22 +48,50 @@ def _scaled_err(got, ref):
                  / max(1.0, float(np.abs(ref).max())))
 
 
+def _float64_attention(q, k, v, causal):
+    """out [B, T, H, Dh] and base-e lse [B, H, T] in float64 from the
+    same (exactly widened) inputs: the yardstick each side is held to."""
+    q, k, v = (np.asarray(jnp.asarray(a, jnp.float32), np.float64)
+               for a in (q, k, v))
+    B, T, H, Dh = q.shape
+    G = H // k.shape[2]
+    k = np.repeat(k, G, axis=2)
+    v = np.repeat(v, G, axis=2)
+    s = np.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(Dh)
+    if causal:
+        s = np.where(np.tril(np.ones((T, T), bool)), s, -np.inf)
+    m = s.max(-1, keepdims=True)
+    p = np.exp(s - m)
+    l = p.sum(-1, keepdims=True)
+    out = np.einsum("bhqk,bkhd->bqhd", p / l, v)
+    return out, (m + np.log(l))[..., 0]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("H,KV", [(4, 4), (6, 2)])
 def test_plain_forward_matches_reference(dtype, causal, H, KV):
-    """fp32: summation order only. bf16: both round the normalised
-    probabilities and the output to bf16 (one ulp, 2^-8 relative, each),
-    so allow 2^-7 of max(1, |out|)."""
+    """Each side, JAX's reference and the port's plain version, is held
+    on its own to a float64 evaluation of the same inputs, so a failure
+    names the side that moved. fp32: summation order only. bf16: each
+    side rounds the normalised probabilities and the output to bf16 (one
+    ulp, 2^-8 relative, each), so allow 2^-7 of max(1, |out|)."""
     (q, k, v, _), (tq, tk, tv, _) = _inputs(2, 37, H, KV, 32, dtype)
     ref, ref_lse = jattn.reference_attention_with_lse(q, k, v, causal)
     out, lse = tattn.reference_attention_with_lse(tq, tk, tv, causal)
     assert out.dtype == convert.torch_dtype(dtype)
     assert lse.shape == (2 * KV, H // KV, 37) and lse.dtype == torch.float32
+    want, want_lse = _float64_attention(q, k, v, causal)
     tol = 1e-5 if dtype == "float32" else 2.0 ** -7
-    assert _scaled_err(_np(out), ref) <= tol
-    np.testing.assert_allclose(_np(lse).reshape(2, H, 37, 1),
-                               np.asarray(ref_lse), rtol=1e-5, atol=1e-5)
+    for side, got, got_lse in (
+            ("JAX reference_attention_with_lse", np.asarray(ref, np.float32),
+             np.asarray(ref_lse).reshape(2, H, 37)),
+            ("port reference_attention_with_lse", _np(out),
+             _np(lse).reshape(2, H, 37))):
+        err = _scaled_err(got, want)
+        assert err <= tol, f"{side}: out off float64 by {err:.3e} > {tol}"
+        np.testing.assert_allclose(got_lse, want_lse, rtol=1e-5, atol=1e-5,
+                                   err_msg=f"{side}: lse")
     got = tattn.reference_attention(tq, tk, tv, causal)
     assert torch.equal(got, out)
 

@@ -206,6 +206,57 @@ def test_batcher_decodes_through_the_kernel(cuda):
         np.testing.assert_array_equal(out[rid], ref)
 
 
+def test_speculative_batcher_drafts_through_the_kernel(cuda):
+    """Draft mode on the card: every draft step runs A-K4 (k + 1 per
+    round and layer, plus any plain ticks near a slot's capacity), and
+    the tokens equal the plain batcher's."""
+    cfg = LlamaConfig.tiny(dtype=torch.float32)
+    params = init_params(cfg, seed=0, device=cuda)
+    gen = np.random.default_rng(4)
+    prompts = [gen.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (5, 19, 11)]
+    outs = []
+    for draft in ("self-int8", None):
+        attn.reset_launch_counts()
+        srv = ContinuousBatcher(params, cfg, max_slots=2,
+                                capacity_per_slot=48, block_size=16,
+                                draft=draft, spec_k=3)
+        rids = [srv.submit(p, 12) for p in prompts]
+        out = {}
+        while not srv.idle:
+            srv.step(3)
+            out.update(srv.poll())
+        outs.append([out[r] for r in rids])
+        if draft is not None:
+            assert srv.spec_rounds > 0
+            assert attn.LAUNCHES["paged_decode"] == cfg.n_layers * (
+                4 * srv.spec_rounds + srv.decode_steps)
+    for got, ref in zip(*outs):
+        np.testing.assert_array_equal(got, ref)
+
+
+def test_int8_weights_and_kv_decode_through_the_kernel(cuda):
+    """``paged_quantized_generate(kv_int8=True)``: A-K5 on every decode
+    step and layer, tokens equal to the same call on the plain version."""
+    from k8s_operator_libs_tpu_torch.models.quant import (
+        paged_quantized_generate, quantize_params)
+    cfg = LlamaConfig.tiny(dtype=torch.float32)
+    qparams = quantize_params(init_params(cfg, seed=1, device=cuda))
+    prompt = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, size=(3, 9)), dtype=torch.int32, device=cuda)
+    plens = torch.as_tensor([9, 4, 7], dtype=torch.int32)
+    attn.reset_launch_counts()
+    got = paged_quantized_generate(qparams, prompt, cfg, max_new_tokens=10,
+                                   prompt_lengths=plens, block_size=16,
+                                   kv_int8=True)
+    assert attn.LAUNCHES["paged_decode_int8"] == cfg.n_layers * 9
+    ref = paged_quantized_generate(qparams, prompt, cfg, max_new_tokens=10,
+                                   prompt_lengths=plens, block_size=16,
+                                   kv_int8=True,
+                                   decode_attn=attn.paged_decode_plain)
+    assert torch.equal(got, ref)
+
+
 # ------------------------------------------------ flash attention (A-K1-3)
 
 def _qkv(device, dtype, B, T, H, KV, Dh, seed=0):

@@ -3,7 +3,8 @@
 - the plain versions of the paged-decode kernels (A-K4 bf16/fp32 pools,
   A-K5 int8 pools) against the reference's Pallas kernels run in
   interpret mode, at head_dim 128, with ragged lengths and NaN in every
-  dead block;
+  dead block, and at bf16, fp16 and int8-with-bf16-q, where both round
+  the P V weights the same way;
 - ``paged_generate`` (ragged prompts, int8 KV) and the contiguous
   ``generate`` greedy token-identical to the reference on ``tiny`` fp32,
   from the reference's own weights carried over by ``convert.py``;
@@ -145,6 +146,55 @@ def test_split_plain_matches_reference_kernel(split_blocks, int8):
     np.testing.assert_allclose(got, ref, rtol=2e-5, atol=2e-5)
     np.testing.assert_allclose(got, tattn.paged_decode_plain(*t, *ts).numpy(),
                                rtol=2e-5, atol=2e-5)
+
+
+# The weights meet V rounded as the reference kernel rounds them: p to the
+# pool dtype (bf16, fp16), int8's p * vs to q's dtype. The two sides still
+# round p against different maxima (the reference's running max, the
+# plain version's split max) and sum in different orders, then round the
+# output once each: hold every element to two output ulps at |x| in
+# [1, 2) (bf16 2^-6, fp16 2^-9), scaled by max(1, |reference|). With
+# int8 pools the rounding of p * vs also shows as the share of outputs
+# that are the reference's very bits: at least 80% on these seeds (about
+# 65% without the rounding).
+ROUNDING_CASES = {"bfloat16": 2.0 ** -6, "float16": 2.0 ** -9,
+                  "int8": 2.0 ** -6}
+
+
+@pytest.mark.parametrize("split_blocks", [None, 1, 2])
+@pytest.mark.parametrize("case", sorted(ROUNDING_CASES))
+def test_plain_paged_decode_rounds_like_reference_kernel(case,
+                                                         split_blocks):
+    lengths = np.asarray([0, 17, 31, 25], np.int32)
+    rng = np.random.default_rng(len(case))
+    k_pool, v_pool, table, _ = _pools(rng, lengths, nb=24)
+    q = 2 * rng.standard_normal((len(lengths), 1, KCFG.n_heads,
+                                 KCFG.head_dim)).astype(np.float32)
+    if case == "int8":
+        q = np.asarray(jnp.asarray(q, jnp.bfloat16))
+        k_pool, ks = _quant(k_pool)
+        v_pool, vs = _quant(v_pool)
+        scales = (ks, vs)
+    else:
+        q, k_pool, v_pool = (np.asarray(jnp.asarray(a, jnp.dtype(case)))
+                             for a in (q, k_pool, v_pool))
+        scales = (None, None)
+    ref = _jax_kernel(q, k_pool, v_pool, table, lengths, *scales)
+    ref = np.asarray(jnp.asarray(ref, jnp.float32))
+    t = [convert.tensor_from_numpy(np.asarray(a))
+         for a in (q, k_pool, v_pool, table, lengths)]
+    ts = [None if a is None else torch.as_tensor(a) for a in scales]
+    if split_blocks is None:
+        got = tattn.paged_decode_plain(*t, *ts)
+    else:
+        got = tattn.paged_decode_split_plain(*t, *ts,
+                                             split_blocks=split_blocks)
+    assert got.dtype == t[0].dtype
+    got = got.float().numpy()
+    err = np.abs(got - ref) / np.maximum(1.0, np.abs(ref))
+    assert err.max() <= ROUNDING_CASES[case], float(err.max())
+    if case == "int8":
+        assert (got == ref).mean() >= 0.8
 
 
 @pytest.mark.parametrize("BS", [8, 16, 32])
