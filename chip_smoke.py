@@ -84,11 +84,36 @@ Phases, each fatal on failure:
    against the plain attention (fp32, Llama-3-8B width, 2 layers); then
    the CLI (``train.main``, ``small``, seq 512, batch 4) checkpointed at
    step 2, drained at step 3 and resumed to step 6 must reach the step-6
-   loss of an uninterrupted run.
+   loss of an uninterrupted run; its goodput ledger (on by default) must
+   hold every badput phase, whose seconds it prints.
+7. MoE serving: ``MoEConfig.llama3_8b`` (Llama-3-8B attention, eight
+   SwiGLU experts of d_ff 14336, top-2) cut to 16 layers, bf16, weights
+   seeded on the card, on the continuous batcher with
+   ``forward=moe_paged_forward`` (phase 3's slots, capacity, block, chunk
+   and prompts). A-K4 must launch 16 x the decode steps; one decode
+   step's logits through the kernel and the plain version agree within
+   phase 3's bound; a decode chunk makes no copy of a tensor the size of
+   an expert's weight. Prints ms per decode step against the weight
+   stream's floor, TTFT and a profile of one chunk. 7b: fp32 at 2
+   layers, the MoE batcher's greedy tokens (A-K4) equal ``moe_generate``'s
+   (contiguous cache, plain attention).
+8. MoE training: the same width at 2 layers, bf16, remat, B 2 x T 2048,
+   through ``make_train_step_from_loss(moe_reference_loss)``: A-K1, A-K2
+   and A-K3 launch twice per step each, all on the tensor cores; the loss
+   falls; the aux term is positive. Prints ms per step, tokens/s, the
+   model-FLOP share of dense dispatch (all eight experts), peak memory and
+   a profile of one step. 8b: one step's loss and every gradient through
+   the kernels against plain attention (fp32, 2 layers, B 2 x T 512); then
+   ``train.main --model moe_tiny`` (bf16, Dh 32 on the tensor cores) with
+   the goodput ledger, ``--metrics-textfile`` and ``--profile``,
+   checkpointed at 2, drained at 3 and resumed to 6, must reach the
+   step-6 loss of an uninterrupted run; prints the ledger's checkpoint,
+   restore and drain seconds and the trace sizes.
 
-At the end it prints ``{"kernels": [...]}``, then the serving and training
-numbers and the card's name, each on a line of its own; the last line is
-``{"ok": true, "device": {...}}``.
+Phases run in the order 1, 2, 3, 4, 7, 5, 6, 8, each with its wall
+seconds. At the end it prints ``{"kernels": [...]}``, then the serving and
+training numbers and the card's name, each on a line of its own; the last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -1130,7 +1155,7 @@ def profile_kernels(torch, fn):
     return wall_ms, kernels
 
 
-def profile_decode(torch, srv, n):
+def profile_decode(torch, srv, n, phase="phase 3"):
     """Where one batcher chunk of ``n`` decode ticks spends the card's
     time: ``torch.profiler`` kernel times (device busy, its share of the
     host wall, the paged-decode kernel's share) and the top kernels. The
@@ -1139,10 +1164,10 @@ def profile_decode(torch, srv, n):
     wall_ms, kernels = profile_kernels(torch, lambda: srv.step(n))
     busy = sum(ms for ms, _, _ in kernels)
     if not busy:
-        log("phase 3: profile: no device time recorded (not measured)")
+        log(f"{phase}: profile: no device time recorded (not measured)")
         return {}
     attn_ms = sum(ms for ms, _, key in kernels if "paged_decode" in key)
-    log(f"phase 3: profile of one {n}-tick chunk: wall {wall_ms:.2f} ms "
+    log(f"{phase}: profile of one {n}-tick chunk: wall {wall_ms:.2f} ms "
         f"(profiled), device busy {busy:.2f} ms, idle share "
         f"{1 - busy / wall_ms:.1%}; paged_decode kernel {attn_ms:.2f} ms "
         f"= {attn_ms / busy:.1%} of busy")
@@ -1525,9 +1550,467 @@ def phase_train_parity(torch):
     check(a == b, f"step-6 loss {b} after drain + resume vs {a} straight")
     log(f"phase 6b: step-6 loss after a drain at 3 and a resume: {b}, "
         f"uninterrupted: {a}: identical")
+    seconds = ledger_seconds("phase 6b", work)
     shutil.rmtree(work, ignore_errors=True)
     return {"train_parity_loss_diff": loss_diff,
-            "train_parity_worst_grad": worst, "resume_step6_loss": float(b)}
+            "train_parity_worst_grad": worst, "resume_step6_loss": float(b),
+            **{f"small_{k}": v for k, v in seconds.items()}}
+
+
+def ledger_seconds(phase, work):
+    """The goodput ledger of the drained and resumed CLI runs under
+    ``work``: each badput phase's seconds (the periodic save's is its
+    asynchronous dispatch, the drain save the whole synchronous write),
+    the goodput fraction and the unavailability window, checked for the
+    phases the runs must have; and each periodic save's dispatch, of those
+    runs and of the uninterrupted run (three saves in one process)."""
+    from k8s_operator_libs_tpu_torch.obs.goodput import (read_ledger,
+                                                         summarize)
+    path = work / "drained" / "goodput.jsonl"
+    s = summarize(read_ledger(str(path)))
+    bad = s["badput_s"]
+    for name in ("compile", "rewarmup", "ckpt_save", "drain_save",
+                 "ckpt_restore"):
+        check(name in bad, f"{phase}: the ledger has no {name} phase: {bad}")
+    saves = [[r["duration_s"] for r in read_ledger(str(p))
+              if r.get("phase") == "ckpt_save"]
+             for p in (path, work / "straight" / "goodput.jsonl")]
+    out = {f"{name}_s": bad[name] for name in bad}
+    drain = s["phases"]["drain_save"]
+    out.update(goodput_fraction=s["goodput_fraction"],
+               goodput_s=s["goodput_s"], ledger_steps=s["steps"],
+               ckpt_save_each_s=saves, drain_fetch_s=drain["fetch_s"],
+               drain_write_s=drain["write_s"])
+    log(f"{phase}: goodput ledger: " + ", ".join(
+        f"{name} {bad[name]:.4f} s" for name in sorted(bad))
+        + " (periodic saves' asynchronous dispatch, each, drained and "
+        "resumed: {} s, uninterrupted: {} s; each waits for the write in "
+        "flight, a trainer's first pins its host buffers)".format(*(" ".join(f"{x:.4f}" for x in run)
+                                     for run in saves))
+        + f"; the drain save's device->host fetch {drain['fetch_s']:.4f} s"
+        f", file write {drain['write_s']:.4f} s"
+        + f"; goodput {s['goodput_s']:.3f} s over "
+        f"{s['steps']} steps, fraction {s['goodput_fraction']:.4f} of "
+        f"accounted time")
+    return out
+
+
+# ------------------------------------------------------------ MoE
+
+# phase 7: Llama-3-8B-width MoE served, depth cut 32 -> 16 (48.5 GB of
+# bf16 weights; the 32 layers need ~94.5 GB)
+MOE_SERVE_LAYERS = 16
+# phase 8: MoE training, depth cut 32 -> 2 (params, gradients and two
+# bf16 moments take 8 B per parameter: 31.6 GB at 2 layers)
+MOE_TRAIN_LAYERS = 2
+
+
+def copies_at_least(torch, fn, numel):
+    """The copy ops (``copy_``, ``clone``, ``contiguous``, ``_to_copy``)
+    that one call of ``fn`` makes of a tensor with at least ``numel``
+    elements, from ``torch.profiler``'s recorded input shapes."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    found = []
+    for evt in prof.events():
+        if evt.name not in ("aten::copy_", "aten::clone", "aten::contiguous",
+                            "aten::_to_copy"):
+            continue
+        for shape in evt.input_shapes or ():
+            if shape and math.prod(shape) >= numel:
+                found.append((evt.name, tuple(shape)))
+    return found
+
+
+def phase_moe_serve(torch):
+    """Phase 7: the MoE family on the continuous batcher at Llama-3-8B
+    width, 16 layers, bf16 (A-K4 on every decode step)."""
+    import numpy as np
+
+    from k8s_operator_libs_tpu_torch.models.moe import (MoEConfig,
+                                                        init_params,
+                                                        moe_paged_forward)
+    from k8s_operator_libs_tpu_torch.models.quant import stream_bytes
+    from k8s_operator_libs_tpu_torch.models.serve import ContinuousBatcher
+    from k8s_operator_libs_tpu_torch.obs.metrics import MetricsHub
+    from k8s_operator_libs_tpu_torch.ops import paged_attention as attn
+
+    held = torch.cuda.memory_allocated()
+    check(held < 2**30, f"{held / 2**30:.1f} GiB of the earlier phases is "
+                        f"still allocated")
+    cfg = MoEConfig.llama3_8b(n_layers=MOE_SERVE_LAYERS)
+    t0 = time.monotonic()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"phase 7: MoE (Llama-3-8B attention, {cfg.n_experts} experts of "
+        f"d_ff {cfg.d_ff}, top-{cfg.top_k}) bf16, {cfg.n_layers} of 32 "
+        f"layers, weights seeded on the card in {time.monotonic() - t0:.1f} "
+        f"s ({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated)")
+    weight_bytes = stream_bytes(params)
+    floor_ms = weight_bytes / H100_BYTES_PER_S * 1e3
+    log(f"phase 7: a decode step streams {weight_bytes} weight bytes (dense "
+        f"dispatch: every expert): floor {floor_ms:.3f} ms at "
+        f"{H100_BYTES_PER_S:.3g} B/s")
+    hub = MetricsHub()
+    srv = ContinuousBatcher(params, cfg, max_slots=SLOTS,
+                            capacity_per_slot=CAPACITY, block_size=BS,
+                            forward=moe_paged_forward, metrics=hub)
+    srv.submit(np.arange(1, 9, dtype=np.int32), 4)          # warm-up
+    while not srv.idle:
+        srv.step(CHUNK)
+    srv.poll()
+    gen = np.random.default_rng(0)
+    prompts = [gen.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in PROMPT_LENS]
+    attn.reset_launch_counts()
+    srv.decode_steps, srv.decode_seconds, srv.decode_tokens = 0, 0.0, 0
+    ttft0 = hist(hub, "serve_ttft_seconds")
+    t_req = time.monotonic()
+    rids = [srv.submit(p, MAX_NEW) for p in prompts]
+    out = {}
+    while not srv.idle:
+        srv.step(CHUNK)
+        out.update(srv.poll())
+    wall = time.monotonic() - t_req
+    launches = attn.LAUNCHES["paged_decode"]
+    steps = srv.decode_steps
+    ttft1 = hist(hub, "serve_ttft_seconds")
+    for rid, p in zip(rids, prompts):
+        check(len(out[rid]) == len(p) + MAX_NEW
+              and out[rid][:len(p)].tolist() == p.tolist(),
+              "phase 7: a request has the wrong length or prompt")
+    check(steps > 0 and launches == cfg.n_layers * steps,
+          f"phase 7: A-K4 launched {launches} times over {steps} decode "
+          f"steps of {cfg.n_layers} layers")
+    ttft = (ttft1[0] - ttft0[0]) / max(1, ttft1[1] - ttft0[1])
+    ms_step = 1e3 * srv.decode_seconds / steps
+    log(f"phase 7: 4 requests (prompts {PROMPT_LENS}, max_new {MAX_NEW}) "
+        f"in {wall:.2f} s; A-K4 launches {launches} = {cfg.n_layers} x "
+        f"{steps} decode steps; mean TTFT {ttft * 1e3:.1f} ms, "
+        f"{ms_step:.2f} ms per decode step ({SLOTS} slots) against the "
+        f"{floor_ms:.3f} ms floor ({floor_ms / ms_step:.1%}), decode "
+        f"{srv.decode_tokens / srv.decode_seconds:.1f} tokens/s")
+    stats = {"launches": launches, "decode_steps": steps,
+             "ttft_mean_s": ttft, "ms_per_decode_step": ms_step,
+             "weight_stream_bytes": weight_bytes,
+             "weight_stream_floor_ms": floor_ms, "wall_s": wall}
+
+    # one decode step on the same cache through the kernel and the plain
+    # version (phase 3's check and bound)
+    for p in prompts:
+        srv.submit(p, 8)
+    srv.step(1)
+    cache, toks = srv.snapshot()
+    check(int((cache.lengths > 0).sum()) == SLOTS, "slots not all running")
+    lk, _ = moe_paged_forward(params, toks, cache, cfg)
+    lp, _ = moe_paged_forward(params, toks, cache, cfg,
+                              decode_attn=attn.paged_decode_plain)
+    torch.cuda.synchronize()
+    check(torch.isfinite(lk).all().item(), "phase 7: non-finite logits")
+    diff = float((lk - lp).abs().max())
+    tol = 0.05 * float(lp.abs().max())
+    log(f"phase 7: decode logits kernel vs plain max diff {diff:.4f} "
+        f"(tolerance {tol:.4f} = 5% of max |logit|)")
+    check(diff <= tol, "phase 7: decode logits through the kernel disagree")
+    stats["logit_max_diff"] = diff
+    del lk, lp, cache
+    expert = cfg.d_model * cfg.d_ff
+    copies = copies_at_least(torch, lambda: srv.step(CHUNK), expert)
+    check(not copies, f"phase 7: a decode chunk copies tensors of expert-"
+                      f"weight size: {copies[:4]}")
+    log(f"phase 7: no copy op of >= {expert} elements (one expert's [D, F]) "
+        f"in a {CHUNK}-tick chunk (profiler input shapes)")
+    stats.update(profile_decode(torch, srv, CHUNK, phase="phase 7"))
+    return stats
+
+
+def phase_moe_parity(torch):
+    """Phase 7b: fp32, Llama-3-8B width, 2 layers: the MoE batcher's
+    greedy tokens (A-K4) against ``moe_generate`` (contiguous cache, plain
+    attention)."""
+    import numpy as np
+
+    from k8s_operator_libs_tpu_torch.models.moe import (
+        MoEConfig, init_params, moe_generate, moe_paged_forward)
+    from k8s_operator_libs_tpu_torch.models.serve import ContinuousBatcher
+    from k8s_operator_libs_tpu_torch.ops import paged_attention as attn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = MoEConfig.llama3_8b(n_layers=2, dtype=torch.float32)
+    params = init_params(cfg, seed=1, device="cuda")
+    gen = np.random.default_rng(1)
+    prompts = [gen.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in PROMPT_LENS]
+    attn.reset_launch_counts()
+    srv = ContinuousBatcher(params, cfg, max_slots=SLOTS,
+                            capacity_per_slot=CAPACITY, block_size=BS,
+                            forward=moe_paged_forward)
+    rids = [srv.submit(p, MAX_NEW) for p in prompts]
+    out = {}
+    while not srv.idle:
+        srv.step(CHUNK)
+        out.update(srv.poll())
+    launches = attn.LAUNCHES["paged_decode"]
+    check(launches == cfg.n_layers * srv.decode_steps > 0,
+          f"phase 7b: A-K4 launched {launches} times over "
+          f"{srv.decode_steps} steps")
+    failures = []
+    for rid, p in zip(rids, prompts):
+        ref = moe_generate(params, torch.as_tensor(p[None]), cfg,
+                           max_new_tokens=MAX_NEW)[0].cpu().numpy()
+        i = first_mismatch(out[rid].tolist(), ref.tolist())
+        if i is not None:
+            failures.append(f"prompt {len(p)}: token {i - len(p)} differs "
+                            f"({out[rid][i]} vs {ref[i]})")
+    log(f"phase 7b: MoE batcher (A-K4, {launches} launches) vs contiguous "
+        f"moe_generate (plain), fp32, 4 prompts x {MAX_NEW} tokens: "
+        f"{'identical' if not failures else 'MISMATCH: ' + '; '.join(failures)}")
+    check(not failures, "phase 7b: MoE token parity failed")
+    return {"parity_launches": launches}
+
+
+def phase_moe_train(torch):
+    """Phase 8: the MoE trained at Llama-3-8B width, 2 layers, bf16, remat,
+    B 2 x T 2048 through ``make_train_step_from_loss(moe_reference_loss)``:
+    one warm-up and TRAIN_STEPS timed steps on one batch."""
+    from k8s_operator_libs_tpu_torch.models import moe
+    from k8s_operator_libs_tpu_torch.models.llama import param_count
+    from k8s_operator_libs_tpu_torch.ops import attention as fa
+    from k8s_operator_libs_tpu_torch.parallel import fsdp
+    from k8s_operator_libs_tpu_torch.parallel.expert import moe_reference_loss
+
+    held = torch.cuda.memory_allocated()
+    check(held < 2**30, f"{held / 2**30:.1f} GiB of the earlier phases is "
+                        f"still allocated")
+    cfg = moe.MoEConfig.llama3_8b(n_layers=MOE_TRAIN_LAYERS,
+                                  max_seq_len=TRAIN_T)
+    torch.cuda.reset_peak_memory_stats()
+    opt = fsdp.default_optimizer()
+    params = moe.init_params(cfg, seed=0, device="cuda")
+    state = fsdp.TrainState(params=params, opt_state=opt.init(params),
+                            step=0)
+    del params
+    n_params = param_count(state.params)
+    step = fsdp.make_train_step_from_loss(moe_reference_loss(cfg), opt)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_T + 1),
+                           generator=g, device="cuda", dtype=torch.int32)
+    state, m = step(state, tokens)                         # warm-up
+    losses = [float(m["loss"])]
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.monotonic()
+    for _ in range(TRAIN_STEPS):
+        state, m = step(state, tokens)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(fa.LAUNCHES)
+    routes = dict(fa.ROUTE_LAUNCHES)
+    losses = [float(x) for x in losses]
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.n_layers
+    for name in FLASH_NAMES:
+        check(launches[name] == L * TRAIN_STEPS,
+              f"phase 8: {name} launched {launches[name]} times over "
+              f"{TRAIN_STEPS} steps of {L} layers")
+    check(routes == {"wgmma": 3 * L * TRAIN_STEPS, "fma": 0},
+          f"phase 8: bf16 MoE training took routes {routes}")
+    check(all(math.isfinite(x) for x in losses), f"loss not finite: {losses}")
+    check(losses[-1] < losses[0], f"phase 8: loss did not fall: {losses}")
+    with torch.no_grad():
+        _, aux = moe.forward(state.params, tokens[:, :-1], cfg)
+    aux = float(aux)
+    check(math.isfinite(aux) and aux > 0, f"phase 8: aux {aux}")
+    check(peak < 80e9, f"phase 8: peak {peak / 2**30:.1f} GiB")
+
+    ms = wall / TRAIN_STEPS * 1e3
+    tokens_per_step = TRAIN_B * TRAIN_T
+    # dense dispatch runs all E experts on every token: 6 x (every matmul
+    # parameter: all but the embedding, all experts and the router) x
+    # tokens, plus attention's 12 x B*H*Dh*T(T+1)/2 per layer
+    matmul_params = n_params - cfg.vocab_size * cfg.d_model
+    visible = TRAIN_T * (TRAIN_T + 1) // 2
+    attn_flops = 12 * TRAIN_B * cfg.n_heads * cfg.head_dim * visible * L
+    flops = 6 * matmul_params * tokens_per_step + attn_flops
+    share = flops / (ms / 1e3) / H100_BF16_FLOPS
+    log(f"phase 8: MoE at Llama-3-8B width x {L} layers ({n_params} params, "
+        f"{cfg.n_experts} experts), bf16, remat, B {TRAIN_B} T {TRAIN_T}: "
+        f"{ms:.1f} ms per step, {tokens_per_step / ms * 1e3:.0f} tokens/s; "
+        f"model flops of dense dispatch (all {cfg.n_experts} experts) "
+        f"{flops:.4g} per step -> {share:.2%} of {H100_BF16_FLOPS:.3g} "
+        f"FLOP/s; peak memory {peak / 2**30:.1f} GiB")
+    log(f"phase 8: losses {' '.join(f'{x:.4f}' for x in losses)} (warm-up "
+        f"first); aux after the steps {aux:.4f}; launches per step "
+        + ", ".join(f"{n} {launches[n] // TRAIN_STEPS}" for n in FLASH_NAMES)
+        + f", all on route wgmma")
+    stats = {"ms_per_step": ms, "tokens_per_s": tokens_per_step / ms * 1e3,
+             "model_flops_per_step_dense_dispatch": flops,
+             "model_flop_share_dense_dispatch": share,
+             "peak_memory_bytes": peak, "loss_first": losses[0],
+             "loss_last": losses[-1], "aux": aux,
+             **{f"launches_{n}": launches[n] for n in FLASH_NAMES}}
+
+    def one_step():
+        nonlocal state
+        state, _ = step(state, tokens)
+
+    wall_ms, kernels = profile_kernels(torch, one_step)
+    busy = sum(t for t, _, _ in kernels)
+    del state
+    if not busy:
+        log("phase 8: profile: no device time recorded (not measured)")
+        return stats
+    flash = sum(t for t, _, key in kernels
+                if any(k in key for k in ("flash_fwd", "flash_bwd")))
+    gemm = sum(t for t, _, key in kernels
+               if any(k in key for k in ("nvjet", "gemm", "cutlass")))
+    log(f"phase 8: profile of one step: wall {wall_ms:.1f} ms (profiled), "
+        f"device busy {busy:.1f} ms, idle share {1 - busy / wall_ms:.1%}; "
+        f"flash kernels {flash:.1f} ms, matmuls (cuBLAS) {gemm:.1f} ms, "
+        f"everything else (elementwise, copies, reductions) "
+        f"{busy - flash - gemm:.1f} ms")
+    for t, count, key in sorted(kernels, reverse=True)[:12]:
+        log(f"  {t:8.3f} ms  x{count:<5d} {key[:90]}")
+    stats.update({"profile_wall_ms": wall_ms, "profile_busy_ms": busy,
+                  "profile_gemm_ms": gemm, "profile_flash_ms": flash})
+    return stats
+
+
+def phase_moe_train_parity(torch):
+    """Phase 8b: (a) one MoE step's loss and every gradient through the
+    kernels against the plain attention, fp32, Llama-3-8B width x 2
+    layers, B 2 x T 512. (b) The CLI on ``moe_tiny`` (bf16, Dh 32 on the
+    wgmma route) with the goodput ledger, the textfile and the profiler:
+    checkpoint at 2, drained at 3, resumed to 6, against an uninterrupted
+    run."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+
+    from k8s_operator_libs_tpu_torch import train
+    from k8s_operator_libs_tpu_torch.data.loader import write_token_file
+    from k8s_operator_libs_tpu_torch.models import moe
+    from k8s_operator_libs_tpu_torch.models.llama import param_leaves
+    from k8s_operator_libs_tpu_torch.ops import attention as fa
+    from k8s_operator_libs_tpu_torch.parallel import fsdp
+    from k8s_operator_libs_tpu_torch.parallel.expert import moe_reference_loss
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = moe.MoEConfig.llama3_8b(n_layers=2, dtype=torch.float32,
+                                  max_seq_len=512)
+    params = moe.init_params(cfg, seed=2, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(6)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 513), generator=g,
+                           device="cuda", dtype=torch.int32)
+    results = {}
+    for name, attn_fn in (("kernels", None),
+                          ("plain", fa.reference_attention)):
+        fa.reset_launch_counts()
+        results[name] = fsdp.value_and_grad(
+            moe_reference_loss(cfg, attn_fn), params, tokens)
+        results[name + "_launches"] = fa.LAUNCHES["flash_forward"]
+    check(results["kernels_launches"] == 2 and results["plain_launches"] == 0,
+          "phase 8b: the parity step did not take the paths it names")
+    (lk, gk), (lp, gp) = results["kernels"], results["plain"]
+    # phase 6a's bounds: fp32 summation order through two layers
+    loss_diff = abs(float(lk) - float(lp))
+    check(loss_diff <= 1e-5 * abs(float(lp)),
+          f"phase 8b: loss through the kernels {float(lk)} vs plain "
+          f"{float(lp)}")
+    worst = 0.0
+    for a, b in zip(param_leaves(gk), param_leaves(gp)):
+        rel = float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+        worst = max(worst, rel)
+    check(worst <= 1e-3, f"phase 8b: gradients through the kernels differ "
+                         f"by {worst:.2e} of a leaf's largest")
+    log(f"phase 8b: MoE at Llama-3-8B width x 2 layers, fp32, B 2 T 512: "
+        f"loss kernels {float(lk):.6f} vs plain {float(lp):.6f} (diff "
+        f"{loss_diff:.2e}, tolerance 1e-5 relative); worst gradient diff "
+        f"{worst:.2e} of its leaf's max (tolerance 1e-3)")
+    del params, results, gk, gp
+    torch.cuda.empty_cache()
+
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_moe"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    data = work / "tokens.bin"
+    write_token_file(str(data), np.random.default_rng(7).integers(
+        0, 512, size=200_000))
+
+    def run(ckpt, drain_signal=None, *extra):
+        argv = ["--data", str(data), "--ckpt", str(work / ckpt), "--model",
+                "moe_tiny", "--seq", "256", "--batch", "8", "--steps", "6",
+                "--ckpt-interval", "2", "--device", "cuda", *extra]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = train.main(argv, drain_signal=drain_signal)
+        out = buf.getvalue().strip()
+        log(f"phase 8b: train.main --model moe_tiny --ckpt {ckpt}: "
+            f"{out.splitlines()[-1]}")
+        check(rc == 0, f"train.main returned {rc}")
+        return out
+
+    calls = {"n": 0}
+
+    def drain_at_3():
+        calls["n"] += 1
+        return calls["n"] == 4                       # polled before step 4
+
+    fa.reset_launch_counts()
+    straight = run("straight")
+    check(fa.ROUTE_LAUNCHES["wgmma"] > 0 and fa.ROUTE_LAUNCHES["fma"] == 0,
+          f"phase 8b: moe_tiny (bf16, Dh 32) took routes {fa.ROUTE_LAUNCHES}")
+    textfile = work / "train.prom"
+    profile_dir = work / "profile"
+    extra = ("--metrics-textfile", str(textfile), "--profile",
+             str(profile_dir))
+    drained = run("drained", drain_at_3, *extra)
+    check("preempted at step 3; checkpoint 3 saved" in drained,
+          f"phase 8b: the drain did not stop at step 3: {drained}")
+    check((work / "drained" / "2").is_dir(), "no periodic checkpoint at 2")
+    resumed = run("drained", None, *extra)
+    check("done: 3 steps" in resumed, f"phase 8b: the resumed run did not "
+                                      f"run steps 4-6: {resumed}")
+
+    def last_loss(out):
+        m = re.search(r"\(step 6 loss ([0-9.]+)\)", out)
+        check(m is not None, f"no step-6 loss in {out!r}")
+        return m.group(1)
+
+    a, b = last_loss(straight), last_loss(resumed)
+    check(a == b, f"phase 8b: step-6 loss {b} after drain + resume vs {a}")
+    log(f"phase 8b: step-6 loss after a drain at 3 and a resume: {b}, "
+        f"uninterrupted: {a}: identical")
+    prom = textfile.read_text()
+    for family in ("tpu_workload_goodput_fraction",
+                   'tpu_workload_badput_phase_seconds{phase="drain_save"}',
+                   "tpu_workload_step_duration_seconds_count"):
+        check(family in prom, f"phase 8b: {family} not in the textfile")
+    traces = sorted(profile_dir.glob("*.pt.trace.json"))
+    check(len(traces) == 2, f"phase 8b: {len(traces)} profiler traces, "
+                            f"expected one per run")
+    sizes = [t.stat().st_size for t in traces]
+    log(f"phase 8b: --profile wrote {len(traces)} traces of {sizes} bytes; "
+        f"--metrics-textfile holds the goodput gauges")
+    seconds = ledger_seconds("phase 8b", work)
+    shutil.rmtree(work, ignore_errors=True)
+    return {"moe_parity_loss_diff": loss_diff, "moe_parity_worst_grad": worst,
+            "moe_resume_step6_loss": float(b), "moe_trace_bytes": sizes,
+            **{f"moe_tiny_{k}": v for k, v in seconds.items()}}
+
+
+def timed(label, fn, *args):
+    """``fn(*args)``, its wall seconds logged."""
+    t0 = time.monotonic()
+    out = fn(*args)
+    log(f"{label}: wall {time.monotonic() - t0:.1f} s")
+    return out
 
 
 def main():
@@ -1553,13 +2036,17 @@ def main():
                              text=True, timeout=60, check=True).stdout.strip()
         check(bool(smi), "nvidia-smi printed nothing")
         log(smi)
-        phase_build()
-        kernels = phase_kernels(torch)
-        kernels.update(phase_flash(torch))
-        serve = phase_serve(torch)
-        parity = phase_parity(torch)
-        training = phase_train(torch)
-        training.update(phase_train_parity(torch))
+        timed("phase 1", phase_build)
+        kernels = timed("phase 2 (paged decode)", phase_kernels, torch)
+        kernels.update(timed("phase 2 (flash)", phase_flash, torch))
+        serve = timed("phase 3 (3b, 3c)", phase_serve, torch)
+        parity = timed("phase 4", phase_parity, torch)
+        moe_serve = timed("phase 7", phase_moe_serve, torch)
+        moe_serve.update(timed("phase 7b", phase_moe_parity, torch))
+        training = timed("phase 5", phase_train, torch)
+        training.update(timed("phase 6", phase_train_parity, torch))
+        moe_train = timed("phase 8", phase_moe_train, torch)
+        moe_train.update(timed("phase 8b", phase_moe_train_parity, torch))
     except (SmokeFailure, subprocess.SubprocessError, OSError,
             RuntimeError, ValueError) as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
@@ -1582,11 +2069,21 @@ def main():
             ("flash_bwd_dq", "flash_attention_tc", f"{jax_attn}:439",
              training["launches_flash_bwd_dq"]),
             ("flash_bwd_dkv", "flash_attention_tc", f"{jax_attn}:519",
-             training["launches_flash_bwd_dkv"])):
-        # the speculative path's draft steps run A-K4 at phase 3's shape,
-        # so its row carries phase 2's serving-shape measurement
-        k = kernels["paged_decode" if name == "paged_decode_speculative"
-                    else name]
+             training["launches_flash_bwd_dkv"]),
+            ("paged_decode_moe", "paged_decode", f"{jax_attn}:734",
+             moe_serve["launches"]),
+            ("flash_forward_moe", "flash_attention_tc", f"{jax_attn}:236",
+             moe_train["launches_flash_forward"]),
+            ("flash_bwd_dq_moe", "flash_attention_tc", f"{jax_attn}:439",
+             moe_train["launches_flash_bwd_dq"]),
+            ("flash_bwd_dkv_moe", "flash_attention_tc", f"{jax_attn}:519",
+             moe_train["launches_flash_bwd_dkv"])):
+        # the speculative path's draft steps and the MoE paths run their
+        # kernels at phase 2's shapes (A-K4 at the serving shape, A-K1-3 at
+        # H 32, KV 8, Dh 128, B 2, T 2048), so their rows carry phase 2's
+        # measurements
+        k = kernels[{"paged_decode_speculative": "paged_decode"}.get(
+            name, name.removesuffix("_moe"))]
         rows.append({"name": name, "route": "cuda",
                      "source": CSRC.format(source), "replaces": replaces,
                      "launches": launches, "max_abs_err": k["max_abs_err"],
@@ -1595,6 +2092,7 @@ def main():
                      "library_ms": k["library_ms"]})
     print(json.dumps({"kernels": rows}))
     for key, stats in (("serving", serve), ("training", training),
+                       ("moe_serving", moe_serve), ("moe_training", moe_train),
                        ("flash_backward", kernels["backward"])):
         print(json.dumps({key: {k: (round(v, 6) if isinstance(v, float)
                                     else v) for k, v in stats.items()}}))

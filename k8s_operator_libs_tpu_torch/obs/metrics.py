@@ -1,6 +1,7 @@
-"""Prometheus text exposition for the serving workload.
+"""Prometheus text exposition for the serving and training workloads.
 
-A copy, cut to what the batcher and the server's ``/metrics`` call, of
+A copy, cut to what the batcher, the server's ``/metrics`` and the
+trainer's goodput ledger call, of
 ``_Histogram``/``MetricsHub`` from ``k8s_operator_libs_tpu/obs/metrics.py``
 and of the gauge renderer ``render_prometheus_multi`` from
 ``k8s_operator_libs_tpu/upgrade/metrics.py``. Metric names, HELP texts and
@@ -21,6 +22,28 @@ DEFAULT_BUCKETS: Tuple[float, ...] = (
 
 # keyed by the FULL exposed name (prefix included), as in the reference
 HELP_TEXTS: Dict[str, str] = {
+    # training goodput ledger (obs/goodput.py) and its summary gauges
+    "tpu_workload_step_duration_seconds":
+        "Wall seconds per training step, averaged over one telemetry "
+        "sync window (goodput ledger)",
+    "tpu_workload_badput_seconds":
+        "Non-productive workload seconds by phase (compile, rewarmup, "
+        "ckpt_save, drain_save, ckpt_restore)",
+    "tpu_workload_tokens_per_s":
+        "Training tokens per second over the last synced step window",
+    "tpu_workload_mfu":
+        "Achieved-vs-peak model-FLOPs utilization over the last synced "
+        "step window",
+    "tpu_workload_goodput_fraction":
+        "Productive fraction of this workload's wall time, from the "
+        "goodput ledger summary (1.0 = every second was train steps)",
+    "tpu_workload_goodput_seconds":
+        "Seconds of productive train-step time in the goodput ledger "
+        "summary window",
+    "tpu_workload_badput_phase_seconds":
+        "Badput seconds by cause phase (compile / rewarmup / ckpt_save "
+        "/ drain_save / ckpt_restore / degraded / idle_gap) from the "
+        "goodput ledger summary",
     "tpu_workload_serve_ttft_seconds":
         "Seconds from request submit to its first generated token "
         "(queue wait + prefill)",

@@ -2,10 +2,12 @@
 AdamW.
 
 Port of ``k8s_operator_libs_tpu/parallel/fsdp.py`` for a SINGLE device:
-meshes, sharding and ``make_train_step_from_loss`` belong to the
-multi-GPU slice. The step is eager PyTorch (``jax.jit`` has no
-counterpart the port needs): autograd through :func:`..models.llama.
-forward`, whose attention runs in the flash kernels on the card.
+meshes and sharding belong to the multi-GPU slice. The step is eager
+PyTorch (``jax.jit`` has no counterpart the port needs): autograd through
+the loss, whose attention runs in the flash kernels on the card.
+:func:`make_train_step_from_loss` wraps any ``loss(params, tokens)`` (the
+MoE family's :func:`..parallel.expert.moe_reference_loss`);
+:func:`make_train_step` is it around the Llama :func:`causal_lm_loss`.
 
 :func:`default_optimizer` is written out by hand to follow optax's
 ``chain(clip_by_global_norm(1.0), adamw(lr, b1=0.9, b2=0.95,
@@ -145,11 +147,12 @@ def value_and_grad(loss_fn: Callable, params: Params, tokens: torch.Tensor
     return loss.detach(), _tree_map(lambda _: next(grads), params)
 
 
-def make_train_step(cfg: LlamaConfig,
-                    optimizer: Optional[ClippedAdamW] = None,
-                    grad_accum: int = 1) -> Callable:
-    """``train_step(state, tokens) -> (state, metrics)`` with metrics
-    ``{loss, grad_norm, step}`` (``grad_norm`` before clipping).
+def make_train_step_from_loss(loss_fn: Callable,
+                              optimizer: Optional[ClippedAdamW] = None,
+                              grad_accum: int = 1) -> Callable:
+    """``train_step(state, tokens) -> (state, metrics)`` around any
+    ``loss_fn(params, tokens)``, with metrics ``{loss, grad_norm, step}``
+    (``grad_norm`` before clipping).
 
     ``grad_accum=A`` splits the batch's leading dim into A equal
     microbatches run one after another: activation memory is one
@@ -158,9 +161,6 @@ def make_train_step(cfg: LlamaConfig,
     microbatches are equal-sized. One optimizer update per step. The
     state is updated in place and returned."""
     optimizer = optimizer or default_optimizer()
-
-    def loss_fn(params, tokens):
-        return causal_lm_loss(params, tokens, cfg)
 
     def compute_grads(params, tokens):
         if grad_accum == 1:
@@ -192,3 +192,13 @@ def make_train_step(cfg: LlamaConfig,
                 {"loss": loss, "grad_norm": g_norm, "step": step})
 
     return train_step
+
+
+def make_train_step(cfg: LlamaConfig,
+                    optimizer: Optional[ClippedAdamW] = None,
+                    grad_accum: int = 1) -> Callable:
+    """:func:`make_train_step_from_loss` around the Llama causal-LM
+    loss."""
+    return make_train_step_from_loss(
+        lambda params, tokens: causal_lm_loss(params, tokens, cfg),
+        optimizer, grad_accum)

@@ -11,11 +11,25 @@ checkpoint and continues the same data stream.
 A checkpoint is one directory per step, ``<checkpoint_dir>/<step>/``,
 holding ``torch.save`` of the whole state (parameters, both optimizer
 moments, the optimizer count and the step). It is written into a
-temporary directory and moved into place with ``os.replace``, so a
-reader never sees half of one. Saves are synchronous: the reference's
-asynchronous orbax save, its goodput ledger, elastic resizing
-(``ReclaimNotice``/``GrowNotice``) and the compilation cache wait for
-later slices.
+temporary ``.tmp-*`` directory and moved into place with ``os.replace``,
+so a reader (and :attr:`CheckpointingTrainer.latest_step`) never sees
+half of one.
+
+Periodic saves are asynchronous, as the reference's orbax saves are: the
+state is copied into host buffers on the device's stream (the train step
+updates parameters and moments in place, and the next step's update is
+ordered after the copy), then a writer thread waits for the copy and
+writes the file while the loop trains on. At most one save is in flight;
+the drain save (``save(state, wait=True)``) and :meth:`close` wait for
+it.
+
+With a :class:`~..obs.goodput.GoodputLedger` the loop records goodput
+windows and badput phases (the first step, which on the card includes the
+kernels' ``nvcc`` build; checkpoint save and restore; the drain save) and
+synchronizes with the device only every ``metrics_sync_every`` steps and
+at checkpoint, drain and end boundaries. The reference's elastic resize
+(``ReclaimNotice``/``GrowNotice``) needs more than one device and waits
+for the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -25,13 +39,14 @@ import logging
 import os
 import shutil
 import time
+from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
 from typing import Any, Callable, Iterator, Optional
 
 import torch
 
 from ..models.llama import LlamaConfig
-from ..parallel.fsdp import (AdamWState, ClippedAdamW, TrainState,
+from ..parallel.fsdp import (AdamWState, ClippedAdamW, TrainState, _tree_map,
                              init_train_state, make_train_step)
 from ..utils.device import DeviceLike, resolve_device
 
@@ -63,22 +78,56 @@ def from_state_dict(d: dict) -> TrainState:
                       step=int(d["step"]))
 
 
+def _batch_tokens(batch) -> int:
+    """Trained tokens in one [B, T + 1] batch: B * T targets."""
+    shape = getattr(batch, "shape", None)
+    if shape is not None and len(shape) == 2 and shape[1] > 1:
+        return int(shape[0]) * (int(shape[1]) - 1)
+    return 0
+
+
 class CheckpointingTrainer:
     keep = 3                 # checkpoints kept on disk, newest first
 
     def __init__(self, cfg: LlamaConfig, checkpoint_dir: str,
                  optimizer: Optional[ClippedAdamW] = None,
                  checkpoint_interval: int = 100,
-                 device: DeviceLike = "cuda"):
-        """The Llama train step and state of :mod:`..parallel.fsdp` on
-        ``device``; a batch is an int array [B, T + 1]."""
+                 device: DeviceLike = "cuda",
+                 step_fn: Optional[Callable] = None,
+                 init_fn: Optional[Callable] = None,
+                 ledger=None, metrics_sync_every: int = 10):
+        """``step_fn(state, batch) -> (state, metrics)`` and
+        ``init_fn(seed) -> TrainState`` default to the Llama pair of
+        :mod:`..parallel.fsdp` on ``device``; pass both to train another
+        model family (MoE) through the same checkpoint and drain
+        machinery. A batch is an int array [B, T + 1].
+
+        ``ledger`` (a :class:`~..obs.goodput.GoodputLedger`, duck-typed)
+        turns the run loop into a goodput recorder.
+        ``metrics_sync_every`` bounds how often the loop blocks on the
+        device: every that many steps and at checkpoint, drain and end
+        boundaries, never per step."""
         self.cfg = cfg
         self.dir = Path(checkpoint_dir)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.device = resolve_device(device)
         self.optimizer = optimizer
         self.checkpoint_interval = checkpoint_interval
-        self._step_fn = make_train_step(cfg, optimizer)
+        self.ledger = ledger
+        self.metrics_sync_every = max(1, int(metrics_sync_every))
+        self._step_fn = step_fn or make_train_step(cfg, optimizer)
+        self._init_fn = init_fn or (
+            lambda seed: init_train_state(self.cfg, seed, self.optimizer,
+                                          self.device))
+        self._writer = ThreadPoolExecutor(max_workers=1,
+                                          thread_name_prefix="ckpt-writer")
+        self._pending: Optional[Future] = None
+        self._host = None            # host snapshot buffers, reused
+        # the last finished save's split, host seconds: its device->host
+        # snapshot (from the copy's enqueue to its end, device work queued
+        # before it included) and its file write
+        self.last_fetch_s: Optional[float] = None
+        self.last_write_s: Optional[float] = None
 
     # ------------------------------------------------------------ lifecycle
 
@@ -88,39 +137,109 @@ class CheckpointingTrainer:
 
     @property
     def latest_step(self) -> Optional[int]:
+        """The newest finished checkpoint (an in-flight one is not)."""
         steps = self._steps()
         return steps[-1] if steps else None
 
     def init_or_resume(self, seed: int = 0) -> TrainState:
-        """Fresh init, or the latest checkpoint loaded onto the device."""
+        """Fresh init, or the latest checkpoint loaded onto the device
+        (this trainer's own save in flight included: it is waited for)."""
+        self.wait()
         latest = self.latest_step
         if latest is None:
             logger.info("no checkpoint found, initializing from scratch")
-            return init_train_state(self.cfg, seed, self.optimizer,
-                                    self.device)
+            return self._init_fn(seed)
         logger.info("resuming from checkpoint step %d", latest)
-        d = torch.load(self.dir / str(latest) / STATE_FILE,
+        if self.ledger is not None:
+            with self.ledger.phase("ckpt_restore"):
+                return self._restore(latest)
+        return self._restore(latest)
+
+    def _restore(self, step: int) -> TrainState:
+        d = torch.load(self.dir / str(step) / STATE_FILE,
                        map_location=self.device, weights_only=True)
+        self._sync()
         return from_state_dict(d)
 
-    def save(self, state: TrainState) -> int:
-        """Write the state's checkpoint (synchronously) and keep the
-        ``keep`` newest."""
+    def save(self, state: TrainState, wait: bool = False) -> int:
+        """Checkpoint ``state``: wait for the save in flight, snapshot the
+        state into host buffers, and write it on the writer thread.
+        ``wait=True`` returns once the checkpoint is on disk."""
         step = int(state.step)
+        self.wait()
+        d = state_dict(state)
+        tensors = {"params": d["params"], "mu": d["opt"]["mu"],
+                   "nu": d["opt"]["nu"]}
+        if self._host is None:
+            pinned = self.device.type == "cuda"
+            self._host = _tree_map(
+                lambda t: torch.empty(t.shape, dtype=t.dtype, device="cpu",
+                                      pin_memory=pinned), tensors)
+        t0 = time.monotonic()
+        _tree_map(lambda dst, src: dst.copy_(src, non_blocking=True),
+                  self._host, tensors)
+        ready = None
+        if self.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record()
+        snapshot = {"step": step, "params": self._host["params"],
+                    "opt": {"count": d["opt"]["count"],
+                            "mu": self._host["mu"], "nu": self._host["nu"]}}
+        self._pending = self._writer.submit(self._write, step, snapshot,
+                                            ready, t0)
+        if wait:
+            self.wait()
+        return step
+
+    def _write(self, step: int, snapshot: dict, ready, t0: float) -> None:
+        if ready is not None:
+            ready.synchronize()
+        t1 = time.monotonic()
         final = self.dir / str(step)
         tmp = self.dir / f".tmp-{step}-{os.getpid()}"
         shutil.rmtree(tmp, ignore_errors=True)
         tmp.mkdir()
-        torch.save(state_dict(state), tmp / STATE_FILE)
+        torch.save(snapshot, tmp / STATE_FILE)
         if final.exists():
             shutil.rmtree(final)
         os.replace(tmp, final)
         for old in self._steps()[:-self.keep]:
             shutil.rmtree(self.dir / str(old), ignore_errors=True)
-        return step
+        self.last_fetch_s, self.last_write_s = t1 - t0, time.monotonic() - t1
+
+    def wait(self) -> None:
+        """Block until the save in flight is on disk; re-raise its
+        error."""
+        pending, self._pending = self._pending, None
+        if pending is not None:
+            pending.result()
 
     def close(self) -> None:
-        """Nothing is in flight: every save is synchronous."""
+        """Wait for the save in flight and stop the writer thread."""
+        try:
+            self.wait()
+        finally:
+            self._writer.shutdown(wait=True)
+
+    def _sync(self) -> None:
+        """The one place the loop waits for the device."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _save_phase(self, phase: str, state: TrainState,
+                    wait: bool) -> int:
+        """``save`` timed as a ledger phase; a synchronous save's record
+        carries its ``fetch_s``/``write_s`` split."""
+        if self.ledger is None:
+            return self.save(state, wait=wait)
+        clock = self.ledger.clock
+        t0, t0_wall = clock.now(), clock.wall()
+        step = self.save(state, wait=wait)
+        extra = ({"fetch_s": self.last_fetch_s, "write_s": self.last_write_s}
+                 if wait else {})
+        self.ledger.record_phase(phase, t0_wall,
+                                 max(0.0, clock.now() - t0), **extra)
+        return step
 
     # ------------------------------------------------------------ run loop
 
@@ -130,31 +249,63 @@ class CheckpointingTrainer:
             ) -> TrainResult:
         """Train until ``num_steps`` more steps are done or a drain is
         signalled. Drain -> synchronous checkpoint -> return
-        (``preempted=True``). A checkpoint is written every
-        ``checkpoint_interval`` steps. ``on_step(step, metrics)`` gets the
-        host step counter and the step's metrics (device tensors: reading
-        one waits for the device)."""
-        t0 = time.monotonic()
+        (``preempted=True``). Every ``checkpoint_interval`` steps a
+        checkpoint is dispatched asynchronously.
+
+        ``on_step(step, metrics)`` gets the host step counter and the
+        step's metrics, device tensors still in flight: reading one waits
+        for the device. The loop itself waits only at sync boundaries:
+        every ``metrics_sync_every`` steps, at checkpoint boundaries, after the first step (its own ledger
+        segment: compile or re-warmup badput) and at the end. A drain
+        books the steps since the last boundary before its save."""
+        ledger = self.ledger
+        now = ledger.clock.now if ledger is not None else time.monotonic
+        t0 = now()
         start_step = int(state.step)
+        if ledger is not None:
+            ledger.run_started(start_step)
         last_ckpt = self.latest_step or start_step
         done = 0
         preempted = False
+        win_t0 = now()       # start of the current unsynced step window
+        win_steps = win_tokens = 0
         while done < num_steps:
             if drain_signal is not None and drain_signal():
                 logger.info("drain signalled at step %d: checkpoint + exit",
                             start_step + done)
-                last_ckpt = self.save(state)
+                if ledger is not None and win_steps > 0:
+                    self._sync()
+                    ledger.steps(start_step + done, win_steps,
+                                 max(0.0, now() - win_t0), win_tokens)
+                    win_steps = win_tokens = 0
+                last_ckpt = self._save_phase("drain_save", state, wait=True)
                 preempted = True
                 break
             batch = torch.as_tensor(next(data), device=self.device)
             state, metrics = self._step_fn(state, batch)
             done += 1
+            win_steps += 1
+            win_tokens += _batch_tokens(batch)
+            host_step = start_step + done
+            at_ckpt = done % self.checkpoint_interval == 0
+            if (win_steps >= self.metrics_sync_every or at_ckpt or done == num_steps
+                    or done == 1):
+                self._sync()
+                elapsed = max(0.0, now() - win_t0)
+                if ledger is not None:
+                    if done == win_steps == 1:
+                        ledger.first_step(host_step, elapsed, win_tokens)
+                    else:
+                        ledger.steps(host_step, win_steps, elapsed,
+                                     win_tokens)
+                win_t0 = now()
+                win_steps = win_tokens = 0
             if on_step is not None:
-                on_step(start_step + done, metrics)
-            if done % self.checkpoint_interval == 0:
-                last_ckpt = self.save(state)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+                on_step(host_step, metrics)
+            if at_ckpt:
+                last_ckpt = self._save_phase("ckpt_save", state, wait=False)
+        if ledger is not None:
+            ledger.run_ended(start_step + done, preempted)
         return TrainResult(state=state, steps_done=done, preempted=preempted,
                            last_checkpoint_step=last_ckpt,
-                           wall_time_s=time.monotonic() - t0)
+                           wall_time_s=max(0.0, now() - t0))

@@ -1,7 +1,7 @@
 """Injectable clock (a copy of ``k8s_operator_libs_tpu/utils/clock.py``).
 
-The batcher and the server take a clock so tests can drive time by hand;
-the default is the monotonic wall clock.
+The batcher, the server and the goodput ledger take a clock so tests can
+drive time by hand; the default is the monotonic wall clock.
 """
 
 from __future__ import annotations

@@ -461,3 +461,70 @@ def test_training_through_the_kernels_matches_plain(cuda):
     assert abs(float(lk) - float(lp)) <= 1e-5 * abs(float(lp))
     for a, b in zip(param_leaves(gk), param_leaves(gp)):
         assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+
+
+def test_f32_product_on_the_card_keeps_fp32(cuda):
+    """The MoE's fp32-output product of bf16 operands (cuBLAS's
+    ``out_dtype`` path): the same fp32 sums as the upcast product, to
+    fp32 summation order (1e-5 of the largest |product|), where a bf16
+    result would be off by ~2^-9 relative; its backward rounds the
+    cotangent to bf16 and returns bf16 gradients."""
+    from k8s_operator_libs_tpu_torch.models.moe import f32_product
+    g = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn(64, 4096, generator=g, device=cuda).to(torch.bfloat16)
+    b = torch.randn(4096, 512, generator=g, device=cuda).to(torch.bfloat16)
+    a.requires_grad_()
+    b.requires_grad_()
+    out = f32_product(a, b)
+    want = a.detach().double() @ b.detach().double()
+    assert out.dtype == torch.float32
+    scale = float(want.abs().max())
+    assert float((out.double() - want).abs().max()) <= 1e-5 * scale
+    assert float(((a @ b).double() - want).abs().max()) > 1e-3 * scale
+    grad = torch.randn(64, 512, generator=g, device=cuda)
+    out.backward(grad)
+    assert a.grad.dtype == b.grad.dtype == torch.bfloat16
+    torch.testing.assert_close(a.grad, grad.bfloat16() @ b.detach().t())
+    torch.testing.assert_close(b.grad, a.detach().t() @ grad.bfloat16())
+
+
+def test_moe_training_and_decode_run_the_kernels(cuda):
+    """``MoEConfig.tiny`` in bf16 (Dh 32) with remat: one training step
+    launches A-K1/A-K2/A-K3 once per layer on the tensor cores; fp32: the
+    MoE batcher's greedy tokens through A-K4 (n_layers launches per
+    decode step) equal ``moe_generate``'s."""
+    from k8s_operator_libs_tpu_torch.models import moe
+    from k8s_operator_libs_tpu_torch.parallel.expert import \
+        moe_reference_loss
+    cfg = moe.MoEConfig.tiny(remat=True)
+    params = moe.init_params(cfg, seed=0, device=cuda)
+    tokens = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 129)), dtype=torch.int32, device=cuda)
+    opt = fsdp.default_optimizer()
+    state = fsdp.TrainState(params=params, opt_state=opt.init(params),
+                            step=0)
+    fa.reset_launch_counts()
+    state, m = fsdp.make_train_step_from_loss(moe_reference_loss(cfg),
+                                              opt)(state, tokens)
+    assert np.isfinite(float(m["loss"]))
+    assert fa.LAUNCHES == {n: cfg.n_layers for n in fa.LAUNCHES}
+    assert fa.ROUTE_LAUNCHES == {"wgmma": 3 * cfg.n_layers, "fma": 0}
+
+    cfg = moe.MoEConfig.tiny(dtype=torch.float32)
+    params = moe.init_params(cfg, seed=1, device=cuda)
+    attn.reset_launch_counts()
+    srv = ContinuousBatcher(params, cfg, max_slots=2, capacity_per_slot=64,
+                            block_size=8, forward=moe.moe_paged_forward)
+    prompts = [np.arange(1, 1 + n, dtype=np.int32) * 7 % 512
+               for n in (5, 11)]
+    rids = [srv.submit(p, 8) for p in prompts]
+    out = {}
+    while not srv.idle:
+        srv.step(3)
+        out.update(srv.poll())
+    assert attn.LAUNCHES["paged_decode"] == \
+        cfg.n_layers * srv.decode_steps > 0
+    for rid, p in zip(rids, prompts):
+        solo = moe.moe_generate(params, torch.as_tensor(p[None]), cfg,
+                                max_new_tokens=8)[0].cpu().numpy()
+        np.testing.assert_array_equal(out[rid], solo)
