@@ -110,7 +110,27 @@ Phases, each fatal on failure:
    step-6 loss of an uninterrupted run; prints the ledger's checkpoint,
    restore and drain seconds and the trace sizes.
 
-Phases run in the order 1, 2, 3, 4, 7, 5, 6, 8, each with its wall
+9. Multi-process training on the one card (``parallel/launch.py``
+   starts the ranks; several ranks share the card over gloo, whose
+   collectives go through host memory, since NCCL refuses two ranks on
+   one device: every time here is labelled "gloo host-staged, one card,
+   not an interconnect figure"). 9a: sequence parallelism at Llama-3-8B
+   width, 2 layers, bf16, remat, B 1 x T 8192 over 2 ranks, ring then
+   Ulysses: one step's loss and every gradient against the one-rank step
+   on the same weights and tokens (run first in rank 0, then freed to the
+   host), the flash launches per rank (ring r + 1 per layer on rank r,
+   Ulysses 1, all ``wgmma``), ms per step, peak memory and the bytes of
+   each collective kind per step (with what they would take at NVLink's
+   rate, a reckoning); then fp32 at T 1024 against the plain attention.
+   9b: FSDP over 2 ranks, 4 layers, B 2 x T 2048: loss and gradients
+   against the one-rank step, each rank's parameters and moments at most
+   1/2 of the one-rank state + 1%, launches, ms per step, peak memory.
+   9c: the same SP and FSDP steps through an NCCL group of one rank.
+   9d: ``train.main --parallel fsdp`` on ``small`` at 2 ranks,
+   checkpointed at 2, drained at 3 (signalled on rank 0), resumed at 1
+   rank to step 6, against an uninterrupted run.
+
+Phases run in the order 1, 2, 3, 4, 7, 5, 6, 8, 9, each with its wall
 seconds. At the end it prints ``{"kernels": [...]}``, then the serving and
 training numbers and the card's name, each on a line of its own; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -152,7 +172,9 @@ NO_SPILL_KERNELS = TENSOR_CORE_KERNELS + ("paged_decode_split_kernel",
 # paged decode: one bf16 rounding of the output (2^-8 relative) plus fp32
 # summation order, scaled by max(1, |plain|)
 PAGED_TOL = 1e-2
-CSRC = "k8s_operator_libs_tpu_torch/csrc/{}.cu"
+PORT = "k8s_operator_libs_tpu_torch"
+REFERENCE = PORT.removesuffix("_torch")      # the JAX package it ports
+CSRC = PORT + "/csrc/{}.cu"
 
 
 class SmokeFailure(RuntimeError):
@@ -435,13 +457,33 @@ def phase_kernels(torch):
 
 # ------------------------------------------------------------ flash kernels
 
-# (label, B, T, H, KV, Dh, dtype, causal); the first is the training main
-# path's shape (phase 5) and is the one timed
+# phase 9's shapes: its ranks share the one card (see phase_multiprocess)
+MP_RANKS = 2
+SP_LAYERS, SP_B, SP_T = 2, 1, 8192          # 9a, bf16
+SP32_B, SP32_T = 2, 1024                    # 9a, fp32 against plain
+FSDP_LAYERS, FSDP_B, FSDP_T = 4, 2, 2048    # 9b
+
+# (label, B, T, H, KV, Dh, dtype, causal, dlse, row). ``dlse`` draws a
+# random cotangent of lse, as the ring's merge gives each chunk; ``row``
+# is the suffix of the kernels-line rows that carry the case's
+# measurements ("": the training main path's, phase 5), None for a case
+# that is only checked. The last four are phase 9's calls at Llama-3-8B
+# width: the ring's earlier key chunk (full) and its own chunk
+# (diagonal), B 1 x T/n; Ulysses' whole T at H/n heads and KV/n K/V
+# heads; an FSDP rank's B/n rows.
 FLASH_CASES = (
-    ("llama3_8b", 2, 2048, 32, 8, 128, "bfloat16", True),
-    ("T1000_full", 1, 1000, 32, 8, 128, "bfloat16", False),
-    ("small_G3", 2, 512, 12, 4, 64, "bfloat16", True),
-    ("fp32", 1, 512, 32, 8, 128, "float32", True),
+    ("llama3_8b", 2, 2048, 32, 8, 128, "bfloat16", True, False, ""),
+    ("T1000_full", 1, 1000, 32, 8, 128, "bfloat16", False, False, None),
+    ("small_G3", 2, 512, 12, 4, 64, "bfloat16", True, False, None),
+    ("fp32", 1, 512, 32, 8, 128, "float32", True, False, None),
+    ("ring_full", SP_B, SP_T // MP_RANKS, 32, 8, 128, "bfloat16", False,
+     True, "_sp_ring_full"),
+    ("ring_diagonal", SP_B, SP_T // MP_RANKS, 32, 8, 128, "bfloat16", True,
+     True, "_sp_ring_diagonal"),
+    ("ulysses", SP_B, SP_T, 32 // MP_RANKS, 8 // MP_RANKS, 128, "bfloat16",
+     True, False, "_sp_ulysses"),
+    ("fsdp_rank", FSDP_B // MP_RANKS, FSDP_T, 32, 8, 128, "bfloat16", True,
+     False, "_fsdp"),
 )
 # Each element is held to |kernel - plain| <= atol * row + rtol * |plain|,
 # row being the RMS of the plain tensor's row (the Dh values of one head
@@ -455,14 +497,20 @@ FLASH_CASES = (
 FLASH_TOL = {"float32": (1e-4, 1e-4, 1e-4),
              "bfloat16": (4e-2, 4e-2, 2.5e-2)}
 FLASH_NAMES = ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv")
+TILE = 64                       # the kernels' K/V tile
 
 
-def flash_inputs(torch, B, T, H, KV, Dh, dtype, seed=0):
+def flash_inputs(torch, B, T, H, KV, Dh, dtype, dlse, seed=0):
+    """q, k, v, dO of ``dtype``, and an fp32 cotangent of lse [B * KV,
+    H / KV, T] or None."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     dt = getattr(torch, dtype)
-    return tuple(torch.randn(s, generator=g, device="cuda").to(dt)
-                 for s in ((B, T, H, Dh), (B, T, KV, Dh), (B, T, KV, Dh),
-                           (B, T, H, Dh)))
+    q, k, v, do = (torch.randn(s, generator=g, device="cuda").to(dt)
+                   for s in ((B, T, H, Dh), (B, T, KV, Dh), (B, T, KV, Dh),
+                             (B, T, H, Dh)))
+    cot = (torch.randn((B * KV, H // KV, T), generator=g, device="cuda")
+           if dlse else None)
+    return q, k, v, do, cot
 
 
 def flash_bounds(B, T, H, KV, Dh, causal, elem):
@@ -503,25 +551,29 @@ def flash_reading(got, want, dtype, name):
     return float((err / (atol * row + rtol * want.abs())).max())
 
 
-def planted_faults(q, k, v, do, out, lse, causal):
+def planted_faults(q, k, v, do, out, lse, causal, dlse=None):
     """What each check would read had a kernel dropped one tile, on this
     case's own data: {name: (index, change of the plain value)}. In out,
     lse and dq the last query tile (batch 0, the G heads of K/V head 0)
     skips one K/V tile of its range: the one below the diagonal when
     causal, the ragged tail otherwise. In dk and dv that K/V tile skips
-    the first 32 query rows of the last tile (one A-K3 chunk)."""
+    the first 32 query rows of the last tile (one A-K3 chunk). ``dlse``
+    enters dS as the backward's does: P (dP - (delta - dlse))."""
     _, T, H, Dh = q.shape
     G = H // k.shape[2]
     scale = 1.0 / math.sqrt(Dh)
-    r0 = 64 * ((T - 1) // 64)
-    j0 = r0 - 64 if causal else r0
-    rows, keys = slice(r0, T), slice(j0, min(j0 + 64, T))
+    r0 = TILE * ((T - 1) // TILE)
+    j0 = r0 - TILE if causal else r0
+    rows, keys = slice(r0, T), slice(j0, min(j0 + TILE, T))
     qr, dor, outr = (x[0, rows, :G].float().transpose(0, 1)
                      for x in (q, do, out))                 # [G, R, Dh]
     kj, vj = k[0, keys, 0].float(), v[0, keys, 0].float()   # [J, Dh]
     p = (qr @ kj.T * scale - lse[0, :, rows, None]).exp()    # [G, R, J]
     mass = p.sum(-1, keepdim=True)
-    ds = p * (dor @ vj.T - (dor * outr).sum(-1, keepdim=True))
+    delta = (dor * outr).sum(-1, keepdim=True)
+    if dlse is not None:
+        delta = delta - dlse[0, :, rows, None]
+    ds = p * (dor @ vj.T - delta)
     chunk = slice(0, 32)
     return {
         "out": ((0, rows, slice(0, G)),
@@ -535,64 +587,105 @@ def planted_faults(q, k, v, do, out, lse, causal):
     }
 
 
+def lse_sees_a_tile(T, causal, dtype):
+    """Whether lse's tolerance can see one skipped tile of the planted
+    fault: its share of the last row's keys (a share m moves lse by
+    -log(1 - m) ~ m nats) must reach the tolerance. At T 4096 a tile is
+    1/64 of the row, 0.016 nats, under bf16's 0.025; out, dq, dk and dv
+    still see it."""
+    ragged = T % TILE if not causal and T % TILE else TILE
+    return ragged / T >= FLASH_TOL[dtype][2]
+
+
+def check_flash_case(torch, fa, case):
+    """One FLASH_CASES entry: the forward, then ``flash_backward`` with the
+    case's lse cotangent, against their plain versions, each element
+    within its tolerance, and each planted fault outside it. Returns the
+    tensors the timing needs and the max abs errors."""
+    label, B, T, H, KV, Dh, dtype, causal, with_dlse, _ = case
+    q, k, v, do, dlse = flash_inputs(torch, B, T, H, KV, Dh, dtype,
+                                     with_dlse)
+    fa.reset_launch_counts()
+    out, lse = fa.flash_forward_cuda(q, k, v, causal)
+    route = "fma" if dtype == "float32" else "wgmma"
+    check(fa.ROUTE_LAUNCHES == {"wgmma": 0, "fma": 0, route: 1},
+          f"{label}: the {dtype} forward took routes {fa.ROUTE_LAUNCHES}")
+    dq, dk, dv = fa.flash_backward(q, k, v, out, lse, do, causal, dlse)
+    check(fa.ROUTE_LAUNCHES == {"wgmma": 0, "fma": 0, route: 3},
+          f"{label}: the {dtype} backward took routes {fa.ROUTE_LAUNCHES}")
+    torch.cuda.synchronize()
+    ref_out, ref_lse = fa.reference_attention_with_lse(q, k, v, causal)
+    ref = fa.flash_backward_plain(q, k, v, out, lse, do, causal, dlse)
+    got = {"out": out, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+    want = {"out": ref_out, "lse": ref_lse, "dq": ref[0], "dk": ref[1],
+            "dv": ref[2]}
+    del ref
+    faults = planted_faults(q, k, v, do, ref_out, ref_lse, causal, dlse)
+    lse_sees = lse_sees_a_tile(T, causal, dtype)
+    errs, readings = {}, {}
+    for name in got:
+        check(bool(torch.isfinite(got[name]).all()),
+              f"{label}: non-finite {name}")
+        errs[name] = float((got[name].float() - want[name].float())
+                           .abs().max())
+        sound = flash_reading(got[name], want[name], dtype, name)
+        idx, change = faults[name]
+        bad = got[name].float().clone()
+        bad[idx] += change
+        fault = flash_reading(bad, want[name], dtype, name)
+        del bad
+        readings[name] = (sound, fault)
+        check(sound <= 1.0, f"{label}: {name} reads {sound:.3f} of its "
+                            f"tolerance (max abs err {errs[name]:.3e})")
+        check(fault > 1.0 or (name == "lse" and not lse_sees),
+              f"{label}: the tolerance of {name} would pass a skipped tile "
+              f"(reads {fault:.3f})")
+    rtol, atol, lse_tol = FLASH_TOL[dtype]
+    log(f"phase 2: flash {label} (B {B} T {T} H {H} KV {KV} Dh {Dh} "
+        f"{dtype} {'causal' if causal else 'full'}"
+        f"{', lse cotangent' if with_dlse else ''}) max abs err "
+        + " ".join(f"{n} {e:.2e}" for n, e in errs.items())
+        + f"; share of the tolerance (rtol {rtol}, atol {atol} x row "
+        f"RMS; lse {lse_tol} nats), kernel / planted fault: "
+        + " ".join(f"{n} {a:.3f}/{b:.3g}" for n, (a, b)
+                   in readings.items())
+        + ("" if lse_sees else f" (lse: one tile is {TILE}/{T} of a row, "
+           f"under the tolerance; out, dq, dk, dv see it)") + " ok")
+    del want, got
+    return (q, k, v, do, dlse, out, lse, ref_out), errs
+
+
 def phase_flash(torch):
     import torch.nn.functional as F
 
     from k8s_operator_libs_tpu_torch.ops import attention as fa
     results = {}
-    for label, B, T, H, KV, Dh, dtype, causal in FLASH_CASES:
-        q, k, v, do = flash_inputs(torch, B, T, H, KV, Dh, dtype)
-        fa.reset_launch_counts()
-        out, lse = fa.flash_forward_cuda(q, k, v, causal)
-        route = "fma" if dtype == "float32" else "wgmma"
-        check(fa.ROUTE_LAUNCHES == {"wgmma": 0, "fma": 0, route: 1},
-              f"{label}: the {dtype} forward took routes {fa.ROUTE_LAUNCHES}")
-        delta = fa.attention_delta(out, do, KV)
-        dq = fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal)
-        dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal)
-        torch.cuda.synchronize()
-        ref_out, ref_lse = fa.reference_attention_with_lse(q, k, v, causal)
-        ref = fa.flash_backward_plain(q, k, v, out, lse, do, causal)
-        got = {"out": out, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
-        want = {"out": ref_out, "lse": ref_lse, "dq": ref[0], "dk": ref[1],
-                "dv": ref[2]}
-        faults = planted_faults(q, k, v, do, ref_out, ref_lse, causal)
-        errs, readings = {}, {}
-        for name in got:
-            check(bool(torch.isfinite(got[name]).all()),
-                  f"{label}: non-finite {name}")
-            errs[name] = float((got[name].float() - want[name].float())
-                               .abs().max())
-            sound = flash_reading(got[name], want[name], dtype, name)
-            idx, change = faults[name]
-            bad = got[name].float().clone()
-            bad[idx] += change
-            fault = flash_reading(bad, want[name], dtype, name)
-            readings[name] = (sound, fault)
-            check(sound <= 1.0, f"{label}: {name} reads {sound:.3f} of its "
-                                f"tolerance (max abs err {errs[name]:.3e})")
-            check(fault > 1.0, f"{label}: the tolerance of {name} would pass "
-                               f"a skipped tile (reads {fault:.3f})")
-        rtol, atol, lse_tol = FLASH_TOL[dtype]
-        log(f"phase 2: flash {label} (B {B} T {T} H {H} KV {KV} Dh {Dh} "
-            f"{dtype} {'causal' if causal else 'full'}) max abs err "
-            + " ".join(f"{n} {e:.2e}" for n, e in errs.items())
-            + f"; share of the tolerance (rtol {rtol}, atol {atol} x row "
-            f"RMS; lse {lse_tol} nats), kernel / planted fault: "
-            + " ".join(f"{n} {a:.3f}/{b:.3g}" for n, (a, b)
-                       in readings.items()) + " ok")
-        if label != FLASH_CASES[0][0]:
+    for case in FLASH_CASES:
+        label, B, T, H, KV, Dh, dtype, causal, with_dlse, row = case
+        (q, k, v, do, dlse, out, lse, ref_out), errs = check_flash_case(
+            torch, fa, case)
+        if row is None:
             continue
+        delta = fa.attention_delta(out, do, KV)
+        if dlse is not None:
+            delta = delta - dlse.reshape(delta.shape)
 
-        # the kernels are deterministic (the resume check relies on it)
-        again = fa.flash_forward_cuda(q, k, v, causal)
-        same = (torch.equal(again[0], out) and torch.equal(again[1], lse)
-                and torch.equal(fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta,
-                                                     causal), dq)
-                and all(torch.equal(a, b) for a, b in zip(
-                    fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal),
-                    (dk, dv))))
-        check(same, "flash kernels are not deterministic")
+        if row == "":
+            # the kernels are deterministic (the resume check relies on it)
+            dq, (dk, dv) = (fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta,
+                                                 causal),
+                            fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                                  causal))
+            again = fa.flash_forward_cuda(q, k, v, causal)
+            same = (torch.equal(again[0], out)
+                    and torch.equal(again[1], lse)
+                    and torch.equal(fa.flash_bwd_dq_cuda(
+                        q, k, v, do, lse, delta, causal), dq)
+                    and all(torch.equal(a, b) for a, b in zip(
+                        fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                              causal), (dk, dv))))
+            check(same, "flash kernels are not deterministic")
+            del again, dq, dk, dv
 
         qh, kh, vh, doh = (x.transpose(1, 2).contiguous()
                            for x in (q, k, v, do))
@@ -616,12 +709,8 @@ def phase_flash(torch):
                                               causal),
                 None, None),
         }
-        fa.reset_launch_counts()
-        fa.flash_backward(q, k, v, out, lse, do, causal)
-        check(fa.ROUTE_LAUNCHES == {"wgmma": 2, "fma": 0},
-              f"the bf16 backward took routes {fa.ROUTE_LAUNCHES}")
         bwd_plain_ms = time_cold_ms(torch, lambda: fa.flash_backward_plain(
-            q, k, v, out, lse, do, causal), iters=10)
+            q, k, v, out, lse, do, causal, dlse), iters=10)
         bwd_lib_ms = time_cold_ms(torch, lambda: torch.autograd.grad(
             lib_out, lib_in, doh, retain_graph=True))
         for name, (kernel, plain, library) in timed.items():
@@ -634,36 +723,43 @@ def phase_flash(torch):
             err = (max(errs["out"], errs["lse"]) if name == "flash_forward"
                    else errs["dq"] if name == "flash_bwd_dq"
                    else max(errs["dk"], errs["dv"]))
-            results[name] = {"max_abs_err": err, "ms": ms,
-                             "plain_ms": plain_ms, "bound_ms": b_ms,
-                             "bound_by": bound_by, "library_ms": library_ms}
-            log(f"phase 2: {name} ms {ms:.4f} plain_ms {plain_ms:.4f} "
-                f"library_ms {library_ms:.4f} bound_ms {b_ms:.5f} "
-                f"({bound_by}) -> {b_ms / ms:.2%} of bound")
-        delta_ms = time_cold_ms(torch, lambda: fa.attention_delta(out, do,
-                                                                  KV))
-        # delta reads dO and out once and writes one fp32 per row
-        delta_bound = ((2 * out.numel() * out.element_size() + B * H * T * 4)
-                       / H100_BYTES_PER_S * 1e3)
-        whole = (delta_ms + results["flash_bwd_dq"]["ms"]
-                 + results["flash_bwd_dkv"]["ms"])
-        results["backward"] = {"delta_ms": delta_ms,
-                               "delta_bound_ms": delta_bound,
-                               "whole_ms": whole, "library_ms": bwd_lib_ms}
-        log(f"phase 2: attention_delta (plain PyTorch) ms {delta_ms:.4f} "
-            f"bound_ms {delta_bound:.5f} (bytes) -> "
-            f"{delta_bound / delta_ms:.2%} of bound")
-        log(f"phase 2: whole backward: delta {delta_ms:.4f} + A-K2 "
-            f"{results['flash_bwd_dq']['ms']:.4f} + A-K3 "
-            f"{results['flash_bwd_dkv']['ms']:.4f} = {whole:.4f} ms vs SDPA's "
-            f"autograd backward {bwd_lib_ms:.4f} ms (its own preprocessing "
-            f"included): {whole / bwd_lib_ms:.2f}x")
-        log(f"phase 2: flash plain/library: the backward's plain_ms is "
-            f"flash_backward_plain (dq, dk, dv together) and its library_ms "
-            f"the autograd backward of F.scaled_dot_product_attention over "
-            f"K/V repeated to {H} heads (sdpa forward max diff "
-            f"{lib_err:.2e}); both are yardsticks the port never calls")
-        del lib_in, lib_out
+            results[name + row] = {"max_abs_err": err, "ms": ms,
+                                   "plain_ms": plain_ms, "bound_ms": b_ms,
+                                   "bound_by": bound_by,
+                                   "library_ms": library_ms}
+            log(f"phase 2: {name}{row} ({label}) ms {ms:.4f} plain_ms "
+                f"{plain_ms:.4f} library_ms {library_ms:.4f} bound_ms "
+                f"{b_ms:.5f} ({bound_by}) -> {b_ms / ms:.2%} of bound")
+        log(f"phase 2: flash {label} plain/library: the backward's plain_ms "
+            f"is flash_backward_plain (dq, dk, dv together"
+            f"{', with the lse cotangent' if dlse is not None else ''}) and "
+            f"its library_ms the autograd backward of "
+            f"F.scaled_dot_product_attention over K/V repeated to {H} heads "
+            f"(sdpa forward max diff {lib_err:.2e}"
+            f"{'; no lse cotangent: SDPA takes none' if dlse is not None else ''}"
+            f"); both are yardsticks the port never calls")
+        if row == "":
+            delta_ms = time_cold_ms(torch, lambda: fa.attention_delta(
+                out, do, KV))
+            # delta reads dO and out once and writes one fp32 per row
+            delta_bound = ((2 * out.numel() * out.element_size()
+                            + B * H * T * 4) / H100_BYTES_PER_S * 1e3)
+            whole = (delta_ms + results["flash_bwd_dq"]["ms"]
+                     + results["flash_bwd_dkv"]["ms"])
+            results["backward"] = {"delta_ms": delta_ms,
+                                   "delta_bound_ms": delta_bound,
+                                   "whole_ms": whole,
+                                   "library_ms": bwd_lib_ms}
+            log(f"phase 2: attention_delta (plain PyTorch) ms "
+                f"{delta_ms:.4f} bound_ms {delta_bound:.5f} (bytes) -> "
+                f"{delta_bound / delta_ms:.2%} of bound")
+            log(f"phase 2: whole backward: delta {delta_ms:.4f} + A-K2 "
+                f"{results['flash_bwd_dq']['ms']:.4f} + A-K3 "
+                f"{results['flash_bwd_dkv']['ms']:.4f} = {whole:.4f} ms vs "
+                f"SDPA's autograd backward {bwd_lib_ms:.4f} ms (its own "
+                f"preprocessing included): {whole / bwd_lib_ms:.2f}x")
+        del lib_in, lib_out, q, k, v, do, dlse, out, lse, ref_out, delta
+        torch.cuda.empty_cache()
     return results
 
 
@@ -2005,6 +2101,495 @@ def phase_moe_train_parity(torch):
             **{f"moe_tiny_{k}": v for k, v in seconds.items()}}
 
 
+# ------------------------------------------------------------ multi-process
+
+# phase 9: ranks share the one card over gloo (NCCL refuses two ranks on
+# one device), so every collective goes through host memory: its times
+# measure no interconnect
+GLOO_LABEL = "gloo host-staged, one card, not an interconnect figure"
+NVLINK_BYTES_PER_S = 450e9      # H100 SXM NVLink 4: 900 GB/s, 450 each way
+MP_TIMED_STEPS = 2
+MP_TIMEOUT = 900.0
+# bf16 parity against the one-rank step, which runs the same kernels on
+# the whole sequence and batch (phase 2 holds the kernels against their
+# plain versions at the ranks' own shapes): the ring merges bf16 partial
+# outputs in fp32 and rounds once, Ulysses and FSDP run the kernels on
+# other splits and FSDP sums the ranks' bf16 gradient halves in fp32;
+# each moves an element by about one bf16 rounding (2^-8 relative), and
+# the difference then passes through two or four layers' bf16 backward
+# (the per-element rule of phase 2 does not carry over: a leaf's gradient
+# sums every position's rounding). On an H100 80GB HBM3 at 700 W the
+# worst leaf read 6.7e-3 (FSDP) to 1.29e-2 (ring) of its largest
+# gradient, the same in every run, and the fault this slice repaired,
+# planted in 9a (the ring's lse cut from the graph), 3.35e-2. The bound:
+# 2e-2 of each leaf's largest gradient, between the two, and 1e-3 of the
+# loss; 9a must see the planted fault exceed it. fp32 keeps phase 6a's
+# 1e-5 of the loss and 1e-3 of the leaf's largest gradient against plain
+# attention.
+MP_BF16_TOL = (1e-3, 2e-2)
+MP_FP32_TOL = (1e-5, 1e-3)
+
+
+def _worst(torch, grads, ref):
+    """The largest |got - ref| over a leaf's max |ref|, over leaves."""
+    from k8s_operator_libs_tpu_torch.models.llama import param_leaves
+    worst = 0.0
+    for a, b in zip(param_leaves(grads), param_leaves(ref)):
+        b = b.to(a.device).float()
+        rel = float((a.float() - b).abs().max()
+                    / b.abs().max().clamp_min(1e-30))
+        worst = max(worst, rel)
+    return worst
+
+
+def _host_tree(tree):
+    from k8s_operator_libs_tpu_torch.parallel.fsdp import _tree_map
+    return _tree_map(lambda t: t.detach().cpu(), tree)
+
+
+def _tokens(torch, cfg, B, T, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (B, T + 1), generator=g,
+                         device="cuda", dtype=torch.int32)
+
+
+def _mp_sp(torch, dist, timed_steps):
+    """9a in one rank: the one-rank step (rank 0, then freed to the host),
+    then ring and Ulysses over every rank, bf16 at 8B width; fp32 against
+    plain attention."""
+    from k8s_operator_libs_tpu_torch.models.llama import LlamaConfig
+    from k8s_operator_libs_tpu_torch.models.llama import init_params
+    from k8s_operator_libs_tpu_torch.ops import attention as fa
+    from k8s_operator_libs_tpu_torch.parallel import (comm, fsdp,
+                                                      ring_attention)
+    from k8s_operator_libs_tpu_torch.parallel.long_context import (
+        make_sp_loss)
+    from k8s_operator_libs_tpu_torch.parallel.mesh import make_mesh
+
+    rank, n = dist.get_rank(), dist.get_world_size()
+    mesh = make_mesh(seq=n, fsdp=1)
+    out = {}
+    for dtype, B, T, tol in ((torch.bfloat16, SP_B, SP_T, MP_BF16_TOL),
+                             (torch.float32, SP32_B, SP32_T, MP_FP32_TOL)):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        cfg = LlamaConfig.llama3_8b(n_layers=SP_LAYERS, max_seq_len=T,
+                                    dtype=dtype)
+        params = init_params(cfg, seed=0, device="cuda")
+        tokens = _tokens(torch, cfg, B, T, 11)
+        ref = None
+        if rank == 0:
+            # the one-rank step: flash kernels in bf16, plain attention in
+            # fp32 (phase 6a's reference)
+            attn = None if dtype == torch.bfloat16 else fa.reference_attention
+            ref_loss, ref = fsdp.value_and_grad(
+                lambda p, t: fsdp.causal_lm_loss(p, t, cfg, attn), params,
+                tokens)
+            ref_loss, ref = float(ref_loss), _host_tree(ref)
+            torch.cuda.empty_cache()
+        dist.barrier()
+        for impl in ("ring", "ulysses"):
+            loss_fn = make_sp_loss(cfg, mesh, attn_impl=impl)
+            torch.cuda.synchronize()
+            fa.reset_launch_counts()
+            comm.reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            loss, grads = fsdp.value_and_grad(loss_fn, params, tokens)
+            torch.cuda.synchronize()
+            res = {"loss": float(loss), "launches": dict(fa.LAUNCHES),
+                   "full_launches": dict(fa.FULL_LAUNCHES),
+                   "routes": dict(fa.ROUTE_LAUNCHES),
+                   "calls": dict(comm.CALLS),
+                   "peak": torch.cuda.max_memory_allocated()}
+            if ref is not None:
+                res.update(ref_loss=ref_loss, worst=_worst(torch, grads, ref),
+                           tol=tol)
+            del grads
+            if impl == "ring" and dtype == torch.bfloat16:
+                # the fault this slice repaired, planted: the ring's merge
+                # with each chunk's lse cut from the graph
+                real = ring_attention.flash_attention_with_lse
+
+                def planted(*a, **kw):
+                    o, lse = real(*a, **kw)
+                    return o, lse.detach()
+
+                ring_attention.flash_attention_with_lse = planted
+                try:
+                    _, bad = fsdp.value_and_grad(
+                        make_sp_loss(cfg, mesh, attn_impl=impl), params,
+                        tokens)
+                finally:
+                    ring_attention.flash_attention_with_lse = real
+                if ref is not None:
+                    res["planted_worst"] = _worst(torch, bad, ref)
+                del bad
+            out[f"{impl}_{tag}"] = res
+        del ref
+        if dtype == torch.bfloat16 and timed_steps:
+            for impl in ("ring", "ulysses"):
+                out[f"{impl}_bf16"].update(
+                    _timed_steps(torch, fsdp.make_train_step_from_loss(
+                        make_sp_loss(cfg, mesh, attn_impl=impl)),
+                        params, tokens, dist))
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def _timed_steps(torch, step, params, tokens, dist):
+    """MP_TIMED_STEPS optimizer steps from a copy of ``params``: ms per
+    step on this rank and the bytes each collective kind sent per step."""
+    from k8s_operator_libs_tpu_torch.parallel import comm, fsdp
+    opt = fsdp.default_optimizer()
+    p = fsdp._tree_map(lambda t: t.clone(), params)
+    state = fsdp.TrainState(params=p, opt_state=opt.init(p), step=0)
+    state, _ = step(state, tokens)                 # warm-up
+    torch.cuda.synchronize()
+    dist.barrier()
+    comm.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    for _ in range(MP_TIMED_STEPS):
+        state, m = step(state, tokens)
+    torch.cuda.synchronize()
+    ms = (time.monotonic() - t0) / MP_TIMED_STEPS * 1e3
+    per_step = {k: v // MP_TIMED_STEPS for k, v in comm.BYTES.items()}
+    loss = float(m["loss"])
+    peak = torch.cuda.max_memory_allocated()
+    del state, p
+    torch.cuda.empty_cache()
+    return {"ms_per_step": ms, "bytes_per_step": per_step,
+            "timed_loss": loss, "peak": peak}
+
+
+def _mp_fsdp(torch, dist, timed_steps):
+    """9b in one rank: the one-rank step (rank 0, then freed), FSDP over
+    every rank (gradient slices gathered to rank 0 to compare), the
+    resident bytes, launches, and timed steps."""
+    from k8s_operator_libs_tpu_torch.models.llama import (LlamaConfig,
+                                                          init_params,
+                                                          param_leaves)
+    from k8s_operator_libs_tpu_torch.ops import attention as fa
+    from k8s_operator_libs_tpu_torch.parallel import comm, fsdp
+    from k8s_operator_libs_tpu_torch.parallel.mesh import (make_mesh,
+                                                           param_specs)
+
+    rank, n = dist.get_rank(), dist.get_world_size()
+    cfg = LlamaConfig.llama3_8b(n_layers=FSDP_LAYERS, max_seq_len=FSDP_T)
+    tokens = _tokens(torch, cfg, FSDP_B, FSDP_T, 12)
+    ref = None
+    whole_bytes = 0
+    if rank == 0:
+        params = init_params(cfg, seed=0, device="cuda")
+        whole_bytes = 3 * sum(t.numel() * t.element_size()
+                              for t in param_leaves(params))
+        ref_loss, ref = fsdp.value_and_grad(
+            lambda p, t: fsdp.causal_lm_loss(p, t, cfg), params, tokens)
+        ref_loss, ref = float(ref_loss), _host_tree(ref)
+        del params
+        torch.cuda.empty_cache()
+    dist.barrier()
+    mesh = make_mesh()
+    specs = param_specs()
+    torch.cuda.reset_peak_memory_stats()
+    state = fsdp.init_train_state(cfg, seed=0, device="cuda", mesh=mesh)
+    resident = sum(t.numel() * t.element_size() for tree in
+                   (state.params, state.opt_state.mu, state.opt_state.nu)
+                   for t in param_leaves(tree))
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    comm.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    loss, grads = fsdp.value_and_grad(fsdp.fsdp_loss(cfg, mesh, specs),
+                                      state.params, tokens)
+    torch.cuda.synchronize()
+    res = {"loss": float(loss), "launches": dict(fa.LAUNCHES),
+           "routes": dict(fa.ROUTE_LAUNCHES), "calls": dict(comm.CALLS),
+           "resident": resident, "whole_bytes": whole_bytes,
+           "peak": torch.cuda.max_memory_allocated()}
+    # every rank joins the gathers; rank 0 compares the whole gradients
+    whole = fsdp._tree_map(lambda g, s: fsdp.full_leaf(g, s, mesh), grads,
+                           specs)
+    if ref is not None:
+        res.update(ref_loss=ref_loss, worst=_worst(torch, whole, ref),
+                   tol=MP_BF16_TOL)
+    del grads, whole, ref
+    torch.cuda.empty_cache()
+    if timed_steps:
+        step = fsdp.make_train_step(cfg, mesh=mesh)
+        state, _ = step(state, tokens)              # warm-up
+        torch.cuda.synchronize()
+        dist.barrier()
+        comm.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        for _ in range(MP_TIMED_STEPS):
+            state, m = step(state, tokens)
+        torch.cuda.synchronize()
+        res.update(ms_per_step=(time.monotonic() - t0) / MP_TIMED_STEPS * 1e3,
+                   bytes_per_step={k: v // MP_TIMED_STEPS
+                                   for k, v in comm.BYTES.items()},
+                   timed_loss=float(m["loss"]),
+                   peak=torch.cuda.max_memory_allocated())
+    del state
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase9_rank(timed_steps):
+    """The body of one rank of phase 9a-9c (run by ``launch.run``)."""
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.monotonic()
+    sp = _mp_sp(torch, dist, timed_steps)
+    fsdp = _mp_fsdp(torch, dist, timed_steps)
+    return {"sp": sp, "fsdp": fsdp, "backend": dist.get_backend(),
+            "wall_s": time.monotonic() - t0}
+
+
+def phase9_cli_rank(argv):
+    """``train.main(argv)`` in one rank; rank 0 signals a drain before
+    step 4, which every rank must follow."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from k8s_operator_libs_tpu_torch import train
+    rank = dist.get_rank()
+    calls = {"n": 0}
+
+    def drain():
+        calls["n"] += 1
+        return rank == 0 and calls["n"] == 4
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = train.main(argv, drain_signal=drain)
+    return {"rc": rc, "out": buf.getvalue()}
+
+
+def _check_rank(tag, r, res, n, layers, what):
+    """The launch counts of one rank's run of path ``what``."""
+    want = {"sp ring": r + 1, "sp ulysses": 1, "fsdp": 1}[what] * layers
+    check(res["launches"] == {"flash_forward": want, "flash_bwd_dq": want,
+                              "flash_bwd_dkv": want},
+          f"{tag}: {what} rank {r} of {n} launched {res['launches']}, "
+          f"expected {want} of each")
+    if "full_launches" in res:
+        # the ring's r earlier chunks are full blocks, its own is causal
+        full = r * layers if what == "sp ring" else 0
+        check(res["full_launches"] == {"flash_forward": full,
+                                       "flash_bwd_dq": full,
+                                       "flash_bwd_dkv": full},
+              f"{tag}: {what} rank {r} launched {res['full_launches']} "
+              f"without the causal mask, expected {full} of each")
+    route = "wgmma" if "fp32" not in tag else "fma"
+    check(res["routes"] == {"wgmma": 0, "fma": 0, route: 3 * want},
+          f"{tag}: {what} rank {r} took routes {res['routes']}")
+
+
+def _check_parity(tag, res):
+    loss_tol, grad_tol = res["tol"]
+    d = abs(res["loss"] - res["ref_loss"])
+    check(math.isfinite(res["loss"]) and d <= loss_tol * abs(res["ref_loss"]),
+          f"{tag}: loss {res['loss']} vs the one-rank step {res['ref_loss']}")
+    check(res["worst"] <= grad_tol,
+          f"{tag}: gradients differ from the one-rank step by "
+          f"{res['worst']:.3e} of a leaf's largest (bound {grad_tol})")
+    log(f"{tag}: loss {res['loss']:.6f} vs one-rank {res['ref_loss']:.6f} "
+        f"(diff {d:.2e}, bound {loss_tol} relative); worst gradient "
+        f"{res['worst']:.3e} of its leaf's max (bound {grad_tol})")
+    return d
+
+
+def phase_multiprocess(torch):
+    """Phase 9: sequence parallelism (ring, Ulysses) and FSDP at
+    Llama-3-8B width over 2 ranks on the one card (gloo), the same steps
+    through NCCL at world size 1, and the CLI drained at 2 ranks and
+    resumed at 1."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+
+    from k8s_operator_libs_tpu_torch import train
+    from k8s_operator_libs_tpu_torch.data.loader import write_token_file
+    from k8s_operator_libs_tpu_torch.parallel import launch
+
+    held = torch.cuda.memory_allocated()
+    check(held < 2**30, f"phase 9: {held / 2**30:.1f} GiB of the earlier "
+                        f"phases is still allocated")
+    torch.cuda.empty_cache()
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_mp"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    stats = {}
+
+    # 9a, 9b: two ranks on the card over gloo
+    t0 = time.monotonic()
+    results = launch.run(phase9_rank, MP_RANKS, True, backend="gloo",
+                         timeout=MP_TIMEOUT, workdir=str(work))
+    own = ", ".join(f"{r['wall_s']:.1f}" for r in results)
+    log(f"phase 9a/9b: {MP_RANKS} ranks over gloo, wall "
+        f"{time.monotonic() - t0:.1f} s (ranks' own {own} s)")
+    launches = {}
+    for impl in ("ring", "ulysses"):
+        for tag in ("bf16", "fp32"):
+            key = f"{impl}_{tag}"
+            for r, res in enumerate(results):
+                _check_rank(f"phase 9a {tag}", r, res["sp"][key], MP_RANKS,
+                            SP_LAYERS, f"sp {impl}")
+                first = results[0]["sp"][key]["loss"]
+                check(abs(res["sp"][key]["loss"] - first) <= 1e-6 * first,
+                      f"phase 9a: {key} ranks disagree on the loss")
+            B, T = (SP_B, SP_T) if tag == "bf16" else (SP32_B, SP32_T)
+            stats[f"sp_{key}_loss_diff"] = _check_parity(
+                f"phase 9a {impl} {tag} (B {B} T {T})", results[0]["sp"][key])
+            stats[f"sp_{key}_worst_grad"] = results[0]["sp"][key]["worst"]
+        runs = [res["sp"][f"{impl}_bf16"] for res in results]
+        if impl == "ring":
+            bad = results[0]["sp"]["ring_bf16"]["planted_worst"]
+            bound = MP_BF16_TOL[1]
+            check(bad > bound, f"phase 9a: the bound {bound} would pass the "
+                               f"ring with lse cut from the graph (worst "
+                               f"gradient {bad:.3e} of its leaf's max)")
+            log(f"phase 9a: planted fault, the ring's lse cut from the "
+                f"graph: worst gradient {bad:.3e} of its leaf's max, over "
+                f"the bound {bound}: caught")
+            stats["sp_ring_planted_lse_fault_worst_grad"] = bad
+            launches["sp_ring_full"] = {
+                name: sum(r["full_launches"][name] for r in runs)
+                for name in FLASH_NAMES}
+            launches["sp_ring_diagonal"] = {
+                name: sum(r["launches"][name] - r["full_launches"][name]
+                          for r in runs) for name in FLASH_NAMES}
+        else:
+            launches["sp_ulysses"] = {
+                name: sum(r["launches"][name] for r in runs)
+                for name in FLASH_NAMES}
+        for r, res in enumerate(results):
+            b = res["sp"][f"{impl}_bf16"]
+            log(f"phase 9a: {impl} bf16 rank {r}: {b['ms_per_step']:.1f} ms "
+                f"per step ({GLOO_LABEL}), peak memory of a train step "
+                f"{b['peak'] / 2**30:.1f} GiB; launches per step "
+                + ", ".join(f"{k} {v}" for k, v in b["launches"].items()))
+            stats[f"sp_{impl}_ms_per_step_rank{r}"] = b["ms_per_step"]
+            stats[f"sp_{impl}_peak_bytes_rank{r}"] = b["peak"]
+        _log_bytes(f"phase 9a: {impl}", results[0]["sp"][f"{impl}_bf16"]
+                   ["bytes_per_step"], stats, f"sp_{impl}")
+    for r, res in enumerate(results):
+        f = res["fsdp"]
+        _check_rank("phase 9b", r, f, MP_RANKS, FSDP_LAYERS, "fsdp")
+        log(f"phase 9b: FSDP rank {r}: {f['ms_per_step']:.1f} ms per step "
+            f"({GLOO_LABEL}), peak memory of a train step "
+            f"{f['peak'] / 2**30:.1f} GiB, parameters and moments held "
+            f"{f['resident']} bytes")
+        stats[f"fsdp_ms_per_step_rank{r}"] = f["ms_per_step"]
+        stats[f"fsdp_peak_bytes_rank{r}"] = f["peak"]
+    whole = results[0]["fsdp"]["whole_bytes"]
+    for r, res in enumerate(results):
+        check(res["fsdp"]["resident"] <= whole / MP_RANKS * 1.01,
+              f"phase 9b: rank {r} holds {res['fsdp']['resident']} bytes of "
+              f"parameters and moments, over 1/{MP_RANKS} of {whole} + 1%")
+    log(f"phase 9b: the one-rank state is {whole} bytes; each rank holds "
+        f"{max(r['fsdp']['resident'] for r in results) / whole:.4f} of it")
+    stats["fsdp_loss_diff"] = _check_parity(
+        f"phase 9b FSDP bf16 (B {FSDP_B} T {FSDP_T}, {FSDP_LAYERS} layers)",
+        results[0]["fsdp"])
+    stats["fsdp_worst_grad"] = results[0]["fsdp"]["worst"]
+    launches["fsdp"] = {name: sum(res["fsdp"]["launches"][name]
+                                  for res in results) for name in FLASH_NAMES}
+    _log_bytes("phase 9b: FSDP", results[0]["fsdp"]["bytes_per_step"],
+               stats, "fsdp")
+    del results
+
+    # 9c: the same steps through an NCCL group of one rank
+    t0 = time.monotonic()
+    (one,) = launch.run(phase9_rank, 1, False, backend="nccl",
+                        timeout=MP_TIMEOUT, workdir=str(work))
+    check(one["backend"] == "nccl", f"phase 9c ran on {one['backend']}")
+    for key, res in one["sp"].items():
+        impl, tag = key.split("_")
+        _check_rank(f"phase 9c {tag}", 0, res, 1, SP_LAYERS, f"sp {impl}")
+        check(res["calls"]["psum"] > 0, f"phase 9c: {key} ran no all-reduce")
+        stats[f"nccl_sp_{key}_loss_diff"] = _check_parity(
+            f"phase 9c NCCL {impl} {tag}", res)
+    check(one["sp"]["ulysses_bf16"]["calls"]["all_to_all"] > 0,
+          "phase 9c: Ulysses ran no all-to-all")
+    _check_rank("phase 9c", 0, one["fsdp"], 1, FSDP_LAYERS, "fsdp")
+    check(one["fsdp"]["calls"]["all_gather"] > 0
+          and one["fsdp"]["calls"]["reduce_scatter"] > 0,
+          f"phase 9c: FSDP ran {one['fsdp']['calls']}")
+    stats["nccl_fsdp_loss_diff"] = _check_parity("phase 9c NCCL FSDP",
+                                                 one["fsdp"])
+    log(f"phase 9c: NCCL at world size 1, wall {time.monotonic() - t0:.1f} s;"
+        f" collectives called: SP ring {one['sp']['ring_bf16']['calls']}, "
+        f"FSDP {one['fsdp']['calls']}")
+
+    # 9d: the CLI, drained at 2 ranks and resumed at 1
+    data = work / "tokens.bin"
+    write_token_file(str(data), np.random.default_rng(7).integers(
+        0, 32000, size=200_000))
+
+    def argv(ckpt):
+        return ["--data", str(data), "--ckpt", str(work / ckpt), "--model",
+                "small", "--seq", "512", "--batch", "4", "--steps", "6",
+                "--ckpt-interval", "2", "--device", "cuda", "--parallel",
+                "fsdp"]
+
+    res = launch.run(phase9_cli_rank, MP_RANKS, argv("drained"),
+                     backend="gloo", timeout=MP_TIMEOUT, workdir=str(work))
+    check([r["rc"] for r in res] == [0] * MP_RANKS, f"phase 9d: {res}")
+    check("preempted at step 3; checkpoint 3 saved" in res[0]["out"],
+          f"phase 9d: the drain did not stop at step 3: {res[0]['out']}")
+    check((work / "drained" / "2").is_dir(), "phase 9d: no checkpoint at 2")
+    outs = {}
+    for name in ("drained", "straight"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = train.main(argv(name))
+        check(rc == 0, f"phase 9d: train.main returned {rc}")
+        outs[name] = buf.getvalue()
+        log(f"phase 9d: train.main --ckpt {name} at 1 rank: "
+            f"{outs[name].strip().splitlines()[-1]}")
+    check("done: 3 steps" in outs["drained"],
+          f"phase 9d: the resume did not run steps 4-6: {outs['drained']}")
+
+    def last_loss(out):
+        m = re.search(r"\(step 6 loss ([0-9.]+)\)", out)
+        check(m is not None, f"no step-6 loss in {out!r}")
+        return float(m.group(1))
+
+    a, b = last_loss(outs["straight"]), last_loss(outs["drained"])
+    # bf16: 2 ranks sum each gradient's halves in fp32 and round once
+    # where one rank rounds the whole batch's; the CPU test's bound
+    check(abs(a - b) <= 1e-3 * a, f"phase 9d: step-6 loss {b} after a "
+                                  f"drain at 2 ranks and a resume at 1 "
+                                  f"vs {a}")
+    log(f"phase 9d: step-6 loss drained at {MP_RANKS} ranks and resumed at "
+        f"1: {b}, uninterrupted at 1: {a} (diff {abs(a - b):.2e}, bound "
+        f"1e-3 relative)")
+    stats.update(cli_step6_loss_resumed=b, cli_step6_loss_straight=a)
+    shutil.rmtree(work, ignore_errors=True)
+    stats["launches"] = launches
+    return stats
+
+
+def _log_bytes(tag, per_step, stats, key):
+    total = sum(per_step.values())
+    log(f"{tag}: bytes sent per step and rank, by kind: "
+        + ", ".join(f"{k} {v}" for k, v in per_step.items() if v)
+        + f"; at the H100 SXM's NVLink rate ({NVLINK_BYTES_PER_S:.3g} B/s "
+        f"each way) {total / NVLINK_BYTES_PER_S * 1e3:.3f} ms (a reckoning, "
+        f"not measured)")
+    stats[f"{key}_bytes_per_step"] = per_step
+    stats[f"{key}_nvlink_ms_reckoned"] = total / NVLINK_BYTES_PER_S * 1e3
+
+
 def timed(label, fn, *args):
     """``fn(*args)``, its wall seconds logged."""
     t0 = time.monotonic()
@@ -2047,12 +2632,13 @@ def main():
         training.update(timed("phase 6", phase_train_parity, torch))
         moe_train = timed("phase 8", phase_moe_train, torch)
         moe_train.update(timed("phase 8b", phase_moe_train_parity, torch))
+        multi = timed("phase 9", phase_multiprocess, torch)
     except (SmokeFailure, subprocess.SubprocessError, OSError,
             RuntimeError, ValueError) as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     rows = []
-    jax_attn = "k8s_operator_libs_tpu/ops/attention.py"
+    jax_attn = f"{REFERENCE}/ops/attention.py"
     for name, source, replaces, launches in (
             ("paged_decode", "paged_decode", f"{jax_attn}:734",
              serve["launches"]),
@@ -2077,13 +2663,22 @@ def main():
             ("flash_bwd_dq_moe", "flash_attention_tc", f"{jax_attn}:439",
              moe_train["launches_flash_bwd_dq"]),
             ("flash_bwd_dkv_moe", "flash_attention_tc", f"{jax_attn}:519",
-             moe_train["launches_flash_bwd_dkv"])):
+             moe_train["launches_flash_bwd_dkv"]),
+            *((f"{kname}_{path}", "flash_attention_tc", f"{jax_attn}:{line}",
+               multi["launches"][path][kname])
+              for path in ("sp_ring_full", "sp_ring_diagonal", "sp_ulysses",
+                           "fsdp")
+              for kname, line in (("flash_forward", 236),
+                                  ("flash_bwd_dq", 439),
+                                  ("flash_bwd_dkv", 519)))):
         # the speculative path's draft steps and the MoE paths run their
         # kernels at phase 2's shapes (A-K4 at the serving shape, A-K1-3 at
         # H 32, KV 8, Dh 128, B 2, T 2048), so their rows carry phase 2's
-        # measurements
+        # measurements; phase 9's rows carry those of phase 2's cases at
+        # the ranks' own shapes (FLASH_CASES), their launches summed over
+        # the ranks
         k = kernels[{"paged_decode_speculative": "paged_decode"}.get(
-            name, name.removesuffix("_moe"))]
+            name, name.split("_moe")[0])]
         rows.append({"name": name, "route": "cuda",
                      "source": CSRC.format(source), "replaces": replaces,
                      "launches": launches, "max_abs_err": k["max_abs_err"],
@@ -2093,6 +2688,7 @@ def main():
     print(json.dumps({"kernels": rows}))
     for key, stats in (("serving", serve), ("training", training),
                        ("moe_serving", moe_serve), ("moe_training", moe_train),
+                       ("multiprocess", multi),
                        ("flash_backward", kernels["backward"])):
         print(json.dumps({key: {k: (round(v, 6) if isinstance(v, float)
                                     else v) for k, v in stats.items()}}))

@@ -1,4 +1,4 @@
-"""PyTorch + CUDA port of the JAX workload in ``k8s_operator_libs_tpu``.
+"""PyTorch + CUDA port of the JAX workload beside it in this repository.
 
 The JAX package is the reference and stays as it is; this package mirrors
 its layout (``models/``, ``ops/``, ``parallel/``, ``data/``, ``train/``,
@@ -12,7 +12,10 @@ and the checkpointing trainer, with flash attention forward and backward
 in CUDA C++ (``csrc/flash_attention.cu``). Slice 6 completes the serving
 replica: int8 weights, speculative decoding with the int8 self-draft,
 and the reference server's HTTP surface (SSE streaming, live migration
-by ``/export`` and ``/adopt``, request tracing).
+by ``/export`` and ``/adopt``, request tracing). Slice 7 adds the MoE
+family, the goodput ledger and asynchronous checkpoints; slice 8 training
+over a process group's ranks: FSDP (ZeRO-3) and sequence parallelism
+(ring attention, Ulysses) over ``torch.distributed`` (``parallel/``).
 
 The package imports ``torch``, ``numpy`` and the standard library only.
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU,

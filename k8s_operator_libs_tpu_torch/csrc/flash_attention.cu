@@ -2,7 +2,7 @@
 // (sm_90a). bf16 and fp16 run on the tensor cores (flash_attention_tc.cu);
 // this file takes fp32 only.
 //
-// Replaces the TPU kernels in k8s_operator_libs_tpu/ops/attention.py:
+// Replaces the TPU kernels in the JAX package's ops/attention.py:
 //   flash_fwd_kernel     <- _flash_kernel          (:236, pallas_call :406, A-K1)
 //   flash_bwd_dq_kernel  <- _flash_bwd_dq_kernel   (:439, pallas_call :651, A-K2)
 //   flash_bwd_dkv_kernel <- _flash_bwd_dkv_kernel  (:519, pallas_call :663, A-K3)

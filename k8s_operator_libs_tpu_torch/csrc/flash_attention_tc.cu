@@ -1,7 +1,7 @@
 // Flash attention on Hopper's tensor cores (sm_90a): the forward (A-K1) and
 // the backward, dq (A-K2) and dk/dv (A-K3), for bf16 and fp16.
 //
-// Replaces the TPU kernels in k8s_operator_libs_tpu/ops/attention.py:
+// Replaces the TPU kernels in the JAX package's ops/attention.py:
 //   flash_fwd_tc_kernel     <- _flash_kernel          (:236, pallas_call :406, A-K1)
 //   flash_bwd_dq_tc_kernel  <- _flash_bwd_dq_kernel   (:439, pallas_call :651, A-K2)
 //   flash_bwd_dkv_tc_kernel <- _flash_bwd_dkv_kernel  (:519, pallas_call :663, A-K3)

@@ -1,7 +1,7 @@
 // Paged single-token decode attention for Hopper (sm_90a), split over the
 // sequence (flash-decoding).
 //
-// Replaces the TPU kernels in k8s_operator_libs_tpu/ops/attention.py:
+// Replaces the TPU kernels in the JAX package's ops/attention.py:
 //   paged_decode_kernel   (:734, A-K4) — pools in the model dtype
 //   paged_decode_kernel_q (:828, A-K5) — int8 pools with fp32 row scales
 // dispatched there by models/paged.py:_attend_paged_kernel.

@@ -1,7 +1,7 @@
 """Token dataset: batched windows over a token file, with a prefetch
 thread.
 
-Port of ``k8s_operator_libs_tpu/data/loader.py`` (numpy path only: the
+Port of the JAX package's ``data/loader.py`` (numpy path only: the
 reference's native gather, ``csrc/tokenloader.cpp``, is a host library
 that a later slice ports). The file format and the sampling are the
 reference's, so the same file, seed and step give the same batch as the

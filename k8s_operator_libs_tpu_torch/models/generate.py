@@ -1,6 +1,6 @@
 """Autoregressive decoding over a contiguous KV cache.
 
-Port of ``k8s_operator_libs_tpu/models/generate.py`` (single device, no
+Port of the JAX package's ``models/generate.py`` (single device, no
 tensor parallelism). The contiguous :func:`generate` is the plain oracle
 the paged paths are held against. ``lax.scan`` becomes a Python loop;
 sampling draws from an explicit ``torch.Generator``, which cannot match

@@ -1,6 +1,6 @@
 """Llama-3-style decoder: config, parameters and the shared block ops.
 
-Port of ``k8s_operator_libs_tpu/models/llama.py``. Parameters are a plain
+Port of the JAX package's ``models/llama.py``. Parameters are a plain
 dict of tensors with the reference layout: per-layer weights STACKED on
 axis 0 (``[n_layers, ...]``), matrices stored ``[in, out]`` and applied as
 ``x @ W``, norm weights in fp32, everything else in ``cfg.dtype``. That is
@@ -15,7 +15,9 @@ recomputed in the backward except the flash call's ``out`` and ``lse``,
 which is what the reference's ``remat_block`` policy saves: the parts
 before and after attention run under ``torch.utils.checkpoint`` and the
 attention Function between them does not, so the backward never re-runs
-the forward kernel.
+the forward kernel. The ``gather`` hook turns each leaf as a rank holds
+it into the whole leaf where it is used (FSDP's all-gather, inside the
+checkpointed regions); by default the identity.
 """
 
 from __future__ import annotations
@@ -179,12 +181,19 @@ def param_count(params: Params) -> int:
 
 # ---------------------------------------------------------------- training
 
+def no_gather(name: str, w: torch.Tensor) -> torch.Tensor:
+    """The default ``gather`` hook: every rank holds the whole leaf."""
+    return w
+
+
 def _qkv(cfg: LlamaConfig, x: torch.Tensor, attn_norm, wq, wk, wv,
-         positions: torch.Tensor):
+         positions: torch.Tensor, gather: Callable = no_gather):
     """The block before attention: RMSNorm, the Q/K/V projections, RoPE.
     K/V stay at KV heads: the flash kernels take GQA natively."""
     B, T, _ = x.shape
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    attn_norm, wq, wk, wv = (gather(n, w) for n, w in (
+        ("attn_norm", attn_norm), ("wq", wq), ("wk", wk), ("wv", wv)))
     h = rms_norm(x, attn_norm)
     q = rope((h @ wq).reshape(B, T, H, Dh), positions, cfg.rope_theta)
     k = rope((h @ wk).reshape(B, T, KV, Dh), positions, cfg.rope_theta)
@@ -193,27 +202,34 @@ def _qkv(cfg: LlamaConfig, x: torch.Tensor, attn_norm, wq, wk, wv,
 
 
 def _post(x: torch.Tensor, attn: torch.Tensor, wo, mlp_norm, w_gate, w_up,
-          w_down) -> torch.Tensor:
+          w_down, gather: Callable = no_gather) -> torch.Tensor:
     """The block after attention: O-projection and residual, then the
     SwiGLU MLP and its residual."""
     B, T, _ = x.shape
+    wo, mlp_norm, w_gate, w_up, w_down = (gather(n, w) for n, w in (
+        ("wo", wo), ("mlp_norm", mlp_norm), ("w_gate", w_gate),
+        ("w_up", w_up), ("w_down", w_down)))
     x = x + attn.reshape(B, T, -1) @ wo
     return x + swiglu(rms_norm(x, mlp_norm),
                       {"w_gate": w_gate, "w_up": w_up, "w_down": w_down})
 
 
 def _block(cfg: LlamaConfig, attn_fn: Callable, x: torch.Tensor,
-           layer: Params, positions: torch.Tensor) -> torch.Tensor:
-    """One decoder block (pre-norm attention + SwiGLU MLP)."""
+           layer: Params, positions: torch.Tensor,
+           gather: Callable = no_gather) -> torch.Tensor:
+    """One decoder block (pre-norm attention + SwiGLU MLP). ``gather``
+    runs inside the checkpointed regions, so under remat autograd keeps
+    the layer's shards, not what the hook gathered from them."""
     pre = (x, layer["attn_norm"], layer["wq"], layer["wk"], layer["wv"])
     post = (layer["wo"], layer["mlp_norm"], layer["w_gate"], layer["w_up"],
             layer["w_down"])
     if not cfg.remat:
-        q, k, v = _qkv(cfg, *pre, positions)
-        return _post(x, attn_fn(q, k, v), *post)
-    q, k, v = checkpoint(_qkv, cfg, *pre, positions, use_reentrant=False)
+        q, k, v = _qkv(cfg, *pre, positions, gather)
+        return _post(x, attn_fn(q, k, v), *post, gather)
+    q, k, v = checkpoint(_qkv, cfg, *pre, positions, gather,
+                         use_reentrant=False)
     attn = attn_fn(q, k, v)
-    return checkpoint(_post, x, attn, *post, use_reentrant=False)
+    return checkpoint(_post, x, attn, *post, gather, use_reentrant=False)
 
 
 def _default_attn(q, k, v):
@@ -222,16 +238,21 @@ def _default_attn(q, k, v):
 
 def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
             positions: Optional[torch.Tensor] = None,
-            attn_fn: Optional[Callable] = None) -> torch.Tensor:
+            attn_fn: Optional[Callable] = None,
+            gather: Callable = no_gather) -> torch.Tensor:
     """tokens [B, T] -> logits [B, T, vocab] in fp32, differentiable.
     ``attn_fn(q, k, v)`` overrides the attention primitive (default the
     flash kernels; ``ops.attention.reference_attention`` is the plain
-    one); ``positions`` [B, T] overrides the absolute positions."""
+    one); ``positions`` [B, T] overrides the absolute positions.
+    ``gather(name, w)`` turns each leaf as held (one layer's slice of a
+    stacked leaf) into the whole leaf where it is used: FSDP's all-gather
+    (``parallel/fsdp.py``), the identity by default."""
     B, T = tokens.shape
     if positions is None:
         positions = torch.arange(T, device=tokens.device).expand(B, T)
     # F.embedding: its backward sums repeated tokens in a fixed order
-    x = torch.nn.functional.embedding(tokens.long(), params["embed"])
+    x = torch.nn.functional.embedding(tokens.long(),
+                                      gather("embed", params["embed"]))
     blocks = params["blocks"]
     names = list(blocks)
     # one unbind per leaf: its backward stacks the per-layer gradients
@@ -240,6 +261,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     per_layer = zip(*(blocks[n].unbind(0) for n in names))
     fn = attn_fn or _default_attn
     for weights in per_layer:
-        x = _block(cfg, fn, x, dict(zip(names, weights)), positions)
-    x = rms_norm(x, params["final_norm"])
-    return (x @ params["lm_head"]).float()
+        x = _block(cfg, fn, x, dict(zip(names, weights)), positions,
+                   gather)
+    x = rms_norm(x, gather("final_norm", params["final_norm"]))
+    return (x @ gather("lm_head", params["lm_head"])).float()

@@ -1,6 +1,6 @@
 """Mixture-of-Experts Llama variant (Mixtral-style): the second model family.
 
-Port of ``k8s_operator_libs_tpu/models/moe.py`` on one device: the dense
+Port of the JAX package's ``models/moe.py`` on one device: the dense
 SwiGLU MLP becomes a top-k routed expert layer. Expert weights are
 STACKED ``[L, E, ...]`` beside the other per-layer weights; the router is
 fp32 ``[L, D, E]``. :func:`moe_ffn` is the reference's dense "dropless"

@@ -1,6 +1,6 @@
 """Paged (block) KV cache for the decode path.
 
-Port of ``k8s_operator_libs_tpu/models/paged.py``. One shared block pool
+Port of the JAX package's ``models/paged.py``. One shared block pool
 per layer ``[L, NB, BS, KV, Dh]``, a block table ``[B, MB]`` int32 mapping
 each sequence's logical blocks to pool blocks, and per-sequence lengths
 ``[B]`` int32. Block planning is a host-side numpy plan, identical to the

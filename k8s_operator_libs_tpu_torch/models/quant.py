@@ -1,6 +1,6 @@
 """Weight-only int8 quantization for the decode path.
 
-Port of ``k8s_operator_libs_tpu/models/quant.py``. For each 2-D weight
+Port of the JAX package's ``models/quant.py``. For each 2-D weight
 slab ``w[in, out]`` (stacked ``[L, in, out]`` for the blocks) the scale is
 ``s[out] = max(|w[:, out]|) / 127`` and ``q = round(w / s)`` in int8.
 Per-output-channel scales commute with the contraction, so the dequant is

@@ -1,6 +1,6 @@
 """Continuous batching over the paged KV cache.
 
-Port of ``ContinuousBatcher`` from ``k8s_operator_libs_tpu/models/serve.py``,
+Port of ``ContinuousBatcher`` from the JAX package's ``models/serve.py``,
 speculative draft mode included. A fixed fleet of
 ``max_slots`` decode slots shares one block pool; per-slot table rows and
 lengths keep slots independent, so admitting or retiring one request never

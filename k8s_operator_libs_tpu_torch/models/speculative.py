@@ -1,6 +1,6 @@
 """Speculative decoding over the contiguous cache.
 
-Port of ``k8s_operator_libs_tpu/models/speculative.py``. A draft model
+Port of the JAX package's ``models/speculative.py``. A draft model
 proposes ``k`` tokens one at a time; the target verifies all of them in
 one (k+1)-token forward, and a rejection is a rewind of the cache length.
 

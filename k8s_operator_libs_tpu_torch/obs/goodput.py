@@ -1,6 +1,6 @@
 """Workload goodput ledger: the training job's own downtime bookkeeping.
 
-A copy of ``k8s_operator_libs_tpu/obs/goodput.py`` with the same record
+A copy of the JAX package's ``obs/goodput.py`` with the same record
 format, so either package's :func:`summarize` reads the other's ledger.
 Every second of a job's wall time is either **goodput** (productive
 train steps) or **badput**, segmented by cause:

@@ -2,9 +2,9 @@
 
 A copy, cut to what the batcher, the server's ``/metrics`` and the
 trainer's goodput ledger call, of
-``_Histogram``/``MetricsHub`` from ``k8s_operator_libs_tpu/obs/metrics.py``
+``_Histogram``/``MetricsHub`` from the JAX package's ``obs/metrics.py``
 and of the gauge renderer ``render_prometheus_multi`` from
-``k8s_operator_libs_tpu/upgrade/metrics.py``. Metric names, HELP texts and
+the JAX package's ``upgrade/metrics.py``. Metric names, HELP texts and
 the text format are the same, so a scrape of the port reads like a scrape
 of the JAX server.
 """

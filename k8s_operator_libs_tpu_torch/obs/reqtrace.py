@@ -1,7 +1,7 @@
 """Request flight recorder: per-request stage timelines and trace context.
 
 A copy of what a serving replica uses from
-``k8s_operator_libs_tpu/obs/reqtrace.py``, with the same wire format and
+the JAX package's ``obs/reqtrace.py``, with the same wire format and
 stage catalog, so one trace id spans a JAX replica and a port replica
 alike:
 

@@ -1,6 +1,6 @@
 """Clock-injected span primitives with a pluggable structured sink.
 
-A copy of ``k8s_operator_libs_tpu/obs/trace.py`` with the same record
+A copy of the JAX package's ``obs/trace.py`` with the same record
 format, so a ``--trace-log`` written by the port reads like one written
 by the JAX server. Span records are emitted on close, one JSON object per
 line::

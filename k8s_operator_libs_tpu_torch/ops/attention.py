@@ -1,7 +1,7 @@
 """Causal GQA flash attention for training: the CUDA kernels, their plain
 PyTorch versions, the dispatch between them and the autograd Function.
 
-Port of ``k8s_operator_libs_tpu/ops/attention.py:1-720, 914-941``: the
+Port of the JAX package's ``ops/attention.py:1-720, 914-941``: the
 flash forward (A-K1, ``_flash_kernel``), the dq backward (A-K2,
 ``_flash_bwd_dq_kernel``) and the dk/dv backward (A-K3,
 ``_flash_bwd_dkv_kernel``), joined by the custom VJP of
@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -40,9 +40,11 @@ LOG2E = 1.4426950408889634
 NEG_INF = -1e30
 
 # launches per kernel since the last reset (A-K1, A-K2, A-K3 in PERF.md),
-# the same launches by route (see kernel_route), and the plain versions'
-# calls that stand in for the kernels on the CPU
+# those of them without the causal mask (a ring's earlier key chunks), the
+# same launches by route (see kernel_route), and the plain versions' calls
+# that stand in for the kernels on the CPU
 LAUNCHES = {"flash_forward": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+FULL_LAUNCHES = dict(LAUNCHES)
 ROUTE_LAUNCHES = {"wgmma": 0, "fma": 0}
 PLAIN_CALLS = {"flash_forward": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
@@ -59,7 +61,7 @@ _ROUTE_SOURCES = {"fma": ("flash_attention", ""),
 
 
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, ROUTE_LAUNCHES, PLAIN_CALLS):
+    for counts in (LAUNCHES, FULL_LAUNCHES, ROUTE_LAUNCHES, PLAIN_CALLS):
         for name in counts:
             counts[name] = 0
 
@@ -157,14 +159,25 @@ def attention_delta(out: torch.Tensor, dout: torch.Tensor,
     return d.permute(0, 2, 1).reshape(B * KV, H // KV, T).contiguous()
 
 
+def _delta_minus_dlse(delta: torch.Tensor,
+                      dlse: Optional[torch.Tensor]) -> torch.Tensor:
+    """The delta the backward kernels take when lse has a cotangent too:
+    dS = P (dP - delta) + P dlse = P (dP - (delta - dlse))."""
+    if dlse is None:
+        return delta
+    return (delta - dlse.reshape(delta.shape).float()).contiguous()
+
+
 def flash_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          out: torch.Tensor, lse: torch.Tensor,
-                         dout: torch.Tensor, causal: bool = True
+                         dout: torch.Tensor, causal: bool = True,
+                         dlse: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """A-K2 and A-K3 in plain PyTorch: recompute P = exp(S - lse) from the
-    forward's logsumexp, dS = P (dP - delta), then dq = scale dS K,
-    dk = scale dS^T q summed over the G heads of each group, dv = P^T dO.
-    fp32 throughout; outputs in the inputs' dtypes."""
+    forward's logsumexp, dS = P (dP - (delta - dlse)), then dq = scale dS
+    K, dk = scale dS^T q summed over the G heads of each group, dv = P^T
+    dO. ``dlse`` [B * KV, G, T] is the cotangent of lse (d lse / d S = P),
+    None for zero. fp32 throughout; outputs in the inputs' dtypes."""
     B, T, H, KV, G, Dh = _shape(q, k)
     scale = 1.0 / math.sqrt(Dh)
     qg = _grouped(q, KV)                                     # [B,KV,G,T,Dh]
@@ -174,8 +187,8 @@ def flash_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = (qg @ kf.transpose(-1, -2)) * scale                  # [B,KV,G,T,T]
     p = torch.exp(s - lse.reshape(B, KV, G, T, 1))
     p = torch.where(_visible(T, causal, q.device), p, 0.0)
-    delta = attention_delta(out, dout, KV).reshape(B, KV, G, T, 1)
-    ds = p * ((dog @ vf.transpose(-1, -2)) - delta)
+    delta = _delta_minus_dlse(attention_delta(out, dout, KV), dlse)
+    ds = p * ((dog @ vf.transpose(-1, -2)) - delta.reshape(B, KV, G, T, 1))
     dq = (ds @ kf) * scale                                   # [B,KV,G,T,Dh]
     dk = (ds.transpose(-1, -2) @ qg).sum(dim=2) * scale      # [B,KV,T,Dh]
     dv = (p.transpose(-1, -2) @ dog).sum(dim=2)
@@ -243,6 +256,7 @@ def flash_forward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 _q_multiplier(q.dtype, Dh), stream)
     _raise_on(rc, "flash_forward")
     LAUNCHES["flash_forward"] += 1
+    FULL_LAUNCHES["flash_forward"] += not causal
     ROUTE_LAUNCHES[route] += 1
     return out, lse
 
@@ -273,6 +287,7 @@ def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal=True):
                 _q_multiplier(q.dtype, Dh), 1.0 / math.sqrt(Dh), stream)
     _raise_on(rc, "flash_bwd_dq")
     LAUNCHES["flash_bwd_dq"] += 1
+    FULL_LAUNCHES["flash_bwd_dq"] += not causal
     ROUTE_LAUNCHES[route] += 1
     return dq
 
@@ -295,6 +310,7 @@ def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, causal=True):
                 _q_multiplier(q.dtype, Dh), 1.0 / math.sqrt(Dh), stream)
     _raise_on(rc, "flash_bwd_dkv")
     LAUNCHES["flash_bwd_dkv"] += 1
+    FULL_LAUNCHES["flash_bwd_dkv"] += not causal
     ROUTE_LAUNCHES[route] += 1
     return dk, dv
 
@@ -311,22 +327,25 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_forward_cuda(q, k, v, causal)
 
 
-def flash_backward(q, k, v, out, lse, dout, causal=True):
-    """(dq, dk, dv): delta = rowsum(dO * O) in fp32, then A-K2 and A-K3
+def flash_backward(q, k, v, out, lse, dout, causal=True, dlse=None):
+    """(dq, dk, dv): delta = rowsum(dO * O) in fp32, less ``dlse`` (the
+    cotangent of lse, [B * KV, G, T], None for zero), then A-K2 and A-K3
     for CUDA tensors; the plain version for CPU tensors."""
     if q.device.type == "cpu":
         PLAIN_CALLS["flash_bwd_dq"] += 1
         PLAIN_CALLS["flash_bwd_dkv"] += 1
-        return flash_backward_plain(q, k, v, out, lse, dout, causal)
-    delta = attention_delta(out, dout, k.shape[2])
+        return flash_backward_plain(q, k, v, out, lse, dout, causal, dlse)
+    delta = _delta_minus_dlse(attention_delta(out, dout, k.shape[2]), dlse)
     dq = flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal)
     dk, dv = flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, causal)
     return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The custom VJP of the reference's ``_flash_attention``: the forward
-    saves (q, k, v, out, lse), the backward recomputes P from lse."""
+    """The custom VJP of the reference's ``_flash_attention``, in both
+    outputs: the forward saves (q, k, v, out, lse), the backward recomputes
+    P from lse and folds lse's cotangent into delta. A consumer that uses
+    only ``out`` gives a zero ``dlse`` (None), the plain delta."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
@@ -334,14 +353,18 @@ class _FlashAttention(torch.autograd.Function):
         out, lse = flash_forward(q, k, v, causal)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
-        ctx.mark_non_differentiable(lse)
+        # an unused output's cotangent arrives as None, not zeros: the
+        # plain training path pays no delta - 0 pass
+        ctx.set_materialize_grads(False)
         return out, lse
 
     @staticmethod
-    def backward(ctx, dout, _dlse):
+    def backward(ctx, dout, dlse):
         q, k, v, out, lse = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros_like(out)
         dq, dk, dv = flash_backward(q, k, v, out, lse, dout.contiguous(),
-                                    ctx.causal)
+                                    ctx.causal, dlse)
         return dq, dk, dv, None
 
 
@@ -357,7 +380,8 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, causal: bool = True
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out, lse [B, H, T, 1]): the pair a consumer needs to merge partial
-    attentions over key chunks. Differentiable in ``out`` only."""
+    attentions over key chunks (ring attention). Differentiable in both,
+    as the reference's is."""
     B, T, H, _ = q.shape
     out, lse = _FlashAttention.apply(q, k, v, causal)
     return out, lse.reshape(B, H, T, 1)

@@ -1,7 +1,7 @@
 """Single-token paged decode attention: the CUDA kernels, their plain
 PyTorch versions, and the dispatch between them.
 
-Port of the paged half of ``k8s_operator_libs_tpu/ops/attention.py``
+Port of the paged half of the JAX package's ``ops/attention.py``
 (``paged_decode_kernel`` :734 and ``paged_decode_kernel_q`` :828, launched
 by ``models/paged.py:_attend_paged_kernel``). The kernels live in
 ``csrc/paged_decode.cu`` (CUDA C++ for ``sm_90a``), built at first use by

@@ -1,6 +1,6 @@
 """The MoE family's training loss on one device.
 
-Port of ``moe_reference_loss`` from ``k8s_operator_libs_tpu/parallel/
+Port of ``moe_reference_loss`` from the JAX package's ``parallel/
 expert.py`` (:139-149): the dense-dispatch forward's mean next-token NLL
 plus ``router_aux_coef`` times the summed load-balance aux term. Expert
 parallelism (``make_ep_loss``, ``make_ep_a2a_loss``) shards the experts

@@ -1,13 +1,29 @@
-"""The training step on one device: causal-LM loss, gradients, clipped
-AdamW.
+"""The training step: causal-LM loss, gradients, clipped AdamW, on one
+device or sharded over a mesh's ``fsdp`` axis (ZeRO-3).
 
-Port of ``k8s_operator_libs_tpu/parallel/fsdp.py`` for a SINGLE device:
-meshes and sharding belong to the multi-GPU slice. The step is eager
+Port of the JAX package's ``parallel/fsdp.py``. The step is eager
 PyTorch (``jax.jit`` has no counterpart the port needs): autograd through
 the loss, whose attention runs in the flash kernels on the card.
 :func:`make_train_step_from_loss` wraps any ``loss(params, tokens)`` (the
-MoE family's :func:`..parallel.expert.moe_reference_loss`);
-:func:`make_train_step` is it around the Llama :func:`causal_lm_loss`.
+MoE family's :func:`..parallel.expert.moe_reference_loss`, the
+sequence-parallel loss of :mod:`.long_context`);
+:func:`make_train_step` is it around the Llama causal-LM loss
+(:func:`fsdp_loss`; on one rank it computes :func:`causal_lm_loss`, which
+stays for references that pass a plain attention).
+
+With a mesh (the reference's ``make_train_step(cfg, mesh=...)``,
+``_state_shardings`` :71, ``init_train_state`` :102, :202-238), what XLA
+derives from the sharding annotations is written out: each rank keeps its
+slice of every parameter and of both moments (:func:`..mesh.param_specs`:
+the norms are replicated); a layer's weights are all-gathered where the
+layer uses them, inside its checkpointed regions (the ``gather`` hook of
+:func:`..models.llama.forward`), so under remat autograd holds shards
+only; the all-gather's backward reduce-scatters the gradients, and a
+replicated leaf's gradient is summed over the group. Each rank takes its
+rows of the global batch and backpropagates its mean loss over n, so the
+sum is the gradient of the global mean loss. The global norm sums the
+shards' squares over the group (a replicated leaf counts once) before
+the clip and the ``grad_norm`` metric. The optimizer runs on the shards.
 
 :func:`default_optimizer` is written out by hand to follow optax's
 ``chain(clip_by_global_norm(1.0), adamw(lr, b1=0.9, b2=0.95,
@@ -29,6 +45,8 @@ import torch
 from ..models.llama import (LlamaConfig, Params, forward, init_params,
                             param_leaves)
 from ..utils.device import DeviceLike
+from . import comm
+from .mesh import Mesh, local_mesh, param_specs, shard, shard_dim
 
 
 @dataclasses.dataclass
@@ -63,10 +81,35 @@ def _tree_map(fn: Callable, tree: Params, *rest: Params) -> Params:
     return fn(tree, *rest)
 
 
+def _squares(leaves) -> torch.Tensor:
+    return sum(torch.sum(g.float() * g.float()) for g in leaves)
+
+
 def global_norm(tree: Params) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in fp32."""
-    return torch.sqrt(sum(torch.sum(g.float() * g.float())
-                          for g in param_leaves(tree)))
+    return torch.sqrt(_squares(param_leaves(tree)))
+
+
+def _split_leaves(tree: Params, specs, axis: str):
+    """(leaves split over ``axis``, leaves every rank holds whole)."""
+    split, whole = [], []
+    _tree_map(lambda g, spec: (whole if shard_dim(spec, axis) is None
+                               else split).append(g), tree, specs)
+    return split, whole
+
+
+def sharded_global_norm(mesh: Mesh, specs) -> Callable:
+    """``grad_norm(grads)`` of a tree sharded by ``specs`` over the mesh's
+    fsdp axis: the shards' squares summed over the group, plus the
+    replicated leaves' once."""
+    group = mesh.groups["fsdp"]
+
+    def grad_norm(grads: Params) -> torch.Tensor:
+        split, whole = _split_leaves(grads, specs, "fsdp")
+        total = comm.all_reduce_(_squares(split), group)
+        return torch.sqrt(total + _squares(whole))
+
+    return grad_norm
 
 
 class ClippedAdamW:
@@ -127,12 +170,39 @@ def causal_lm_loss(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     return -torch.gather(logp, -1, targets[..., None])[..., 0].mean()
 
 
+def full_shape(x: torch.Tensor, spec, mesh: Mesh) -> Tuple[int, ...]:
+    """The whole leaf's shape from this rank's slice of it."""
+    shape = list(x.shape)
+    d = shard_dim(spec, "fsdp")
+    if d is not None:
+        shape[d] *= mesh.size("fsdp")
+    return tuple(shape)
+
+
+@torch.no_grad()
+def full_leaf(x: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
+    """The whole leaf, all-gathered from the ranks' slices (every rank of
+    the fsdp group must call it)."""
+    d = shard_dim(spec, "fsdp")
+    if d is None:
+        return x
+    return comm.all_gather(x, mesh.groups["fsdp"], d)
+
+
 def init_train_state(cfg: LlamaConfig, seed: int = 0,
                      optimizer: Optional[ClippedAdamW] = None,
-                     device: DeviceLike = "cuda") -> TrainState:
-    """Seeded parameters and zero moments on ``device``, step 0."""
+                     device: DeviceLike = "cuda",
+                     mesh: Optional[Mesh] = None) -> TrainState:
+    """Seeded parameters and zero moments on ``device``, step 0. With a
+    mesh, each rank keeps its fsdp slices of the one-rank
+    ``init_params(cfg, seed)`` (whole for a moment, one tree of
+    parameters) and makes its moments from the slices: no rank holds the
+    whole moments."""
     optimizer = optimizer or default_optimizer()
     params = init_params(cfg, seed=seed, device=device)
+    if mesh is not None:
+        params = _tree_map(lambda p, s: shard(p, s, mesh), params,
+                           param_specs(params))
     return TrainState(params=params, opt_state=optimizer.init(params),
                       step=0)
 
@@ -149,10 +219,13 @@ def value_and_grad(loss_fn: Callable, params: Params, tokens: torch.Tensor
 
 def make_train_step_from_loss(loss_fn: Callable,
                               optimizer: Optional[ClippedAdamW] = None,
-                              grad_accum: int = 1) -> Callable:
+                              grad_accum: int = 1,
+                              grad_norm: Callable = global_norm
+                              ) -> Callable:
     """``train_step(state, tokens) -> (state, metrics)`` around any
     ``loss_fn(params, tokens)``, with metrics ``{loss, grad_norm, step}``
-    (``grad_norm`` before clipping).
+    (``grad_norm(grads)`` before clipping: :func:`sharded_global_norm`
+    for a sharded tree).
 
     ``grad_accum=A`` splits the batch's leading dim into A equal
     microbatches run one after another: activation memory is one
@@ -183,7 +256,7 @@ def make_train_step_from_loss(loss_fn: Callable,
     def train_step(state: TrainState, tokens: torch.Tensor
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         loss, grads = compute_grads(state.params, tokens)
-        g_norm = global_norm(grads)
+        g_norm = grad_norm(grads)
         opt_state = optimizer.update(grads, state.opt_state, state.params,
                                      g_norm)
         step = state.step + 1
@@ -194,11 +267,74 @@ def make_train_step_from_loss(loss_fn: Callable,
     return train_step
 
 
+def fsdp_gather(mesh: Mesh, specs) -> Callable:
+    """The ``gather`` hook of :func:`..models.llama.forward` for a tree
+    sharded by ``specs`` over the fsdp axis: a split leaf is all-gathered
+    (its gradient reduce-scattered), a replicated one passes through (its
+    gradient summed over the group). A stacked leaf arrives one layer at a
+    time, its layer dim gone."""
+    group = mesh.groups["fsdp"]
+    dims = {}
+    for name, spec in specs.items():
+        if isinstance(spec, dict):
+            dims.update({n: (None if shard_dim(sp, "fsdp") is None
+                             else shard_dim(sp, "fsdp") - 1)
+                         for n, sp in spec.items()})
+        else:
+            dims[name] = shard_dim(spec, "fsdp")
+
+    def gather(name: str, w: torch.Tensor) -> torch.Tensor:
+        d = dims[name]
+        if d is None:
+            return comm.replicate(w, group)
+        return comm.all_gather(w, group, d)
+
+    return gather
+
+
+def _check_fsdp_mesh(mesh: Mesh) -> None:
+    others = {a: n for a, n in mesh.shape.items() if a != "fsdp" and n > 1}
+    if others:
+        raise ValueError(f"the FSDP step shards over the fsdp axis only; "
+                         f"mesh axes {others} have no counterpart yet")
+
+
+def fsdp_loss(cfg: LlamaConfig, mesh: Mesh, specs) -> Callable:
+    """``loss(shards, tokens [B, T + 1])`` of the global batch: this rank
+    runs its B/n rows on the gathered weights; the loss is the mean over
+    the whole batch, on every rank. Backpropagating it gives each rank
+    its rows' share, which the all-gathers' backward sums."""
+    _check_fsdp_mesh(mesh)
+    n, r = mesh.size("fsdp"), mesh.coords["fsdp"]
+    group, gather = mesh.groups["fsdp"], fsdp_gather(mesh, specs)
+
+    def loss(params, tokens):
+        B = tokens.shape[0]
+        if B % n:
+            raise ValueError(f"batch {B} not divisible by the {n}-way fsdp "
+                             f"axis")
+        rows = tokens[r * (B // n):(r + 1) * (B // n)]
+        logits = forward(params, rows[:, :-1], cfg, gather=gather)
+        targets = rows[:, 1:].long()
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+        return comm.psum(nll.mean(), group) / n
+
+    return loss
+
+
 def make_train_step(cfg: LlamaConfig,
                     optimizer: Optional[ClippedAdamW] = None,
-                    grad_accum: int = 1) -> Callable:
-    """:func:`make_train_step_from_loss` around the Llama causal-LM
-    loss."""
+                    grad_accum: int = 1,
+                    mesh: Optional[Mesh] = None) -> Callable:
+    """:func:`make_train_step_from_loss` around the Llama causal-LM loss,
+    the FSDP step over ``mesh``'s fsdp axis (the state from
+    :func:`init_train_state` with the same mesh, tokens the global
+    batch). Without a mesh, one rank's: every collective is the identity,
+    and the step is the one-device step."""
+    if mesh is None:
+        mesh = local_mesh()
+    specs = param_specs()
     return make_train_step_from_loss(
-        lambda params, tokens: causal_lm_loss(params, tokens, cfg),
-        optimizer, grad_accum)
+        fsdp_loss(cfg, mesh, specs), optimizer, grad_accum,
+        sharded_global_norm(mesh, specs))

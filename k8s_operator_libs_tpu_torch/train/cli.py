@@ -1,16 +1,30 @@
-"""Training CLI of the PyTorch port: a Llama or MoE model on one GPU, with
-checkpoint, resume, a drain on SIGTERM, a goodput ledger and a profiler.
+"""Training CLI of the PyTorch port: a Llama or MoE model on one GPU or
+over the ranks of a process group, with checkpoint, resume, a drain on
+SIGTERM, a goodput ledger and a profiler.
 
-Port of ``cmd/train.py`` for ``--parallel none``: TokenDataset -> the
-single-device train step (flash attention kernels on the card) ->
-CheckpointingTrainer. In a pod, kubelet's SIGTERM during a drain triggers
-a synchronous checkpoint and a clean exit; the same command then resumes
-from the latest checkpoint and continues the data stream where it left.
-Periodic checkpoints are written asynchronously. The goodput ledger
-(``--goodput-log``, by default ``goodput.jsonl`` beside the checkpoints,
-continued by a resumed job) books step windows and badput phases; at the
-end the CLI prints its summary and, with ``--metrics-textfile``, writes
-the ``tpu_workload`` exposition.
+Port of ``cmd/train.py`` for ``--parallel none|fsdp|sp``: TokenDataset ->
+the train step (flash attention kernels on the card; ``build_parallel``
+wires ``--parallel`` to a mesh, step and init, as the reference's
+:24-157 does) -> CheckpointingTrainer. In a pod, kubelet's SIGTERM during
+a drain triggers a synchronous checkpoint and a clean exit; the same
+command then resumes from the latest checkpoint and continues the data
+stream where it left. Periodic checkpoints are written asynchronously.
+The goodput ledger (``--goodput-log``, by default ``goodput.jsonl`` beside
+the checkpoints, continued by a resumed job) books step windows and
+badput phases; at the end the CLI prints its summary and, with
+``--metrics-textfile``, writes the ``tpu_workload`` exposition.
+
+Ranks. Under the operator each pod is one rank: the scheduler's env
+(``parallel/distributed.py``) gives the process group. On one host,
+``torchrun --nproc-per-node N -m k8s_operator_libs_tpu_torch.train ...``
+starts N ranks (``RANK``/``WORLD_SIZE``/``MASTER_ADDR`` in the env). A
+program that already joined a process group calls :func:`main` in each
+rank. The backend follows from the ranks: NCCL on GPUs, gloo on the CPU
+and where a host starts more ranks than it has GPUs (NCCL refuses two
+ranks on one device), the collectives then going through host memory.
+Only rank 0 prints and writes the ledger. Rank 0 writes the checkpoints
+and every rank reads them on resume, so across hosts ``--ckpt`` must be
+storage they share.
 
 Example (on a machine with an NVIDIA GPU):
     python -m k8s_operator_libs_tpu_torch.train --data tokens.bin \
@@ -21,9 +35,12 @@ Example (on a machine with an NVIDIA GPU):
 from __future__ import annotations
 
 import argparse
+import os
 import signal
 from typing import Callable, Optional
 
+import torch
+import torch.distributed as dist
 from torch.profiler import (ProfilerActivity, profile,
                             tensorboard_trace_handler)
 
@@ -34,9 +51,12 @@ from ..models.moe import init_params as moe_init
 from ..obs.goodput import (GoodputLedger, publish_summary, read_ledger,
                            summarize)
 from ..obs.metrics import MetricsHub
+from ..parallel.distributed import default_backend, maybe_initialize_from_env
 from ..parallel.expert import moe_reference_loss
-from ..parallel.fsdp import (TrainState, default_optimizer,
+from ..parallel.fsdp import (TrainState, default_optimizer, init_train_state,
                              make_train_step_from_loss)
+from ..parallel.long_context import make_sp_train_step
+from ..parallel.mesh import make_mesh
 from .harness import CheckpointingTrainer
 
 MODELS = {"tiny": LlamaConfig.tiny, "small": LlamaConfig.small,
@@ -53,6 +73,57 @@ def _moe_pair(cfg, optimizer, device):
 
     return make_train_step_from_loss(moe_reference_loss(cfg),
                                      optimizer), init_fn
+
+
+def build_parallel(cfg, args, optimizer, device, n: int):
+    """(mesh, step_fn, init_fn) for ``--parallel`` over the process
+    group's ``n`` ranks; None for the trainer's defaults. One rank trains
+    on one device whatever ``--parallel`` says, as the reference does."""
+    if args.model == "moe_tiny":
+        if args.parallel != "none" and n > 1:
+            raise SystemExit(f"--model moe_tiny supports --parallel none "
+                             f"only (expert parallelism is not ported), "
+                             f"not {args.parallel} on {n} ranks")
+        step_fn, init_fn = _moe_pair(cfg, optimizer, device)
+        return None, step_fn, init_fn
+    if args.parallel == "fsdp" and n > 1:
+        if args.batch % n:
+            raise SystemExit(f"--batch {args.batch} must be divisible by "
+                             f"the {n}-way data·fsdp mesh")
+        return make_mesh(), None, None      # the trainer's FSDP defaults
+    if args.parallel == "sp" and n > 1:
+        if args.seq % n:
+            raise SystemExit(f"--seq {args.seq} must be divisible by the "
+                             f"{n}-way seq mesh")
+        if args.sp_attn == "ulysses" and cfg.n_heads % n:
+            raise SystemExit(f"--sp-attn ulysses needs head count "
+                             f"{cfg.n_heads} divisible by {n} devices "
+                             "(use ring, which has no head limit)")
+        mesh = make_mesh(seq=n, fsdp=1)
+        return (mesh,
+                make_sp_train_step(cfg, mesh, optimizer,
+                                   attn_impl=args.sp_attn),
+                lambda seed: init_train_state(cfg, seed, optimizer, device))
+    return None, None, None
+
+
+def _join_process_group(device: str) -> bool:
+    """Join the operator's or torchrun's process group when the env
+    names one and none is joined yet, over the backend that ranks on
+    ``device`` need (:func:`..parallel.distributed.default_backend`);
+    True when this call joined it."""
+    if dist.is_initialized():
+        return False
+    backend = default_backend(device)
+    if "LOCAL_RANK" in os.environ and torch.cuda.is_available():
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"])
+                              % torch.cuda.device_count())
+    if maybe_initialize_from_env(backend=backend):
+        return True
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        dist.init_process_group(backend, init_method="env://")
+        return True
+    return False
 
 
 def _start_profiler(directory: str, cuda: bool):
@@ -74,11 +145,21 @@ def main(argv=None, drain_signal: Optional[Callable[[], bool]] = None
     SIGTERM, lets an embedding program drain the job at a chosen step."""
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--data", required=True, help="token file (TOKS format)")
-    p.add_argument("--ckpt", required=True, help="checkpoint directory")
+    p.add_argument("--ckpt", required=True,
+                   help="checkpoint directory (shared storage when the "
+                        "ranks span hosts: rank 0 writes, every rank "
+                        "reads)")
     p.add_argument("--model", default="tiny",
                    choices=sorted(MODELS) + ["moe_tiny"])
-    p.add_argument("--parallel", default="none", choices=["none"],
-                   help="one device; the multi-GPU modes are not ported")
+    p.add_argument("--parallel", default="none",
+                   choices=["none", "fsdp", "sp"],
+                   help="over the process group's ranks: fsdp (ZeRO-3) or "
+                        "sp (sequence parallel); one rank trains on one "
+                        "device either way")
+    p.add_argument("--sp-attn", default="ring", choices=["ring", "ulysses"],
+                   help="sequence-parallel attention: ring (K/V chunks "
+                        "travel the ranks, any degree) or ulysses (head<->"
+                        "sequence all-to-all; ranks must divide the heads)")
     p.add_argument("--moe-dispatch", default="dense",
                    choices=["dense", "a2a"],
                    help="MoE dispatch; a2a needs expert parallelism over "
@@ -108,15 +189,27 @@ def main(argv=None, drain_signal: Optional[Callable[[], bool]] = None
         raise SystemExit("--moe-dispatch a2a requires --model moe_tiny "
                          "--parallel ep on >1 device")
 
+    joined = _join_process_group(args.device)
+    try:
+        return _train(args, drain_signal)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _train(args, drain_signal) -> int:
     optimizer = default_optimizer(args.lr)
-    step_fn = init_fn = None
     if args.model == "moe_tiny":
         cfg = MoEConfig.tiny(max_seq_len=args.seq)
-        step_fn, init_fn = _moe_pair(cfg, optimizer, args.device)
     else:
         cfg = MODELS[args.model](max_seq_len=args.seq)
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    mesh, step_fn, init_fn = build_parallel(cfg, args, optimizer,
+                                            args.device, n)
+    main_rank = not dist.is_initialized() or dist.get_rank() == 0
+    say = print if main_rank else (lambda *a, **k: None)
     ledger = hub = None
-    if args.goodput_log != "off":
+    if args.goodput_log != "off" and main_rank:
         hub = MetricsHub()
         ledger = (GoodputLedger.for_checkpoint_dir(args.ckpt, metrics=hub)
                   if args.goodput_log == "auto"
@@ -125,7 +218,8 @@ def main(argv=None, drain_signal: Optional[Callable[[], bool]] = None
                                    checkpoint_interval=args.ckpt_interval,
                                    device=args.device, step_fn=step_fn,
                                    init_fn=init_fn, ledger=ledger,
-                                   metrics_sync_every=args.goodput_sync_every)
+                                   metrics_sync_every=args.goodput_sync_every,
+                                   mesh=mesh)
     state = trainer.init_or_resume(0)
     start_step = int(state.step)
 
@@ -147,8 +241,8 @@ def main(argv=None, drain_signal: Optional[Callable[[], bool]] = None
                 args.profile, trainer.device.type == "cuda")
         last["loss"] = metrics["loss"]
         if step % 10 == 0:
-            print(f"step {step} loss {float(metrics['loss']):.4f}",
-                  flush=True)
+            say(f"step {step} loss {float(metrics['loss']):.4f}",
+                flush=True)
 
     ds = TokenDataset(args.data)
     try:
@@ -164,7 +258,7 @@ def main(argv=None, drain_signal: Optional[Callable[[], bool]] = None
         try:
             if profiler["prof"] is not None:
                 profiler["prof"].stop()
-                print(f"profiler trace written to {args.profile}")
+                say(f"profiler trace written to {args.profile}")
         finally:
             signal.signal(signal.SIGTERM, previous)
             ds.close()
@@ -182,11 +276,11 @@ def main(argv=None, drain_signal: Optional[Callable[[], bool]] = None
             with open(args.metrics_textfile, "w", encoding="utf-8") as fh:
                 fh.write(hub.render(prefix="tpu_workload"))
     if result.preempted:
-        print(f"preempted at step {int(result.state.step)}; checkpoint "
-              f"{result.last_checkpoint_step} saved — exiting for upgrade")
+        say(f"preempted at step {int(result.state.step)}; checkpoint "
+            f"{result.last_checkpoint_step} saved — exiting for upgrade")
         return 0
     loss = "" if last["loss"] is None else (
         f" (step {int(result.state.step)} loss {float(last['loss']):.7f})")
-    print(f"done: {result.steps_done} steps in {result.wall_time_s:.1f}s"
+    say(f"done: {result.steps_done} steps in {result.wall_time_s:.1f}s"
           f"{loss}")
     return 0

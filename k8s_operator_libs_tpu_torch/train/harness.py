@@ -1,6 +1,6 @@
 """Checkpoint, resume and drain-coordinated exit for the training loop.
 
-Port of ``k8s_operator_libs_tpu/train/harness.py`` (``CheckpointingTrainer``
+Port of the JAX package's ``train/harness.py`` (``CheckpointingTrainer``
 :138, ``init_or_resume`` :221, ``save`` :241, ``run`` :258) on one device.
 The contract with the operator is the reference's: when the job's node is
 drained, ``drain_signal`` turns true (SIGTERM in a pod, see
@@ -23,13 +23,23 @@ writes the file while the loop trains on. At most one save is in flight;
 the drain save (``save(state, wait=True)``) and :meth:`close` wait for
 it.
 
+Under a mesh (the reference's ``mesh=``, :139-220) every rank runs the
+loop on the same global batches. A checkpoint does not depend on the
+mesh, as orbax's does not: rank 0 writes the whole tensors in the
+one-device format (the fsdp slices all-gathered leaf by leaf, which every
+rank joins), and a restore at any world size reads them and keeps this
+rank's slices. So a run saved at 2 ranks resumes at 1, and one saved at 1
+resumes at 2. A drain is agreed: each rank's signal is all-reduced (over a
+gloo group on the host, so the loop does not wait for the device) before
+every step, and all ranks stop at the same step for the one drain save.
+Only rank 0 writes files; give only its trainer a ledger.
+
 With a :class:`~..obs.goodput.GoodputLedger` the loop records goodput
 windows and badput phases (the first step, which on the card includes the
 kernels' ``nvcc`` build; checkpoint save and restore; the drain save) and
 synchronizes with the device only every ``metrics_sync_every`` steps and
 at checkpoint, drain and end boundaries. The reference's elastic resize
-(``ReclaimNotice``/``GrowNotice``) needs more than one device and waits
-for the multi-GPU slice.
+(``ReclaimNotice``/``GrowNotice``) waits for a later slice.
 """
 
 from __future__ import annotations
@@ -44,10 +54,13 @@ from pathlib import Path
 from typing import Any, Callable, Iterator, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..models.llama import LlamaConfig
 from ..parallel.fsdp import (AdamWState, ClippedAdamW, TrainState, _tree_map,
-                             init_train_state, make_train_step)
+                             full_leaf, full_shape, init_train_state,
+                             make_train_step)
+from ..parallel.mesh import Mesh, param_specs, shard
 from ..utils.device import DeviceLike, resolve_device
 
 logger = logging.getLogger(__name__)
@@ -95,12 +108,15 @@ class CheckpointingTrainer:
                  device: DeviceLike = "cuda",
                  step_fn: Optional[Callable] = None,
                  init_fn: Optional[Callable] = None,
-                 ledger=None, metrics_sync_every: int = 10):
+                 ledger=None, metrics_sync_every: int = 10,
+                 mesh: Optional[Mesh] = None):
         """``step_fn(state, batch) -> (state, metrics)`` and
         ``init_fn(seed) -> TrainState`` default to the Llama pair of
-        :mod:`..parallel.fsdp` on ``device``; pass both to train another
-        model family (MoE) through the same checkpoint and drain
-        machinery. A batch is an int array [B, T + 1].
+        :mod:`..parallel.fsdp` on ``device`` (FSDP over ``mesh``'s fsdp
+        axis when given); pass both to train another model family (MoE) or
+        parallelism (sequence parallel) through the same checkpoint and
+        drain machinery. A batch is an int array [B, T + 1], the global
+        batch on every rank.
 
         ``ledger`` (a :class:`~..obs.goodput.GoodputLedger`, duck-typed)
         turns the run loop into a goodput recorder.
@@ -115,10 +131,25 @@ class CheckpointingTrainer:
         self.checkpoint_interval = checkpoint_interval
         self.ledger = ledger
         self.metrics_sync_every = max(1, int(metrics_sync_every))
-        self._step_fn = step_fn or make_train_step(cfg, optimizer)
+        self.mesh = mesh
+        # the fsdp rule where the state is sliced over more than one rank;
+        # None keeps every leaf whole (one rank, the sequence-parallel
+        # state, and trees other than the Llama one, as the MoE's)
+        self._specs = (param_specs() if mesh is not None
+                       and mesh.size("fsdp") > 1 else None)
+        multi = dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1
+        self._writer_rank = not multi or dist.get_rank() == 0
+        # the drain flag's all-reduce stays on the host
+        self._ctl = None
+        if multi:
+            self._ctl = (dist.group.WORLD if dist.get_backend() == "gloo"
+                         else dist.new_group(backend="gloo"))
+        self._step_fn = step_fn or make_train_step(cfg, optimizer,
+                                                   mesh=mesh)
         self._init_fn = init_fn or (
             lambda seed: init_train_state(self.cfg, seed, self.optimizer,
-                                          self.device))
+                                          self.device, mesh))
         self._writer = ThreadPoolExecutor(max_workers=1,
                                           thread_name_prefix="ckpt-writer")
         self._pending: Optional[Future] = None
@@ -156,10 +187,30 @@ class CheckpointingTrainer:
         return self._restore(latest)
 
     def _restore(self, step: int) -> TrainState:
-        d = torch.load(self.dir / str(step) / STATE_FILE,
-                       map_location=self.device, weights_only=True)
+        path = self.dir / str(step) / STATE_FILE
+        # mapped, not read: a rank pages in only the slices it keeps, so
+        # ranks sharing a host do not each hold the whole state
+        d = torch.load(path, map_location="cpu", mmap=True,
+                       weights_only=True)
+        tensors = {"params": d["params"], "mu": d["opt"]["mu"],
+                   "nu": d["opt"]["nu"]}
+
+        def keep(t, spec=None):
+            # copy=True: no leaf stays backed by the file
+            part = t if spec is None else shard(t, spec, self.mesh)
+            return part.to(self.device, copy=True)
+
+        if self._specs is None:
+            held = _tree_map(keep, tensors)
+        else:
+            held = _tree_map(keep, tensors, {"params": self._specs,
+                                             "mu": self._specs,
+                                             "nu": self._specs})
         self._sync()
-        return from_state_dict(d)
+        return from_state_dict({"step": d["step"], "params": held["params"],
+                                "opt": {"count": d["opt"]["count"],
+                                        "mu": held["mu"],
+                                        "nu": held["nu"]}})
 
     def save(self, state: TrainState, wait: bool = False) -> int:
         """Checkpoint ``state``: wait for the save in flight, snapshot the
@@ -170,14 +221,31 @@ class CheckpointingTrainer:
         d = state_dict(state)
         tensors = {"params": d["params"], "mu": d["opt"]["mu"],
                    "nu": d["opt"]["nu"]}
-        if self._host is None:
+        specs = (None if self._specs is None else
+                 {"params": self._specs, "mu": self._specs,
+                  "nu": self._specs})
+        if specs is None:
+            specs = _tree_map(lambda t: None, tensors)
+        if self._host is None and self._writer_rank:
             pinned = self.device.type == "cuda"
             self._host = _tree_map(
-                lambda t: torch.empty(t.shape, dtype=t.dtype, device="cpu",
-                                      pin_memory=pinned), tensors)
+                lambda t, spec: torch.empty(
+                    t.shape if spec is None else full_shape(t, spec,
+                                                            self.mesh),
+                    dtype=t.dtype, device="cpu", pin_memory=pinned),
+                tensors, specs)
+
+        def snapshot(src, spec, dst=None):
+            # every rank joins the gather; rank 0 copies the whole leaf
+            full = src if spec is None else full_leaf(src, spec, self.mesh)
+            if dst is not None:
+                dst.copy_(full, non_blocking=True)
+
         t0 = time.monotonic()
-        _tree_map(lambda dst, src: dst.copy_(src, non_blocking=True),
-                  self._host, tensors)
+        if not self._writer_rank:
+            _tree_map(snapshot, tensors, specs)
+            return step
+        _tree_map(snapshot, tensors, specs, self._host)
         ready = None
         if self.device.type == "cuda":
             ready = torch.cuda.Event()
@@ -220,6 +288,14 @@ class CheckpointingTrainer:
             self.wait()
         finally:
             self._writer.shutdown(wait=True)
+
+    def _agreed(self, flag: bool) -> bool:
+        """True on every rank when any rank's ``flag`` is."""
+        if self._ctl is None:
+            return flag
+        t = torch.tensor([int(flag)])
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._ctl)
+        return bool(t.item())
 
     def _sync(self) -> None:
         """The one place the loop waits for the device."""
@@ -270,7 +346,7 @@ class CheckpointingTrainer:
         win_t0 = now()       # start of the current unsynced step window
         win_steps = win_tokens = 0
         while done < num_steps:
-            if drain_signal is not None and drain_signal():
+            if self._agreed(drain_signal is not None and drain_signal()):
                 logger.info("drain signalled at step %d: checkpoint + exit",
                             start_step + done)
                 if ledger is not None and win_steps > 0:

@@ -1,4 +1,4 @@
-"""Injectable clock (a copy of ``k8s_operator_libs_tpu/utils/clock.py``).
+"""Injectable clock (a copy of the JAX package's ``utils/clock.py``).
 
 The batcher, the server and the goodput ledger take a clock so tests can
 drive time by hand; the default is the monotonic wall clock.

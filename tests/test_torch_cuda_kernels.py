@@ -390,6 +390,35 @@ def test_tensor_core_backward_at_tile_edges(cuda, dtype, causal, Dh, G, T):
                    dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_backward_with_an_lse_cotangent_matches_plain(cuda, dtype):
+    """Ring attention's merge differentiates lse: A-K2/A-K3 take delta -
+    dlse. At phase 2's training shape (B 2, T 2048, H 32, KV 8, Dh 128,
+    causal), a nonzero dlse through ``flash_backward`` against
+    ``flash_backward_plain`` with the same dlse; and dlse must move dq
+    and dk (a kernel that ignored it would pass the plain check without
+    it only if dlse did nothing)."""
+    q, k, v, do = _qkv(cuda, dtype, 2, 2048, 32, 8, 128, seed=9)
+    out, lse = fa.flash_forward(q, k, v, True)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    dlse = torch.randn(lse.shape, generator=gen, device=cuda)
+    fa.reset_launch_counts()
+    got = fa.flash_backward(q, k, v, out, lse, do, True, dlse)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {"flash_forward": 0, "flash_bwd_dq": 1,
+                           "flash_bwd_dkv": 1}
+    ref = fa.flash_backward_plain(q, k, v, out, lse, do, True, dlse)
+    without = fa.flash_backward_plain(q, k, v, out, lse, do, True)
+    rtol, atol, _ = FLASH_TOL[dtype]
+    for name, g, want, w0 in zip(("dq", "dk", "dv"), got, ref, without):
+        assert torch.isfinite(g).all(), name
+        reading = _reading(g, want, rtol, atol)
+        assert reading <= 1.0, (name, reading)
+        if name != "dv":            # dv = P^T dO takes no dlse
+            assert _reading(w0, want, rtol, atol) > 1.0, name
+    del ref, without
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_tensor_core_backward_group_of_64(cuda, dtype):
     """G = 64: each position is a whole 64-row A-K2 tile."""

@@ -397,8 +397,8 @@ def test_cli_profile_stops_when_a_step_raises(tmp_path, monkeypatch):
     written, the profiler is off again, and the exception propagates."""
     real = harness.make_train_step
 
-    def failing(cfg, optimizer=None):
-        step = real(cfg, optimizer)
+    def failing(cfg, optimizer=None, **kw):
+        step = real(cfg, optimizer, **kw)
         calls = {"n": 0}
 
         def wrapped(state, tokens):

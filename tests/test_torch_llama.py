@@ -192,11 +192,16 @@ def _imports(path: Path):
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = sorted((REPO / "k8s_operator_libs_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
+    # spawned ranks re-import their target's module: it must not pull JAX
+    files.append(REPO / "tests" / "torch_parallel_ranks.py")
     names = {str(p.relative_to(REPO)) for p in files}
     assert {f"k8s_operator_libs_tpu_torch/{m}" for m in (
         "ops/attention.py", "parallel/fsdp.py", "data/loader.py",
         "train/harness.py", "train/cli.py", "train/__main__.py",
-        "models/moe.py", "parallel/expert.py", "obs/goodput.py")} <= names
+        "models/moe.py", "parallel/expert.py", "obs/goodput.py",
+        "parallel/comm.py", "parallel/mesh.py", "parallel/distributed.py",
+        "parallel/launch.py", "parallel/ring_attention.py",
+        "parallel/ulysses.py", "parallel/long_context.py")} <= names
     assert len(files) > 20
     banned = ("jax", "jaxlib", "ml_dtypes", "k8s_operator_libs_tpu")
     for path in files:
