@@ -35,7 +35,9 @@ Phases, each fatal on failure:
    dq, A-K3 dk/dv; on the tensor cores for bf16, on the FMA kernels for
    fp32, each forward's route checked) at four shapes: the training shape
    below (B 2, T 2048, H 32, KV 8, Dh 128, bf16, causal), T 1000
-   non-causal, H 12 / KV 4 / Dh 64, and fp32; every element of out, dq, dk and dv within a tolerance relative to its own
+   non-causal, H 12 / KV 4 / Dh 64, and fp32, then at the ranks' own
+   shapes of phases 9 and 10 (``FLASH_CASES``); every element of out,
+   dq, dk and dv within a tolerance relative to its own
    row, lse within a tolerance in nats, and each tolerance shown to
    reject a kernel that skipped one tile (``planted_faults``). Times at
    the main shapes with CUDA events on a cold L2: kernel, plain version,
@@ -129,8 +131,30 @@ Phases, each fatal on failure:
    9d: ``train.main --parallel fsdp`` on ``small`` at 2 ranks,
    checkpointed at 2, drained at 3 (signalled on rank 0), resumed at 1
    rank to step 6, against an uninterrupted run.
+10. Pipeline, 3-D and expert parallelism at Llama-3-8B width on the one
+   card over gloo, as phase 9, each step held against its one-rank step
+   (run first in rank 0, then freed to the host) by phase 9's bounds,
+   every gradient leaf gathered to rank 0. 10a: GPipe over 2 ranks, 4
+   layers, M 4, B 4 x T 2048: (L/S)(S + M - 1) = 10 launches of each
+   flash kernel per rank (bubble ticks compute on zeros, as the
+   reference's do), ms per step, bytes per collective kind, peak. 10b:
+   stage 2 x tensor 2 on 4 ranks, 4 layers, M 2, B 2 x T 2048: 6
+   launches of each per rank at 16/4 heads, each rank at most 1/4 of the
+   layer stacks and 1/2 of embed/lm_head + 1%, and the step without the
+   replicate before the column-parallel matmuls (a planted fault) must
+   read over the gradient bound. 10c: the MoE (8 experts, top-2, 2
+   layers) over 2 ranks: dense dispatch and lossless a2a (aux off)
+   against the one-rank steps, every gradient in fp32 (B 2 x T 512) and
+   the loss in bf16 (B 2 x T 2048); the (token, expert) pairs dropped at
+   capacity factor 2.0 and two a2a optimizer steps there, the loss
+   falling. 10d: each path through an NCCL group of one rank against the
+   same path with no process group, every collective it uses called.
+   10e: ``train.main``: ``small --parallel 3d`` at 4 ranks drained at 3
+   and resumed at 1 rank; ``moe_tiny --parallel 3d`` at 4 ranks for 3
+   steps, its loss falling; ``moe_tiny --parallel ep --moe-dispatch
+   a2a`` at 2 ranks drained and resumed, against uninterrupted runs.
 
-Phases run in the order 1, 2, 3, 4, 7, 5, 6, 8, 9, each with its wall
+Phases run in the order 1, 2, 3, 4, 7, 5, 6, 8, 9, 10, each with its wall
 seconds. At the end it prints ``{"kernels": [...]}``, then the serving and
 training numbers and the card's name, each on a line of its own; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -462,15 +486,28 @@ MP_RANKS = 2
 SP_LAYERS, SP_B, SP_T = 2, 1, 8192          # 9a, bf16
 SP32_B, SP32_T = 2, 1024                    # 9a, fp32 against plain
 FSDP_LAYERS, FSDP_B, FSDP_T = 4, 2, 2048    # 9b
+# phase 10's (see phase_pp_tp_ep): pipeline (stages, microbatches), 3-D
+# (stage 2 x tensor 2, microbatches), experts (MoE 8 experts, top-2)
+PP_LAYERS, PP_S, PP_M, PP_B, PP_T = 4, 2, 4, 4, 2048         # 10a
+TD_LAYERS, TD_S, TD_TP, TD_M, TD_B, TD_T = 4, 2, 2, 2, 2, 2048  # 10b
+EP_LAYERS, EP_RANKS, EP_B, EP_T, EP_CF = 2, 2, 2, 2048, 2.0   # 10c
+# 10c holds every gradient leaf in fp32: in bf16 a rank's experts' partial
+# outputs are rounded before their psum (as the reference's are), and a
+# one-ulp change in a layer's output flips near-tied top-k choices in the
+# next, which moves every gradient (on the CPU, tiny MoE, 0.19 of a leaf's
+# max against 1e-7 in fp32)
+EP32_T = 512
 
 # (label, B, T, H, KV, Dh, dtype, causal, dlse, row). ``dlse`` draws a
 # random cotangent of lse, as the ring's merge gives each chunk; ``row``
 # is the suffix of the kernels-line rows that carry the case's
 # measurements ("": the training main path's, phase 5), None for a case
-# that is only checked. The last four are phase 9's calls at Llama-3-8B
-# width: the ring's earlier key chunk (full) and its own chunk
-# (diagonal), B 1 x T/n; Ulysses' whole T at H/n heads and KV/n K/V
-# heads; an FSDP rank's B/n rows.
+# that is only checked. Then phase 9's calls at Llama-3-8B width: the
+# ring's earlier key chunk (full) and its own chunk (diagonal), B 1 x
+# T/n; Ulysses' whole T at H/n heads and KV/n K/V heads; an FSDP rank's
+# B/n rows (also a pipeline microbatch's and an a2a expert rank's, phase
+# 10). Last, phase 10's tensor-parallel rank: a microbatch at H/2 and
+# KV/2 heads.
 FLASH_CASES = (
     ("llama3_8b", 2, 2048, 32, 8, 128, "bfloat16", True, False, ""),
     ("T1000_full", 1, 1000, 32, 8, 128, "bfloat16", False, False, None),
@@ -484,6 +521,8 @@ FLASH_CASES = (
      True, False, "_sp_ulysses"),
     ("fsdp_rank", FSDP_B // MP_RANKS, FSDP_T, 32, 8, 128, "bfloat16", True,
      False, "_fsdp"),
+    ("tp_rank", TD_B // TD_M, TD_T, 32 // TD_TP, 8 // TD_TP, 128,
+     "bfloat16", True, False, "_tp"),
 )
 # Each element is held to |kernel - plain| <= atol * row + rtol * |plain|,
 # row being the RMS of the plain tensor's row (the Dh values of one head
@@ -2042,7 +2081,8 @@ def phase_moe_train_parity(torch):
     def run(ckpt, drain_signal=None, *extra):
         argv = ["--data", str(data), "--ckpt", str(work / ckpt), "--model",
                 "moe_tiny", "--seq", "256", "--batch", "8", "--steps", "6",
-                "--ckpt-interval", "2", "--device", "cuda", *extra]
+                "--ckpt-interval", "2", "--device", "cuda", "--parallel",
+                "none", *extra]
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             rc = train.main(argv, drain_signal=drain_signal)
@@ -2579,6 +2619,668 @@ def phase_multiprocess(torch):
     return stats
 
 
+# ------------------------------------------------ pipeline, 3-D, experts
+
+# phase 10's ranks share the card over gloo as phase 9's do (MP_TIMEOUT,
+# GLOO_LABEL); each multi-rank step is held against its one-rank step by
+# phase 9's bounds (MP_BF16_TOL), every gradient leaf gathered whole
+# over the axes that split it. NCCL at world size 1 (10d) must give the
+# loss of the same path with no process group to within this share.
+NCCL_LOSS_RTOL = 1e-6
+
+
+def _whole_on_rank0(torch, dist, x, spec, mesh):
+    """A leaf that ``spec`` splits over ``mesh``, whole on rank 0 (None
+    elsewhere): every rank's slice gathered to rank 0 through the host,
+    half the bytes of an all-gather."""
+    from k8s_operator_libs_tpu_torch.parallel.fsdp import full_shape
+    from k8s_operator_libs_tpu_torch.parallel.mesh import coordinates
+    split = {}
+    for d, entry in enumerate(spec):
+        for axis in (entry if isinstance(entry, tuple) else (entry,)):
+            if axis is not None and mesh.size(axis) > 1:
+                split.setdefault(d, []).append(axis)
+    if not split:
+        return x if dist.get_rank() == 0 else None
+    host = x.detach().cpu().contiguous()
+    if dist.get_rank() != 0:
+        dist.gather(host, dst=0)
+        return None
+    parts = [torch.empty_like(host) for _ in range(dist.get_world_size())]
+    dist.gather(host, parts, dst=0)
+    full = torch.empty(full_shape(x, spec, mesh), dtype=x.dtype)
+    for j, part in enumerate(parts):
+        c = coordinates(mesh.shape, j)
+        idx = [slice(None)] * x.dim()
+        for d, axes in split.items():
+            pos = 0
+            for axis in axes:          # a dim split over several: outer first
+                pos = pos * mesh.size(axis) + c[axis]
+            idx[d] = slice(pos * x.shape[d], (pos + 1) * x.shape[d])
+        full[tuple(idx)] = part
+    return full.to(x.device)
+
+
+def _worst_sharded(torch, dist, grads, specs, mesh, ref):
+    """phase 9's worst gradient reading over leaves that ``specs`` split
+    over ``mesh``: each leaf gathered whole to rank 0 (every rank joins)
+    and read there against ``ref`` (None elsewhere)."""
+    from k8s_operator_libs_tpu_torch.models.llama import param_leaves
+    from k8s_operator_libs_tpu_torch.parallel import fsdp
+    flat_specs = []
+    fsdp._tree_map(lambda g, s: flat_specs.append(s), grads, specs)
+    refs = list(param_leaves(ref)) if ref is not None else None
+    worst = 0.0
+    for i, (g, spec) in enumerate(zip(param_leaves(grads), flat_specs)):
+        full = _whole_on_rank0(torch, dist, g, spec, mesh)
+        if full is not None:
+            b = refs[i].to(full.device).float()
+            worst = max(worst, float((full.float() - b).abs().max()
+                                     / b.abs().max().clamp_min(1e-30)))
+        del full
+    return worst if ref is not None else None
+
+
+def _state_bytes(state, keys=None):
+    """Bytes of parameters and both moments, of the leaves whose top-level
+    key is in ``keys`` (all when None)."""
+    from k8s_operator_libs_tpu_torch.models.llama import param_leaves
+    total = 0
+    for tree in (state.params, state.opt_state.mu, state.opt_state.nu):
+        for k, v in tree.items():
+            if keys is None or k in keys:
+                total += sum(t.numel() * t.element_size()
+                             for t in param_leaves({k: v}))
+    return total
+
+
+def _one_rank_ref(torch, dist, loss_fn, init, tokens):
+    """The one-rank step on rank 0 (loss and gradients moved to the host,
+    the card freed), and the bytes of its parameters; None elsewhere."""
+    from k8s_operator_libs_tpu_torch.models.llama import param_leaves
+    from k8s_operator_libs_tpu_torch.parallel import fsdp
+    out = (None, None, 0)
+    if dist.get_rank() == 0:
+        params = init()
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in param_leaves(params))
+        loss, grads = fsdp.value_and_grad(loss_fn, params, tokens)
+        out = (float(loss), _host_tree(grads), nbytes)
+        del params, grads
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _path_step(torch, loss_fn, params, tokens, specs, mesh, ref, tol,
+               grads=True):
+    """One step of a path on every rank: its loss, launches, routes,
+    collectives, peak, and on rank 0 the one-rank loss ``ref[0]`` and,
+    with ``grads`` (every rank must agree on it), the worst gradient
+    reading against ``ref[1]``."""
+    import torch.distributed as dist
+
+    from k8s_operator_libs_tpu_torch.ops import attention as fa
+    from k8s_operator_libs_tpu_torch.parallel import comm, fsdp
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    comm.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    loss, got = fsdp.value_and_grad(loss_fn, params, tokens)
+    torch.cuda.synchronize()
+    res = {"loss": float(loss), "launches": dict(fa.LAUNCHES),
+           "routes": dict(fa.ROUTE_LAUNCHES), "calls": dict(comm.CALLS),
+           "peak": torch.cuda.max_memory_allocated()}
+    if ref[0] is not None:
+        res.update(ref_loss=ref[0], tol=tol)
+    if grads:
+        worst = _worst_sharded(torch, dist, got, specs, mesh, ref[1])
+        if ref[1] is not None:
+            res["worst"] = worst
+    del got
+    torch.cuda.empty_cache()
+    return res
+
+
+def _mp_pp(torch, dist):
+    """10a in one rank: the one-rank step, then the pipeline over every
+    rank (stage = world), then timed steps."""
+    from k8s_operator_libs_tpu_torch.models.llama import (LlamaConfig,
+                                                          init_params)
+    from k8s_operator_libs_tpu_torch.parallel import fsdp, pipeline
+    from k8s_operator_libs_tpu_torch.parallel.mesh import make_mesh
+    cfg = LlamaConfig.llama3_8b(n_layers=PP_LAYERS, max_seq_len=PP_T)
+    tokens = _tokens(torch, cfg, PP_B, PP_T, 13)
+    ref = _one_rank_ref(torch, dist,
+                        lambda p, t: fsdp.causal_lm_loss(p, t, cfg),
+                        lambda: init_params(cfg, seed=0, device="cuda"),
+                        tokens)
+    mesh = make_mesh(stage=dist.get_world_size(), fsdp=1)
+    specs = pipeline.pp_param_specs()
+    state = pipeline.init_pp_state(cfg, 0, mesh, device="cuda")
+    res = _path_step(torch, pipeline.make_pp_loss(cfg, mesh, PP_M),
+                     state.params, tokens, specs, mesh, ref, MP_BF16_TOL)
+    res.update(resident=_state_bytes(state), whole_bytes=3 * ref[2])
+    res.update(_timed_steps(torch, pipeline.make_pp_train_step(
+        cfg, mesh, PP_M), state.params, tokens, dist))
+    del state
+    torch.cuda.empty_cache()
+    return res
+
+
+def _mp_3d(torch, dist):
+    """10b in one rank: the one-rank step, the composed step over stage 2
+    x tensor 2 (and again with the column-parallel input's replicate
+    planted away), the bytes held, timed steps."""
+    from k8s_operator_libs_tpu_torch.models.llama import (LlamaConfig,
+                                                          init_params)
+    from k8s_operator_libs_tpu_torch.parallel import composed, fsdp
+    from k8s_operator_libs_tpu_torch.parallel.mesh import make_mesh
+    cfg = LlamaConfig.llama3_8b(n_layers=TD_LAYERS, max_seq_len=TD_T)
+    tokens = _tokens(torch, cfg, TD_B, TD_T, 14)
+    whole = {}
+
+    def init():
+        params = init_params(cfg, seed=0, device="cuda")
+        for key in ("blocks", "embed", "lm_head"):
+            whole[key] = 3 * sum(t.numel() * t.element_size() for t in (
+                params[key].values() if key == "blocks" else [params[key]]))
+        return params
+
+    ref = _one_rank_ref(torch, dist,
+                        lambda p, t: fsdp.causal_lm_loss(p, t, cfg), init,
+                        tokens)
+    mesh = make_mesh(stage=TD_S, fsdp=1, tensor=TD_TP)
+    specs = composed.composed_param_specs()
+    state = composed.init_composed_state(cfg, 0, mesh,
+                                         device="cuda")
+    res = _path_step(torch, composed.make_composed_loss(cfg, mesh, TD_M),
+                     state.params, tokens, specs, mesh, ref, MP_BF16_TOL)
+    res.update(blocks=_state_bytes(state, ("blocks",)),
+               embed_head=_state_bytes(state, ("embed", "lm_head")),
+               whole=whole)
+    real = composed.column_input
+    composed.column_input = lambda h, group: h
+    try:
+        bad = _path_step(torch, composed.make_composed_loss(cfg, mesh, TD_M),
+                         state.params, tokens, specs, mesh, ref,
+                         MP_BF16_TOL)
+    finally:
+        composed.column_input = real
+    res["planted_worst"] = bad.get("worst")
+    res.update(_timed_steps(torch, composed.make_composed_train_step(
+        cfg, mesh, TD_M), state.params, tokens, dist))
+    del state
+    torch.cuda.empty_cache()
+    return res
+
+
+def _one_rank_loss(torch, dist, loss_fn, init, tokens):
+    """The one-rank loss on rank 0 (forward only, the card freed); None
+    elsewhere."""
+    loss = None
+    if dist.get_rank() == 0:
+        params = init()
+        with torch.no_grad():
+            loss = float(loss_fn(params, tokens))
+        del params
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return (loss, None, 0)
+
+
+def _mp_ep(torch, dist):
+    """10c in one rank. fp32 (B 2 x T EP32_T): dense dispatch against the
+    one-rank step, lossless a2a (aux off) against the one-rank step
+    without aux, every gradient leaf. bf16 (B 2 x T 2048): the same two
+    steps against the one-rank losses, the kept pairs at capacity factor
+    EP_CF, two a2a optimizer steps there, timed."""
+    import dataclasses
+
+    from k8s_operator_libs_tpu_torch.models import moe
+    from k8s_operator_libs_tpu_torch.parallel import expert, fsdp
+    from k8s_operator_libs_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(tensor=dist.get_world_size(), fsdp=1)
+    specs = expert.ep_param_specs()
+    out = {}
+    for dtype, T in ((torch.float32, EP32_T), (torch.bfloat16, EP_T)):
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        cfg = moe.MoEConfig.llama3_8b(n_layers=EP_LAYERS, max_seq_len=T,
+                                      dtype=dtype)
+        cfg0 = dataclasses.replace(cfg, router_aux_coef=0.0)
+        tokens = _tokens(torch, cfg, EP_B, T, 15)
+        params = expert.init_ep_state(cfg, 0, mesh, device="cuda").params
+
+        def init():
+            return moe.init_params(cfg, seed=0, device="cuda")
+
+        one_rank = (_one_rank_ref if dtype == torch.float32
+                    else _one_rank_loss)
+        tol = MP_FP32_TOL if dtype == torch.float32 else MP_BF16_TOL
+        for kind, c, loss_fn in (
+                ("dense", cfg, expert.make_ep_loss(cfg, mesh)),
+                ("a2a", cfg0, expert.make_ep_a2a_loss(
+                    cfg0, mesh, cfg.n_experts / cfg.top_k))):
+            ref = one_rank(torch, dist, expert.moe_reference_loss(c), init,
+                           tokens)
+            out[f"{kind}_{tag}"] = _path_step(
+                torch, loss_fn, params, tokens, specs, mesh, ref, tol,
+                grads=dtype == torch.float32)
+            del ref
+        if dtype == torch.float32:
+            del params
+            torch.cuda.empty_cache()
+            continue
+        record = []
+        with torch.no_grad():
+            expert.make_ep_a2a_loss(cfg, mesh, EP_CF, record)(params, tokens)
+        routed = sum(int(m.sum()) for m, _ in record)
+        dropped = sum(int((m & ~k).sum()) for m, k in record)
+        del record
+        opt = fsdp.default_optimizer()
+        state = fsdp.TrainState(params=params, opt_state=opt.init(params),
+                                step=0)
+        step = expert.make_ep_train_step(cfg, mesh, opt, dispatch="a2a",
+                                         capacity_factor=EP_CF)
+        losses = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        t0 = time.monotonic()
+        for _ in range(2):
+            state, m = step(state, tokens)
+            losses.append(float(m["loss"]))
+        ms = (time.monotonic() - t0) / 2 * 1e3
+        out["train"] = {"losses": losses, "routed": routed,
+                        "dropped": dropped, "ms_per_step": ms,
+                        "peak": torch.cuda.max_memory_allocated()}
+        del state, params
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase10_pair_rank():
+    """The body of one rank of phase 10a and 10c (2 ranks)."""
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.monotonic()
+    pp = _mp_pp(torch, dist)
+    t1 = time.monotonic()
+    ep = _mp_ep(torch, dist)
+    return {"pp": pp, "ep": ep, "pp_s": t1 - t0,
+            "ep_s": time.monotonic() - t1}
+
+
+def phase10_quad_rank():
+    """The body of one rank of phase 10b (4 ranks)."""
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.monotonic()
+    return {"3d": _mp_3d(torch, dist), "wall_s": time.monotonic() - t0}
+
+
+def phase10_nccl_rank():
+    """10d: each path's loss through an NCCL group of one rank against
+    the same path with no process group (every collective the identity),
+    and the collectives each called through NCCL."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from k8s_operator_libs_tpu_torch.models import moe
+    from k8s_operator_libs_tpu_torch.models.llama import (LlamaConfig,
+                                                          init_params)
+    from k8s_operator_libs_tpu_torch.parallel import (comm, composed, expert,
+                                                      fsdp, pipeline)
+    from k8s_operator_libs_tpu_torch.parallel.mesh import (local_mesh,
+                                                           make_mesh)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = LlamaConfig.llama3_8b(n_layers=PP_LAYERS, max_seq_len=PP_T)
+    mcfg = moe.MoEConfig.llama3_8b(n_layers=EP_LAYERS, max_seq_len=EP_T)
+    out = {"backend": dist.get_backend()}
+    paths = (
+        ("pp", cfg, PP_B, lambda m: pipeline.make_pp_loss(cfg, m, PP_M)),
+        ("3d", cfg, TD_B, lambda m: composed.make_composed_loss(cfg, m,
+                                                                TD_M)),
+        ("ep_dense", mcfg, EP_B, lambda m: expert.make_ep_loss(mcfg, m)),
+        ("ep_a2a", mcfg, EP_B, lambda m: expert.make_ep_a2a_loss(
+            dataclasses.replace(mcfg, router_aux_coef=0.0), m,
+            mcfg.n_experts / mcfg.top_k)))
+    params = None
+    for name, c, B, make in paths:
+        if params is None or params[0] is not c:
+            params = None
+            torch.cuda.empty_cache()
+            params = (c, (moe.init_params if c is mcfg else init_params)(
+                c, seed=0, device="cuda"))
+        tokens = _tokens(torch, c, B, PP_T, 16)
+        local_loss, _ = fsdp.value_and_grad(make(local_mesh()), params[1],
+                                            tokens)
+        comm.reset_counts()
+        loss, _ = fsdp.value_and_grad(make(make_mesh(fsdp=1)), params[1],
+                                      tokens)
+        torch.cuda.synchronize()
+        out[name] = {"loss": float(loss), "local_loss": float(local_loss),
+                     "calls": dict(comm.CALLS)}
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase10_cli_rank(runs):
+    """``train.main`` for each (argv, drain_at) in turn in one rank, rank
+    0 signalling a drain before step ``drain_at``; the output and the
+    flash launches of each run."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from k8s_operator_libs_tpu_torch import train
+    from k8s_operator_libs_tpu_torch.ops import attention as fa
+    rank = dist.get_rank()
+    out = []
+    for argv, drain_at in runs:
+        calls = {"n": 0}
+
+        def drain():
+            calls["n"] += 1
+            return rank == 0 and drain_at is not None \
+                and calls["n"] == drain_at
+
+        fa.reset_launch_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = train.main(argv, drain_signal=drain)
+        out.append({"rc": rc, "out": buf.getvalue(),
+                    "launches": dict(fa.LAUNCHES)})
+    return out
+
+
+def _check_counts(tag, res, want, route="wgmma"):
+    check(res["launches"] == {name: want for name in FLASH_NAMES},
+          f"{tag}: launched {res['launches']}, expected {want} of each")
+    check(res["routes"] == {"wgmma": 0, "fma": 0, route: 3 * want},
+          f"{tag}: took routes {res['routes']}")
+
+
+def _log_rank_times(tag, results, key, stats, skey):
+    for r, res in enumerate(results):
+        b = res[key] if key else res
+        log(f"{tag} rank {r}: {b['ms_per_step']:.1f} ms per step "
+            f"({GLOO_LABEL}), peak memory of a train step "
+            f"{b['peak'] / 2**30:.1f} GiB; launches per step "
+            + ", ".join(f"{k} {v}" for k, v in b["launches"].items()))
+        stats[f"{skey}_ms_per_step_rank{r}"] = b["ms_per_step"]
+        stats[f"{skey}_peak_bytes_rank{r}"] = b["peak"]
+
+
+def _last_loss(out, step):
+    m = re.search(rf"\(step {step} loss ([0-9.]+)\)", out)
+    check(m is not None, f"no step-{step} loss in {out!r}")
+    return float(m.group(1))
+
+
+def phase_pp_tp_ep(torch):
+    """Phase 10: pipeline (10a), 3-D (10b) and expert parallelism (10c) at
+    Llama-3-8B width on the one card over gloo, held against their
+    one-rank steps; the same paths through NCCL at world size 1 (10d);
+    and the CLI's ``--parallel 3d`` and ``ep --moe-dispatch a2a`` (10e)."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+
+    from k8s_operator_libs_tpu_torch import train
+    from k8s_operator_libs_tpu_torch.data.loader import write_token_file
+    from k8s_operator_libs_tpu_torch.parallel import launch
+
+    held = torch.cuda.memory_allocated()
+    check(held < 2**30, f"phase 10: {held / 2**30:.1f} GiB of the earlier "
+                        f"phases is still allocated")
+    torch.cuda.empty_cache()
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_pp"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    stats, launches = {}, {}
+
+    # 10a and 10c: two ranks
+    t0 = time.monotonic()
+    pair = launch.run(phase10_pair_rank, PP_S, backend="gloo",
+                      timeout=MP_TIMEOUT, workdir=str(work))
+    log(f"phase 10a/10c: {PP_S} ranks over gloo, wall "
+        f"{time.monotonic() - t0:.1f} s (pipeline "
+        + ", ".join(f"{r['pp_s']:.1f}" for r in pair) + " s, experts "
+        + ", ".join(f"{r['ep_s']:.1f}" for r in pair) + " s by rank)")
+    want = PP_LAYERS // PP_S * (PP_S + PP_M - 1)
+    for r, res in enumerate(pair):
+        # (L/S)(S + M - 1): every tick, bubbles included, each direction
+        _check_counts(f"phase 10a rank {r}", res["pp"], want)
+        check(abs(res["pp"]["loss"] - pair[0]["pp"]["loss"])
+              <= 1e-6 * abs(pair[0]["pp"]["loss"]),
+              "phase 10a: the stages disagree on the loss")
+    stats["pp_loss_diff"] = _check_parity(
+        f"phase 10a PP (stage {PP_S}, M {PP_M}, B {PP_B} T {PP_T}, "
+        f"{PP_LAYERS} layers)", pair[0]["pp"])
+    stats["pp_worst_grad"] = pair[0]["pp"]["worst"]
+    _log_rank_times("phase 10a: PP", pair, "pp", stats, "pp")
+    whole = pair[0]["pp"]["whole_bytes"]
+    for r, res in enumerate(pair):
+        log(f"phase 10a: rank {r} holds {res['pp']['resident']} bytes of "
+            f"parameters and moments ({res['pp']['resident'] / whole:.4f} "
+            f"of the one-rank {whole})")
+    _log_bytes("phase 10a: PP", pair[0]["pp"]["bytes_per_step"], stats, "pp")
+    launches["pp"] = {n: sum(r["pp"]["launches"][n] for r in pair)
+                      for n in FLASH_NAMES}
+
+    # 10c: attention is the one-rank's on every rank (dense: the whole
+    # batch; a2a: this rank's rows), L launches of each kernel
+    for kind in ("dense", "a2a"):
+        what = ("dense dispatch vs the one-rank step" if kind == "dense"
+                else "a2a at capacity factor E/top_k (lossless), aux off, "
+                     "vs the one-rank step without aux")
+        for tag, route in (("fp32", "fma"), ("bf16", "wgmma")):
+            for r, res in enumerate(pair):
+                _check_counts(f"phase 10c {kind} {tag} rank {r}",
+                              res["ep"][f"{kind}_{tag}"], EP_LAYERS, route)
+        res = pair[0]["ep"][f"{kind}_fp32"]
+        stats[f"ep_{kind}_fp32_loss_diff"] = _check_parity(
+            f"phase 10c EP {what} (MoE {EP_LAYERS} layers, fp32, B {EP_B} "
+            f"T {EP32_T})", res)
+        stats[f"ep_{kind}_fp32_worst_grad"] = res["worst"]
+        res = pair[0]["ep"][f"{kind}_bf16"]
+        d = abs(res["loss"] - res["ref_loss"])
+        check(math.isfinite(res["loss"])
+              and d <= MP_BF16_TOL[0] * abs(res["ref_loss"]),
+              f"phase 10c: {kind} bf16 loss {res['loss']} vs the one-rank "
+              f"step {res['ref_loss']}")
+        log(f"phase 10c EP {what} (bf16, B {EP_B} T {EP_T}): loss "
+            f"{res['loss']:.6f} vs one-rank {res['ref_loss']:.6f} (diff "
+            f"{d:.2e}, bound {MP_BF16_TOL[0]} relative)")
+        stats[f"ep_{kind}_bf16_loss_diff"] = d
+        launches[f"ep_{kind}"] = {
+            n: sum(r["ep"][f"{kind}_bf16"]["launches"][n] for r in pair)
+            for n in FLASH_NAMES}
+    for r, res in enumerate(pair):
+        t = res["ep"]["train"]
+        check(all(math.isfinite(x) for x in t["losses"])
+              and t["losses"][1] < t["losses"][0],
+              f"phase 10c: a2a (capacity factor {EP_CF}) rank {r} losses "
+              f"{t['losses']}")
+        log(f"phase 10c: a2a at capacity factor {EP_CF}, rank {r}: losses "
+            f"{' '.join(f'{x:.4f}' for x in t['losses'])} (falling), "
+            f"{t['dropped']} of {t['routed']} routed (token, expert) pairs "
+            f"dropped, {t['ms_per_step']:.1f} ms per step ({GLOO_LABEL}), "
+            f"peak {t['peak'] / 2**30:.1f} GiB")
+        stats[f"ep_a2a_dropped_rank{r}"] = t["dropped"]
+        stats[f"ep_a2a_routed_rank{r}"] = t["routed"]
+        stats[f"ep_a2a_ms_per_step_rank{r}"] = t["ms_per_step"]
+    del pair
+
+    # 10b: four ranks
+    t0 = time.monotonic()
+    quad = launch.run(phase10_quad_rank, TD_S * TD_TP, backend="gloo",
+                      timeout=MP_TIMEOUT, workdir=str(work))
+    log(f"phase 10b: {TD_S * TD_TP} ranks over gloo, wall "
+        f"{time.monotonic() - t0:.1f} s")
+    want = TD_LAYERS // TD_S * (TD_S + TD_M - 1)
+    for r, res in enumerate(quad):
+        _check_counts(f"phase 10b rank {r}", res["3d"], want)
+    res0 = quad[0]["3d"]
+    stats["3d_loss_diff"] = _check_parity(
+        f"phase 10b 3D (stage {TD_S} x tensor {TD_TP}, M {TD_M}, B {TD_B} "
+        f"T {TD_T}, {TD_LAYERS} layers)", res0)
+    stats["3d_worst_grad"] = res0["worst"]
+    bad, bound = res0["planted_worst"], MP_BF16_TOL[1]
+    check(bad > bound, f"phase 10b: the bound {bound} would pass the step "
+                       f"without the column-parallel input's replicate "
+                       f"(worst gradient {bad:.3e} of its leaf's max)")
+    log(f"phase 10b: planted fault, no replicate before the column-parallel"
+        f" matmuls: worst gradient {bad:.3e} of its leaf's max, over the "
+        f"bound {bound}: caught")
+    stats["3d_planted_column_fault_worst_grad"] = bad
+    whole = res0["whole"]
+    for r, res in enumerate(quad):
+        b = res["3d"]
+        check(b["blocks"] <= whole["blocks"] / (TD_S * TD_TP) * 1.01,
+              f"phase 10b: rank {r} holds {b['blocks']} bytes of the layer "
+              f"stacks, over 1/{TD_S * TD_TP} of {whole['blocks']} + 1%")
+        eh = whole["embed"] + whole["lm_head"]
+        check(b["embed_head"] <= eh / TD_TP * 1.01,
+              f"phase 10b: rank {r} holds {b['embed_head']} bytes of embed "
+              f"and lm_head, over 1/{TD_TP} of {eh} + 1%")
+        log(f"phase 10b: rank {r} holds {b['blocks'] / whole['blocks']:.4f}"
+            f" of the layer stacks and {b['embed_head'] / eh:.4f} of "
+            f"embed/lm_head (parameters and moments)")
+    _log_rank_times("phase 10b: 3D", quad, "3d", stats, "3d")
+    _log_bytes("phase 10b: 3D", res0["bytes_per_step"], stats, "3d")
+    launches["tp"] = {n: sum(r["3d"]["launches"][n] for r in quad)
+                      for n in FLASH_NAMES}
+    del quad
+
+    # 10d: NCCL at world size 1
+    t0 = time.monotonic()
+    (one,) = launch.run(phase10_nccl_rank, 1, backend="nccl",
+                        timeout=MP_TIMEOUT, workdir=str(work))
+    check(one["backend"] == "nccl", f"phase 10d ran on {one['backend']}")
+    used = {"pp": ("psum", "pmax"),
+            "3d": ("psum", "pmax", "all_gather", "reduce_scatter"),
+            "ep_dense": ("psum",), "ep_a2a": ("psum", "all_to_all")}
+    for name, kinds in used.items():
+        res = one[name]
+        d = abs(res["loss"] - res["local_loss"])
+        check(d <= NCCL_LOSS_RTOL * abs(res["local_loss"]),
+              f"phase 10d: {name} loss {res['loss']} through NCCL vs "
+              f"{res['local_loss']} with no process group")
+        check(all(res["calls"][k] > 0 for k in kinds),
+              f"phase 10d: {name} called {res['calls']}")
+        stats[f"nccl_{name}_loss_diff"] = d
+    log(f"phase 10d: NCCL at world size 1, wall {time.monotonic() - t0:.1f}"
+        f" s; loss through NCCL vs no process group: " + ", ".join(
+            f"{n} {one[n]['loss']:.6f}/{one[n]['local_loss']:.6f}"
+            for n in used) + "; collectives called: " + ", ".join(
+            f"{n} {dict((k, v) for k, v in one[n]['calls'].items() if v)}"
+            for n in used))
+
+    # 10e: the CLI
+    data = work / "tokens.bin"
+    write_token_file(str(data), np.random.default_rng(7).integers(
+        0, 32000, size=200_000))
+    moe_data = work / "moe_tokens.bin"      # moe_tiny's vocabulary is 512
+    write_token_file(str(moe_data), np.random.default_rng(7).integers(
+        0, 512, size=200_000))
+    cycle = work / "cycle.bin"
+    write_token_file(str(cycle), np.tile(np.arange(16), 20_000))
+
+    def argv(ckpt, parallel, model="small", steps=6, tokens=data,
+             extra=()):
+        return ["--data", str(tokens), "--ckpt", str(work / ckpt),
+                "--model", model, "--seq", "512" if model == "small"
+                else "256", "--batch", "4" if model == "small" else "8",
+                "--steps", str(steps), "--ckpt-interval", "2" if steps > 1
+                else "1", "--device", "cuda", "--parallel", parallel,
+                *extra]
+
+    t0 = time.monotonic()
+    runs = launch.run(phase10_cli_rank, TD_S * TD_TP, [
+        (argv("drained3d", "3d"), 4),
+        (argv("moe3d", "3d", "moe_tiny", 1, cycle), None),
+        (argv("moe3d", "3d", "moe_tiny", 3, cycle), None)],
+        backend="gloo", timeout=MP_TIMEOUT, workdir=str(work))
+    check(all(c["rc"] == 0 for r in runs for c in r),
+          f"phase 10e: {[[c['rc'] for c in r] for r in runs]}")
+    drained, first, third = (c["out"] for c in runs[0])
+    check("preempted at step 3; checkpoint 3 saved" in drained,
+          f"phase 10e: the 3d drain did not stop at step 3: {drained}")
+    check((work / "drained3d" / "2").is_dir(), "phase 10e: no checkpoint 2")
+    # moe_tiny 3d, 3 steps (1 + a resumed 2): (L/S)(S + M - 1) per step
+    want = 2 // TD_S * (TD_S + TD_M - 1) * 3
+    for r, res in enumerate(runs):
+        got = {n: res[1]["launches"][n] + res[2]["launches"][n]
+               for n in FLASH_NAMES}
+        check(got == {n: want for n in FLASH_NAMES},
+              f"phase 10e: moe_tiny 3d rank {r} launched {got}, expected "
+              f"{want} of each")
+    l1, l3 = _last_loss(first, 1), _last_loss(third, 3)
+    check(l3 < l1, f"phase 10e: moe_tiny 3d loss {l1} -> {l3} did not fall")
+    log(f"phase 10e: train.main --model moe_tiny --parallel 3d at "
+        f"{TD_S * TD_TP} ranks: step 1 loss {l1}, step 3 loss {l3} "
+        f"(falling); flash launches per rank {want} of each")
+    outs = {}
+    for name in ("drained3d", "straight3d"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = train.main(argv(name, "none"))
+        check(rc == 0, f"phase 10e: train.main returned {rc}")
+        outs[name] = buf.getvalue()
+    check("done: 3 steps" in outs["drained3d"],
+          f"phase 10e: the resume did not run steps 4-6: "
+          f"{outs['drained3d']}")
+    a, b = _last_loss(outs["straight3d"], 6), _last_loss(outs["drained3d"],
+                                                         6)
+    check(abs(a - b) <= 1e-3 * a, f"phase 10e: step-6 loss {b} after a "
+                                  f"3d drain at 4 ranks and a resume at 1 "
+                                  f"vs {a}")
+    log(f"phase 10e: --parallel 3d (small) drained at {TD_S * TD_TP} ranks "
+        f"and resumed at 1: step-6 loss {b}, uninterrupted at 1: {a} (diff "
+        f"{abs(a - b):.2e}, bound 1e-3 relative)")
+    stats.update(cli_3d_step6_loss_resumed=b, cli_3d_step6_loss_straight=a,
+                 cli_moe3d_losses=[l1, l3])
+    a2a = ("--moe-dispatch", "a2a")
+    runs = launch.run(phase10_cli_rank, EP_RANKS, [
+        (argv("a2a_straight", "ep", "moe_tiny", tokens=moe_data,
+              extra=a2a), None),
+        (argv("a2a_drained", "ep", "moe_tiny", tokens=moe_data,
+              extra=a2a), 4),
+        (argv("a2a_drained", "ep", "moe_tiny", tokens=moe_data,
+              extra=a2a), None)],
+        backend="gloo", timeout=MP_TIMEOUT, workdir=str(work))
+    check(all(c["rc"] == 0 for r in runs for c in r),
+          f"phase 10e: {[[c['rc'] for c in r] for r in runs]}")
+    straight, drained, resumed = (c["out"] for c in runs[0])
+    check("preempted at step 3; checkpoint 3 saved" in drained,
+          f"phase 10e: the a2a drain did not stop at step 3: {drained}")
+    check("done: 3 steps" in resumed,
+          f"phase 10e: the a2a resume did not run steps 4-6: {resumed}")
+    a, b = _last_loss(straight, 6), _last_loss(resumed, 6)
+    check(abs(a - b) <= 1e-3 * a, f"phase 10e: a2a step-6 loss {b} after a "
+                                  f"drain and a resume vs {a}")
+    log(f"phase 10e: --parallel ep --moe-dispatch a2a (moe_tiny) at "
+        f"{EP_RANKS} ranks drained at 3 and resumed: step-6 loss {b}, "
+        f"uninterrupted {a} (diff {abs(a - b):.2e}); CLI wall "
+        f"{time.monotonic() - t0:.1f} s")
+    stats.update(cli_a2a_step6_loss_resumed=b, cli_a2a_step6_loss_straight=a)
+    shutil.rmtree(work, ignore_errors=True)
+    stats["launches"] = launches
+    return stats
+
+
 def _log_bytes(tag, per_step, stats, key):
     total = sum(per_step.values())
     log(f"{tag}: bytes sent per step and rank, by kind: "
@@ -2633,6 +3335,7 @@ def main():
         moe_train = timed("phase 8", phase_moe_train, torch)
         moe_train.update(timed("phase 8b", phase_moe_train_parity, torch))
         multi = timed("phase 9", phase_multiprocess, torch)
+        composed = timed("phase 10", phase_pp_tp_ep, torch)
     except (SmokeFailure, subprocess.SubprocessError, OSError,
             RuntimeError, ValueError) as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
@@ -2685,10 +3388,30 @@ def main():
                      "ms": k["ms"], "plain_ms": k["plain_ms"],
                      "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
                      "library_ms": k["library_ms"]})
+    # phase 10's paths, each kernel measured at its rank's shape by phase
+    # 2: a pipeline microbatch and an a2a rank's rows are the FSDP rank's
+    # B 1 x T 2048 at 32/8 heads, a dense expert-parallel rank attends
+    # the whole B 2 batch (the main shape), a tensor-parallel rank a
+    # microbatch at 16/4 heads (its own case); launches summed over ranks
+    for path, measured in (("pp", "_fsdp"), ("tp", "_tp"),
+                           ("ep_dense", ""), ("ep_a2a", "_fsdp")):
+        for kname, line in (("flash_forward", 236), ("flash_bwd_dq", 439),
+                            ("flash_bwd_dkv", 519)):
+            k = kernels[kname + measured]
+            rows.append({"name": f"{kname}_{path}", "route": "cuda",
+                         "source": CSRC.format("flash_attention_tc"),
+                         "replaces": f"{jax_attn}:{line}",
+                         "launches": composed["launches"][path][kname],
+                         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+                         "plain_ms": k["plain_ms"],
+                         "bound_ms": k["bound_ms"],
+                         "bound_by": k["bound_by"],
+                         "library_ms": k["library_ms"]})
     print(json.dumps({"kernels": rows}))
     for key, stats in (("serving", serve), ("training", training),
                        ("moe_serving", moe_serve), ("moe_training", moe_train),
                        ("multiprocess", multi),
+                       ("pipeline_tensor_expert", composed),
                        ("flash_backward", kernels["backward"])):
         print(json.dumps({key: {k: (round(v, 6) if isinstance(v, float)
                                     else v) for k, v in stats.items()}}))

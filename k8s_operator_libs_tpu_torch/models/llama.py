@@ -17,7 +17,15 @@ before and after attention run under ``torch.utils.checkpoint`` and the
 attention Function between them does not, so the backward never re-runs
 the forward kernel. The ``gather`` hook turns each leaf as a rank holds
 it into the whole leaf where it is used (FSDP's all-gather, inside the
-checkpointed regions); by default the identity.
+checkpointed regions); by default the identity. The tensor-parallel
+hooks of :func:`_block` (the reference's ``tp_block``,
+``parallel/composed.py:108-128``) run inside the same regions: a rank
+holding the column-parallel wq/wk/wv/w_gate/w_up and row-parallel
+wo/w_down slices computes its H/tp heads and d_ff/tp columns (head counts
+follow the slices' widths), ``tp_in`` marks the normed input of the
+column-parallel matmuls (replicated over the tensor axis: its gradient is
+summed there) and ``tp_out`` sums each row-parallel output over the
+axis; both are the identity by default.
 """
 
 from __future__ import annotations
@@ -186,50 +194,63 @@ def no_gather(name: str, w: torch.Tensor) -> torch.Tensor:
     return w
 
 
+def identity(x: torch.Tensor) -> torch.Tensor:
+    """The default tensor-parallel hook: one rank holds every head."""
+    return x
+
+
 def _qkv(cfg: LlamaConfig, x: torch.Tensor, attn_norm, wq, wk, wv,
-         positions: torch.Tensor, gather: Callable = no_gather):
+         positions: torch.Tensor, gather: Callable = no_gather,
+         tp_in: Callable = identity):
     """The block before attention: RMSNorm, the Q/K/V projections, RoPE.
-    K/V stay at KV heads: the flash kernels take GQA natively."""
+    K/V stay at their KV heads (the flash kernels take GQA natively); the
+    head counts are the projections' widths over Dh, the rank's local
+    heads under tensor parallelism."""
     B, T, _ = x.shape
-    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    Dh = cfg.head_dim
     attn_norm, wq, wk, wv = (gather(n, w) for n, w in (
         ("attn_norm", attn_norm), ("wq", wq), ("wk", wk), ("wv", wv)))
-    h = rms_norm(x, attn_norm)
-    q = rope((h @ wq).reshape(B, T, H, Dh), positions, cfg.rope_theta)
-    k = rope((h @ wk).reshape(B, T, KV, Dh), positions, cfg.rope_theta)
-    v = (h @ wv).reshape(B, T, KV, Dh)
+    h = tp_in(rms_norm(x, attn_norm))
+    q = rope((h @ wq).reshape(B, T, -1, Dh), positions, cfg.rope_theta)
+    k = rope((h @ wk).reshape(B, T, -1, Dh), positions, cfg.rope_theta)
+    v = (h @ wv).reshape(B, T, -1, Dh)
     return q, k, v
 
 
 def _post(x: torch.Tensor, attn: torch.Tensor, wo, mlp_norm, w_gate, w_up,
-          w_down, gather: Callable = no_gather) -> torch.Tensor:
+          w_down, gather: Callable = no_gather, tp_in: Callable = identity,
+          tp_out: Callable = identity) -> torch.Tensor:
     """The block after attention: O-projection and residual, then the
     SwiGLU MLP and its residual."""
     B, T, _ = x.shape
     wo, mlp_norm, w_gate, w_up, w_down = (gather(n, w) for n, w in (
         ("wo", wo), ("mlp_norm", mlp_norm), ("w_gate", w_gate),
         ("w_up", w_up), ("w_down", w_down)))
-    x = x + attn.reshape(B, T, -1) @ wo
-    return x + swiglu(rms_norm(x, mlp_norm),
-                      {"w_gate": w_gate, "w_up": w_up, "w_down": w_down})
+    x = x + tp_out(attn.reshape(B, T, -1) @ wo)
+    return x + tp_out(swiglu(tp_in(rms_norm(x, mlp_norm)),
+                             {"w_gate": w_gate, "w_up": w_up,
+                              "w_down": w_down}))
 
 
 def _block(cfg: LlamaConfig, attn_fn: Callable, x: torch.Tensor,
            layer: Params, positions: torch.Tensor,
-           gather: Callable = no_gather) -> torch.Tensor:
+           gather: Callable = no_gather, tp_in: Callable = identity,
+           tp_out: Callable = identity) -> torch.Tensor:
     """One decoder block (pre-norm attention + SwiGLU MLP). ``gather``
-    runs inside the checkpointed regions, so under remat autograd keeps
-    the layer's shards, not what the hook gathered from them."""
+    and the tensor-parallel hooks run inside the checkpointed regions, so
+    under remat autograd keeps the layer's shards, not what the hook
+    gathered from them, and only the flash call's out and lse."""
     pre = (x, layer["attn_norm"], layer["wq"], layer["wk"], layer["wv"])
     post = (layer["wo"], layer["mlp_norm"], layer["w_gate"], layer["w_up"],
             layer["w_down"])
     if not cfg.remat:
-        q, k, v = _qkv(cfg, *pre, positions, gather)
-        return _post(x, attn_fn(q, k, v), *post, gather)
-    q, k, v = checkpoint(_qkv, cfg, *pre, positions, gather,
+        q, k, v = _qkv(cfg, *pre, positions, gather, tp_in)
+        return _post(x, attn_fn(q, k, v), *post, gather, tp_in, tp_out)
+    q, k, v = checkpoint(_qkv, cfg, *pre, positions, gather, tp_in,
                          use_reentrant=False)
     attn = attn_fn(q, k, v)
-    return checkpoint(_post, x, attn, *post, gather, use_reentrant=False)
+    return checkpoint(_post, x, attn, *post, gather, tp_in, tp_out,
+                      use_reentrant=False)
 
 
 def _default_attn(q, k, v):

@@ -1,13 +1,23 @@
 """Mixture-of-Experts Llama variant (Mixtral-style): the second model family.
 
-Port of the JAX package's ``models/moe.py`` on one device: the dense
-SwiGLU MLP becomes a top-k routed expert layer. Expert weights are
-STACKED ``[L, E, ...]`` beside the other per-layer weights; the router is
-fp32 ``[L, D, E]``. :func:`moe_ffn` is the reference's dense "dropless"
-dispatch: every expert runs on every token and the renormalized top-k
-gate zeroes the rest, plus the Switch-style load-balance aux term.
-Expert parallelism (``experts_slice``/``ep_axis``, ``moe_ffn_a2a``) needs
-more than one device and is not ported.
+Port of the JAX package's ``models/moe.py``: the dense SwiGLU MLP
+becomes a top-k routed expert layer. Expert weights are STACKED ``[L, E,
+...]`` beside the other per-layer weights; the router is fp32 ``[L, D,
+E]``. :func:`moe_ffn` is the reference's dense "dropless" dispatch: every
+expert runs on every token and the renormalized top-k gate zeroes the
+rest, plus the Switch-style load-balance aux term.
+
+Expert parallelism (:mod:`..parallel.expert`). ``experts_slice=(start,
+count)`` with ``ep_group`` (the tensor axis's process group) computes only
+the rank's contiguous experts on the replicated token stream and sums
+their outputs over the group inside the layer (:func:`.comm.psum`), as
+the reference's :104-141 does; the aux term stays partial (the caller
+sums it). What ``shard_map``'s transpose adds there is written out with
+:func:`.comm.replicate`: on ``h`` entering the local experts and on the
+routing weights and ``mean_prob`` before the local experts' columns are
+cut from them, so each rank's gradient of them is the sum over the
+group. :func:`moe_ffn_a2a` is the capacity-bounded all-to-all dispatch
+(:144-203), for tokens sharded over the group.
 
 The expert products are plain ``torch.mm`` (cuBLAS on the card), one
 expert at a time, each reading its ``[D, F]`` slab in place: no einsum
@@ -36,6 +46,7 @@ from typing import Callable, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel import comm
 from ..utils.device import DeviceLike, resolve_device
 from .generate import _forward_cached, init_cache, scan_decode
 from .llama import (LlamaConfig, Params, _default_attn, _init_dense, _qkv,
@@ -170,44 +181,126 @@ def _experts(h: torch.Tensor, weights: torch.Tensor,
     return out.to(h.dtype).reshape(h.shape)
 
 
-def moe_ffn(h: torch.Tensor, layer: Params, cfg: MoEConfig
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _local_experts(t: torch.Tensor, start: int, count: int,
+                   group) -> torch.Tensor:
+    """The local experts' columns of a routing tensor every rank computes
+    whole (the gate weights, ``mean_prob``): replicated over the group
+    first, so the gradient of the whole sums every rank's columns."""
+    return comm.replicate(t, group).narrow(-1, start, count)
+
+
+def moe_ffn(h: torch.Tensor, layer: Params, cfg: MoEConfig,
+            experts_slice: Optional[Tuple[int, int]] = None,
+            ep_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense-dispatch expert layer: h [..., D] -> (out [..., D], aux []).
     aux is ``E * sum_e frac_e * mean_prob_e``; ``frac`` (from
-    ``weights > 0``) carries no gradient, ``mean_prob`` does."""
+    ``weights > 0``) carries no gradient, ``mean_prob`` does.
+
+    ``experts_slice=(start, count)`` computes that contiguous expert range
+    only (the layer's expert stacks hold it, or all E, which are then
+    cut); with ``ep_group`` the partial outputs are summed over the group
+    here, and aux covers the local experts only."""
     weights, probs = router_weights(h, layer["router"], cfg.top_k)
-    out = _experts(h, weights, layer)
     lead = tuple(range(probs.dim() - 1))
-    frac = (weights > 0).float().mean(dim=lead)
     mean_prob = probs.mean(dim=lead)
+    if experts_slice is not None:
+        start, count = experts_slice
+        if layer["w_gate"].shape[0] != count:
+            layer = {k: layer[k].narrow(0, start, count)
+                     for k in ("w_gate", "w_up", "w_down")}
+        weights = _local_experts(weights, start, count, ep_group)
+        mean_prob = _local_experts(mean_prob, start, count, ep_group)
+        h = comm.replicate(h, ep_group)
+    out = _experts(h, weights, layer)
+    frac = (weights > 0).float().mean(dim=lead)
     aux = cfg.n_experts * torch.sum(frac * mean_prob)
-    return out, aux
+    return comm.psum(out, ep_group), aux
+
+
+def moe_ffn_a2a(h: torch.Tensor, layer: Params, cfg: MoEConfig, group,
+                capacity: int, record: Optional[list] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Capacity-bounded all-to-all dispatch (GShard/Switch): h [B/n, T,
+    D] is this rank's batch shard, the expert stacks its E/n experts.
+    Each token's routed experts take it in token order (a cumsum over G =
+    B/n * T rows, row-major, as the reference's): the first ``capacity``
+    tokens routed to an expert fill its buffer and the rest are dropped
+    for it. The [G, E, C] one-hot dispatch packs the buffers [E, C, D],
+    an all-to-all sends each expert's buffers to its rank, the local
+    experts run on [E/n, n * C, D], the reverse all-to-all brings the
+    outputs home and the gate-weighted one-hot combine puts them back in
+    token order (accumulated in fp32, rounded once). Returns (out [B/n,
+    T, D], aux): aux is the full-E term on the local shard (the caller
+    averages it over the group). ``record`` gets the [G, E] masks of the
+    routed and of the kept (token, expert) pairs of each call."""
+    Bl, T, D = h.shape
+    E = cfg.n_experts
+    n = comm.size(group)
+    El, C, G = E // n, capacity, Bl * T
+    weights, probs = router_weights(h, layer["router"], cfg.top_k)
+    w = weights.reshape(G, E)
+    mask = w > 0
+    # each token's place in its expert's buffer; past the capacity: dropped
+    pos = torch.cumsum(mask.to(torch.int32), dim=0) - 1            # [G, E]
+    keep = mask & (pos < C)
+    if record is not None:
+        record.append((mask.detach(), keep.detach()))
+    slots = torch.arange(C, device=h.device)
+    dispatch = (keep[..., None] & (pos[..., None] == slots)
+                ).to(h.dtype).reshape(G, E * C)
+    # one token per buffer slot: the product's sums have one term
+    xs = (dispatch.t() @ h.reshape(G, D)).reshape(n, El, C, D)
+    # after the all-to-all, dim 0 is the source rank
+    xs = comm.all_to_all(xs, group, 0, 0)
+    xin = xs.transpose(0, 1).reshape(El, n * C, D)
+    outs = []
+    for x, w_gate, w_up, w_down in zip(xin.unbind(0),
+                                       layer["w_gate"].unbind(0),
+                                       layer["w_up"].unbind(0),
+                                       layer["w_down"].unbind(0)):
+        gate = torch.nn.functional.silu(f32_product(x, w_gate))
+        outs.append((gate * f32_product(x, w_up)).to(h.dtype) @ w_down)
+    out = torch.stack(outs).reshape(El, n, C, D).transpose(0, 1)
+    out = comm.all_to_all(out.contiguous(), group, 0, 0).reshape(E * C, D)
+    combine = dispatch * w.to(h.dtype).repeat_interleave(C, dim=1)
+    y = f32_product(combine, out).to(h.dtype).reshape(Bl, T, D)
+    frac = mask.float().mean(dim=0)
+    mean_prob = probs.reshape(G, E).mean(dim=0)
+    return y, cfg.n_experts * torch.sum(frac * mean_prob)
 
 
 # ---------------------------------------------------------------- training
 
 def _post(cfg: MoEConfig, x: torch.Tensor, attn: torch.Tensor, wo,
-          mlp_norm, router, w_gate, w_up, w_down
+          mlp_norm, router, w_gate, w_up, w_down, ffn: Callable
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The block after attention: O-projection and residual, then the
-    routed expert FFN and its residual. Returns (x, aux)."""
+    routed expert FFN ``ffn(h, layer) -> (out, aux)`` and its residual.
+    Returns (x, aux)."""
     B, T, _ = x.shape
     x = x + attn.reshape(B, T, -1) @ wo
-    out, aux = moe_ffn(rms_norm(x, mlp_norm),
-                       {"router": router, "w_gate": w_gate, "w_up": w_up,
-                        "w_down": w_down}, cfg)
+    out, aux = ffn(rms_norm(x, mlp_norm),
+                   {"router": router, "w_gate": w_gate, "w_up": w_up,
+                    "w_down": w_down})
     return x + out, aux
 
 
 def moe_block(x: torch.Tensor, layer: Params, cfg: MoEConfig,
-              positions: torch.Tensor, attn_fn: Optional[Callable] = None
+              positions: torch.Tensor, attn_fn: Optional[Callable] = None,
+              experts_slice: Optional[Tuple[int, int]] = None,
+              ep_group=None, ffn_fn: Optional[Callable] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One MoE decoder block (pre-norm attention + routed expert FFN).
-    Returns (x, aux)."""
+    """One MoE decoder block (pre-norm attention + routed expert FFN),
+    shared by :func:`forward` and the composed pipeline x expert path.
+    ``experts_slice``/``ep_group`` as in :func:`moe_ffn`; ``ffn_fn(h,
+    layer) -> (out, aux)`` replaces the expert layer (the all-to-all
+    dispatch). Returns (x, aux)."""
     fn = attn_fn or _default_attn
+    ffn = ffn_fn or partial(moe_ffn, cfg=cfg, experts_slice=experts_slice,
+                            ep_group=ep_group)
     pre = (x, layer["attn_norm"], layer["wq"], layer["wk"], layer["wv"])
     post = (layer["wo"], layer["mlp_norm"], layer["router"],
-            layer["w_gate"], layer["w_up"], layer["w_down"])
+            layer["w_gate"], layer["w_up"], layer["w_down"], ffn)
     if not cfg.remat:
         q, k, v = _qkv(cfg, *pre, positions)
         return _post(cfg, x, fn(q, k, v), *post)
@@ -217,10 +310,14 @@ def moe_block(x: torch.Tensor, layer: Params, cfg: MoEConfig,
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: MoEConfig,
-            attn_fn: Optional[Callable] = None
+            attn_fn: Optional[Callable] = None,
+            experts_slice: Optional[Tuple[int, int]] = None,
+            ep_group=None, ffn_fn: Optional[Callable] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, T] -> (logits [B, T, vocab] fp32, summed aux []),
-    differentiable. ``attn_fn`` as in :func:`.llama.forward`."""
+    differentiable. ``attn_fn`` as in :func:`.llama.forward`; the expert
+    arguments as in :func:`moe_block` (under expert parallelism the aux is
+    the local experts' part)."""
     B, T = tokens.shape
     positions = torch.arange(T, device=tokens.device).expand(B, T)
     x = torch.nn.functional.embedding(tokens.long(), params["embed"])
@@ -229,7 +326,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: MoEConfig,
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for weights in zip(*(blocks[n].unbind(0) for n in names)):
         x, aux = moe_block(x, dict(zip(names, weights)), cfg, positions,
-                           attn_fn)
+                           attn_fn, experts_slice, ep_group, ffn_fn)
         aux_total = aux_total + aux
     x = rms_norm(x, params["final_norm"])
     return (x @ params["lm_head"]).float(), aux_total

@@ -21,6 +21,11 @@ function               forward                     backward
 :func:`all_gather`     concatenate the shards      reduce_scatter
 :func:`reduce_scatter` sum, keep this rank's part  all_gather
 :func:`tie`            ``x`` (the others unused)   zeros for the others
+:func:`pmean`          the mean over several       g / n (psum's, scaled)
+                       groups
+:func:`pmax`           the max over the group      none (not differentiable:
+                                                   the reference's
+                                                   ``pmax(stop_gradient)``)
 =====================  ==========================  =======================
 
 A group of None (an axis of size 1 inside a larger world) makes each of
@@ -52,7 +57,7 @@ import torch
 import torch.distributed as dist
 
 BYTES = {"ppermute": 0, "all_to_all": 0, "psum": 0, "all_gather": 0,
-         "reduce_scatter": 0}
+         "reduce_scatter": 0, "pmax": 0}
 CALLS = {k: 0 for k in BYTES}
 
 
@@ -86,12 +91,13 @@ def _host(group, x: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------ raw collectives
 
-def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+def _all_reduce(x: torch.Tensor, group, kind: str = "psum",
+                op=dist.ReduceOp.SUM) -> torch.Tensor:
     n = size(group)
-    _count("psum", 2 * (n - 1) / n * x.nelement() * x.element_size())
+    _count(kind, 2 * (n - 1) / n * x.nelement() * x.element_size())
     # a buffer of its own: all_reduce writes its input
     buf = x.cpu() if _staged(group, x) else x.clone()
-    dist.all_reduce(buf, group=group)
+    dist.all_reduce(buf, op=op, group=group)
     return buf.to(x.device)
 
 
@@ -326,6 +332,28 @@ def tie(x: torch.Tensor, *others: torch.Tensor) -> torch.Tensor:
     that does not use a received tensor still runs the backward of the
     collective that brought it."""
     return _Tie.apply(x, *others)
+
+
+def pmean(x: torch.Tensor, groups: Sequence) -> torch.Tensor:
+    """``lax.pmean`` over several axes: the psum over each group in turn,
+    divided by the product of their sizes (groups of None count as one
+    rank). Its backward is psum's, scaled: g / n on every rank."""
+    n = 1
+    for group in groups:
+        x = psum(x, group)
+        n *= size(group)
+    return x / n
+
+
+@torch.no_grad()
+def pmax(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of ``x`` over the group, on every rank, with
+    no gradient: the reference's ``pmax(stop_gradient(x))``, a numerical
+    stabilizer whose value cancels where it is used."""
+    x = x.detach()
+    if group is None:
+        return x
+    return _all_reduce(x, group, "pmax", dist.ReduceOp.MAX)
 
 
 def all_reduce_(x: torch.Tensor, group: Optional[object]) -> torch.Tensor:

@@ -46,7 +46,7 @@ from ..models.llama import (LlamaConfig, Params, forward, init_params,
                             param_leaves)
 from ..utils.device import DeviceLike
 from . import comm
-from .mesh import Mesh, local_mesh, param_specs, shard, shard_dim
+from .mesh import Mesh, local_mesh, param_specs, shard, shard_dim, spec_axes
 
 
 @dataclasses.dataclass
@@ -90,24 +90,24 @@ def global_norm(tree: Params) -> torch.Tensor:
     return torch.sqrt(_squares(param_leaves(tree)))
 
 
-def _split_leaves(tree: Params, specs, axis: str):
-    """(leaves split over ``axis``, leaves every rank holds whole)."""
-    split, whole = [], []
-    _tree_map(lambda g, spec: (whole if shard_dim(spec, axis) is None
-                               else split).append(g), tree, specs)
-    return split, whole
-
-
 def sharded_global_norm(mesh: Mesh, specs) -> Callable:
-    """``grad_norm(grads)`` of a tree sharded by ``specs`` over the mesh's
-    fsdp axis: the shards' squares summed over the group, plus the
-    replicated leaves' once."""
-    group = mesh.groups["fsdp"]
+    """``grad_norm(grads)`` of a tree sharded by ``specs`` over the mesh:
+    each leaf's squares summed over exactly the axes that split it (one
+    all-reduce per set of axes, over each of its axes in turn), so a leaf
+    replicated on an axis counts once."""
 
     def grad_norm(grads: Params) -> torch.Tensor:
-        split, whole = _split_leaves(grads, specs, "fsdp")
-        total = comm.all_reduce_(_squares(split), group)
-        return torch.sqrt(total + _squares(whole))
+        by_axes: Dict[Tuple[str, ...], list] = {}
+        _tree_map(lambda g, spec: by_axes.setdefault(spec_axes(spec), [])
+                  .append(g), grads, specs)
+        total = 0.0
+        # every rank holds the same spec tree: the same sets, one order
+        for axes in sorted(by_axes):
+            part = _squares(by_axes[axes])
+            for axis in axes:
+                part = comm.all_reduce_(part, mesh.groups[axis])
+            total = total + part
+        return torch.sqrt(total)
 
     return grad_norm
 
@@ -170,39 +170,63 @@ def causal_lm_loss(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     return -torch.gather(logp, -1, targets[..., None])[..., 0].mean()
 
 
+def _split_axes(spec):
+    """(dim, axis) for every axis a spec splits a dim over, in the order
+    :func:`..mesh.shard` slices them."""
+    return [(d, axis) for d, entry in enumerate(spec)
+            for axis in (entry if isinstance(entry, tuple) else (entry,))
+            if axis is not None]
+
+
 def full_shape(x: torch.Tensor, spec, mesh: Mesh) -> Tuple[int, ...]:
     """The whole leaf's shape from this rank's slice of it."""
     shape = list(x.shape)
-    d = shard_dim(spec, "fsdp")
-    if d is not None:
-        shape[d] *= mesh.size("fsdp")
+    for d, axis in _split_axes(spec):
+        shape[d] *= mesh.size(axis)
     return tuple(shape)
 
 
 @torch.no_grad()
 def full_leaf(x: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
-    """The whole leaf, all-gathered from the ranks' slices (every rank of
-    the fsdp group must call it)."""
-    d = shard_dim(spec, "fsdp")
-    if d is None:
-        return x
-    return comm.all_gather(x, mesh.groups["fsdp"], d)
+    """The whole leaf, all-gathered from the ranks' slices over every axis
+    that splits it, the last-sliced first (every rank of those groups must
+    call it)."""
+    for d, axis in reversed(_split_axes(spec)):
+        x = comm.all_gather(x, mesh.groups[axis], d)
+    return x
+
+
+def replicated(params: Params, specs, mesh: Mesh, axes) -> Params:
+    """Each leaf as an input replicated over those of ``axes`` its spec
+    does not split (:func:`.comm.replicate`: the identity, whose backward
+    sums the leaf's gradient over the axis): what ``shard_map``'s
+    transpose adds for a ``P()`` input that meets per-rank data."""
+    def leaf(p, spec):
+        held = spec_axes(spec)
+        for axis in axes:
+            if axis not in held:
+                p = comm.replicate(p, mesh.groups[axis])
+        return p
+    return _tree_map(leaf, params, specs)
 
 
 def init_train_state(cfg: LlamaConfig, seed: int = 0,
                      optimizer: Optional[ClippedAdamW] = None,
                      device: DeviceLike = "cuda",
-                     mesh: Optional[Mesh] = None) -> TrainState:
+                     mesh: Optional[Mesh] = None, pspecs=None,
+                     params_init: Optional[Callable] = None) -> TrainState:
     """Seeded parameters and zero moments on ``device``, step 0. With a
-    mesh, each rank keeps its fsdp slices of the one-rank
-    ``init_params(cfg, seed)`` (whole for a moment, one tree of
-    parameters) and makes its moments from the slices: no rank holds the
-    whole moments."""
+    mesh, each rank keeps its slices of the one-rank ``params_init(cfg,
+    seed)`` (whole for a moment, one tree of parameters) by the spec tree
+    ``pspecs`` (default the FSDP rule :func:`..mesh.param_specs`) and
+    makes its moments from the slices: no rank holds the whole moments.
+    ``params_init`` defaults to the Llama ``init_params`` (the MoE family
+    passes its own)."""
     optimizer = optimizer or default_optimizer()
-    params = init_params(cfg, seed=seed, device=device)
+    params = (params_init or init_params)(cfg, seed=seed, device=device)
     if mesh is not None:
-        params = _tree_map(lambda p, s: shard(p, s, mesh), params,
-                           param_specs(params))
+        specs = param_specs(params) if pspecs is None else pspecs
+        params = _tree_map(lambda p, s: shard(p, s, mesh), params, specs)
     return TrainState(params=params, opt_state=optimizer.init(params),
                       step=0)
 

@@ -31,6 +31,7 @@ def _entry(rank: int, world: int, init_method: str, backend: str,
            fn: Callable, args: tuple, results) -> None:
     import torch
     import torch.distributed as dist
+    reported = False
     try:
         if torch.cuda.is_available():
             torch.cuda.set_device(rank % torch.cuda.device_count())
@@ -38,11 +39,18 @@ def _entry(rank: int, world: int, init_method: str, backend: str,
                                 world_size=world, rank=rank)
         try:
             out = fn(*args)
+        except BaseException:
+            # reported before the group is torn down: the peers then fail
+            # on the closed connections, after this rank's report
+            results.put((rank, False, traceback.format_exc()))
+            reported = True
+            raise
         finally:
             dist.destroy_process_group()
         results.put((rank, True, out))
     except BaseException:       # reported to the parent, which fails
-        results.put((rank, False, traceback.format_exc()))
+        if not reported:
+            results.put((rank, False, traceback.format_exc()))
         raise
 
 

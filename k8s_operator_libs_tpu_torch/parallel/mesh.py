@@ -184,18 +184,25 @@ def shard_dim(spec: Spec, axis: str) -> Optional[int]:
     return None
 
 
-def shard(x: torch.Tensor, spec: Spec, mesh: Mesh,
-          axis: str = "fsdp") -> torch.Tensor:
-    """This rank's slice of a full leaf along ``axis``: a copy, so the
-    full tensor can be freed, except on an axis of one rank, where the
-    slice is the leaf itself."""
-    d = shard_dim(spec, axis)
-    n = mesh.size(axis)
-    if n == 1:
-        return x
-    if d is None:
-        return x.clone()
-    if x.shape[d] % n:
-        raise ValueError(f"dim {d} of {tuple(x.shape)} not divisible by "
-                         f"the {n}-way {axis} axis")
-    return x.chunk(n, dim=d)[mesh.coords[axis]].clone()
+def spec_axes(spec: Spec) -> Tuple[str, ...]:
+    """The mesh axes a leaf is split over, in AXES order."""
+    return tuple(a for a in AXES if shard_dim(spec, a) is not None)
+
+
+def shard(x: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
+    """This rank's slice of a full leaf along every axis ``spec`` names
+    (a dim split over several axes, as ``("data", "fsdp")``, is split
+    over them in that order, outermost first): a copy, so the full tensor
+    can be freed, except where it is split over no axis of more than one
+    rank, where the slice is the leaf itself."""
+    part, sliced = x, False
+    for d, entry in enumerate(spec):
+        for axis in (entry if isinstance(entry, tuple) else (entry,)):
+            n = mesh.size(axis) if axis is not None else 1
+            if n == 1:
+                continue
+            if part.shape[d] % n:
+                raise ValueError(f"dim {d} of {tuple(x.shape)} not divisible "
+                                 f"by the {n}-way {axis} axis")
+            part, sliced = part.chunk(n, dim=d)[mesh.coords[axis]], True
+    return part.clone() if sliced else x

@@ -2,13 +2,16 @@
 over the ranks of a process group, with checkpoint, resume, a drain on
 SIGTERM, a goodput ledger and a profiler.
 
-Port of ``cmd/train.py`` for ``--parallel none|fsdp|sp``: TokenDataset ->
-the train step (flash attention kernels on the card; ``build_parallel``
-wires ``--parallel`` to a mesh, step and init, as the reference's
-:24-157 does) -> CheckpointingTrainer. In a pod, kubelet's SIGTERM during
-a drain triggers a synchronous checkpoint and a clean exit; the same
-command then resumes from the latest checkpoint and continues the data
-stream where it left. Periodic checkpoints are written asynchronously.
+Port of ``cmd/train.py``: TokenDataset -> the train step (flash
+attention kernels on the card; ``build_parallel`` wires ``--model`` x
+``--parallel none|fsdp|sp|pp|ep|3d`` and ``--moe-dispatch`` to a mesh,
+step, init and spec tree, with the reference's checks and messages,
+:24-157) -> CheckpointingTrainer. ``--parallel`` defaults to fsdp, as
+the reference's does; one rank trains on one device whatever it says. In
+a pod, kubelet's SIGTERM during a drain triggers a synchronous
+checkpoint and a clean exit; the same command then resumes from the
+latest checkpoint and continues the data stream where it left. Periodic
+checkpoints are written asynchronously.
 The goodput ledger (``--goodput-log``, by default ``goodput.jsonl`` beside
 the checkpoints, continued by a resumed job) books step windows and
 badput phases; at the end the CLI prints its summary and, with
@@ -26,15 +29,18 @@ Only rank 0 prints and writes the ledger. Rank 0 writes the checkpoints
 and every rank reads them on resume, so across hosts ``--ckpt`` must be
 storage they share.
 
-Example (on a machine with an NVIDIA GPU):
+Examples (on a machine with NVIDIA GPUs):
     python -m k8s_operator_libs_tpu_torch.train --data tokens.bin \
-        --ckpt /ckpt/run1 --model moe_tiny --steps 1000 --batch 8 \
-        --seq 512 --profile /tmp/trace
+        --ckpt /ckpt/run1 --model moe_tiny --parallel none --steps 1000 \
+        --batch 8 --seq 512 --profile /tmp/trace
+    torchrun --nproc-per-node 4 -m k8s_operator_libs_tpu_torch.train \
+        --data tokens.bin --ckpt /ckpt/run2 --model small --parallel 3d
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import signal
 from typing import Callable, Optional
@@ -51,12 +57,20 @@ from ..models.moe import init_params as moe_init
 from ..obs.goodput import (GoodputLedger, publish_summary, read_ledger,
                            summarize)
 from ..obs.metrics import MetricsHub
+from ..parallel.composed import (composed_param_specs, init_composed_state,
+                                 init_moe_composed_state,
+                                 make_composed_train_step,
+                                 make_moe_composed_train_step,
+                                 moe_composed_param_specs)
 from ..parallel.distributed import default_backend, maybe_initialize_from_env
-from ..parallel.expert import moe_reference_loss
+from ..parallel.expert import (ep_param_specs, init_ep_state,
+                               make_ep_train_step, moe_reference_loss)
 from ..parallel.fsdp import (TrainState, default_optimizer, init_train_state,
                              make_train_step_from_loss)
 from ..parallel.long_context import make_sp_train_step
 from ..parallel.mesh import make_mesh
+from ..parallel.pipeline import (init_pp_state, make_pp_train_step,
+                                 pp_param_specs)
 from .harness import CheckpointingTrainer
 
 MODELS = {"tiny": LlamaConfig.tiny, "small": LlamaConfig.small,
@@ -75,22 +89,68 @@ def _moe_pair(cfg, optimizer, device):
                                      optimizer), init_fn
 
 
-def build_parallel(cfg, args, optimizer, device, n: int):
-    """(mesh, step_fn, init_fn) for ``--parallel`` over the process
-    group's ``n`` ranks; None for the trainer's defaults. One rank trains
-    on one device whatever ``--parallel`` says, as the reference does."""
+def _moe_parallel(cfg, args, optimizer, device, n: int, say):
+    """:func:`build_parallel` for ``--model moe_tiny`` (the reference's
+    :43-95)."""
+    if args.parallel == "ep" and n > 1:
+        t = math.gcd(n, cfg.n_experts)
+        if t < 2:
+            raise SystemExit(f"expert parallelism needs gcd(devices={n}, "
+                             f"experts={cfg.n_experts}) ≥ 2")
+        if t < n:
+            say(f"ep: using {t} of {n} devices "
+                f"(gcd with {cfg.n_experts} experts)", flush=True)
+        if args.moe_dispatch == "a2a" and args.batch % t:
+            raise SystemExit(f"--batch {args.batch} must be divisible by "
+                             f"the {t}-way mesh for a2a dispatch")
+        # the ranks past t repeat the first t's work on the same batch
+        mesh = make_mesh(tensor=t, data=n // t, fsdp=1)
+        return (mesh, make_ep_train_step(cfg, mesh, optimizer,
+                                         dispatch=args.moe_dispatch),
+                lambda seed: init_ep_state(cfg, seed, mesh, optimizer,
+                                           device), ep_param_specs())
+    if args.parallel == "3d" and n > 1:
+        if n % 4:
+            raise SystemExit(f"--parallel 3d needs a multiple of 4 "
+                             f"devices (stage=2 x tensor=2), have {n}")
+        if cfg.n_layers % 2 or cfg.n_experts % 2:
+            raise SystemExit("moe 3d needs even layers/experts")
+        dp, micro = n // 4, 2
+        if args.batch % (dp * micro):
+            raise SystemExit(f"--batch {args.batch} must be divisible "
+                             f"by data({dp}) x microbatches({micro})")
+        mesh = make_mesh(stage=2, data=dp, fsdp=1, tensor=2)
+        return (mesh, make_moe_composed_train_step(cfg, mesh, micro,
+                                                   optimizer),
+                lambda seed: init_moe_composed_state(cfg, seed, mesh,
+                                                     optimizer, device),
+                moe_composed_param_specs())
+    if args.parallel not in ("none", "ep", "3d"):
+        raise SystemExit(f"--model moe_tiny supports --parallel "
+                         f"none|ep|3d, not {args.parallel}")
+    step_fn, init_fn = _moe_pair(cfg, optimizer, device)
+    return None, step_fn, init_fn, None
+
+
+def build_parallel(cfg, args, optimizer, device, n: int, say=print):
+    """(mesh, step_fn, init_fn, specs) for ``--model`` x ``--parallel``
+    over the process group's ``n`` ranks, ``specs`` the state's spec tree
+    over the mesh; None for the trainer's defaults (FSDP, one device).
+    One rank trains on one device whatever ``--parallel`` says, as the
+    reference does. Where the reference uses the first s of its devices
+    (``pp`` and ``ep`` take a gcd with the layers or experts), the ranks
+    past s repeat their work on the same batch (the mesh's data axis)."""
+    if args.moe_dispatch != "dense" and not (
+            args.model == "moe_tiny" and args.parallel == "ep" and n > 1):
+        raise SystemExit("--moe-dispatch a2a requires --model moe_tiny "
+                         "--parallel ep on >1 device")
     if args.model == "moe_tiny":
-        if args.parallel != "none" and n > 1:
-            raise SystemExit(f"--model moe_tiny supports --parallel none "
-                             f"only (expert parallelism is not ported), "
-                             f"not {args.parallel} on {n} ranks")
-        step_fn, init_fn = _moe_pair(cfg, optimizer, device)
-        return None, step_fn, init_fn
+        return _moe_parallel(cfg, args, optimizer, device, n, say)
     if args.parallel == "fsdp" and n > 1:
         if args.batch % n:
             raise SystemExit(f"--batch {args.batch} must be divisible by "
                              f"the {n}-way data·fsdp mesh")
-        return make_mesh(), None, None      # the trainer's FSDP defaults
+        return make_mesh(), None, None, None  # the trainer's FSDP defaults
     if args.parallel == "sp" and n > 1:
         if args.seq % n:
             raise SystemExit(f"--seq {args.seq} must be divisible by the "
@@ -103,8 +163,38 @@ def build_parallel(cfg, args, optimizer, device, n: int):
         return (mesh,
                 make_sp_train_step(cfg, mesh, optimizer,
                                    attn_impl=args.sp_attn),
-                lambda seed: init_train_state(cfg, seed, optimizer, device))
-    return None, None, None
+                lambda seed: init_train_state(cfg, seed, optimizer, device),
+                None)
+    if args.parallel == "pp" and n > 1:
+        s = math.gcd(n, cfg.n_layers)
+        if s < 2:
+            raise SystemExit(f"pipeline needs gcd(devices={n}, "
+                             f"layers={cfg.n_layers}) ≥ 2")
+        if args.batch % 2:
+            raise SystemExit("--batch must be divisible by 2 for pp")
+        micro = 4 if args.batch % 4 == 0 else 2
+        mesh = make_mesh(stage=s, data=n // s, fsdp=1)
+        return (mesh, make_pp_train_step(cfg, mesh, micro, optimizer),
+                lambda seed: init_pp_state(cfg, seed, mesh, optimizer,
+                                           device), pp_param_specs())
+    if args.parallel == "3d" and n > 1:
+        if n % 4:
+            raise SystemExit(f"--parallel 3d needs a multiple of 4 devices "
+                             f"(stage=2 x tensor=2), have {n}")
+        if cfg.n_heads % 2 or cfg.n_kv_heads % 2 or cfg.n_layers % 2:
+            raise SystemExit("--parallel 3d needs even heads/kv-heads/layers")
+        dp, micro = n // 4, 2
+        if args.batch % (dp * micro):
+            raise SystemExit(f"--batch {args.batch} must be divisible by "
+                             f"data({dp}) x microbatches({micro})")
+        mesh = make_mesh(stage=2, data=dp, fsdp=1, tensor=2)
+        return (mesh, make_composed_train_step(cfg, mesh, micro, optimizer),
+                lambda seed: init_composed_state(cfg, seed, mesh, optimizer,
+                                                 device),
+                composed_param_specs())
+    if args.parallel == "ep":
+        raise SystemExit("--parallel ep requires --model moe_tiny")
+    return None, None, None, None
 
 
 def _join_process_group(device: str) -> bool:
@@ -151,19 +241,22 @@ def main(argv=None, drain_signal: Optional[Callable[[], bool]] = None
                         "reads)")
     p.add_argument("--model", default="tiny",
                    choices=sorted(MODELS) + ["moe_tiny"])
-    p.add_argument("--parallel", default="none",
-                   choices=["none", "fsdp", "sp"],
-                   help="over the process group's ranks: fsdp (ZeRO-3) or "
-                        "sp (sequence parallel); one rank trains on one "
-                        "device either way")
+    p.add_argument("--parallel", default="fsdp",
+                   choices=["none", "fsdp", "sp", "pp", "ep", "3d"],
+                   help="over the process group's ranks: fsdp (ZeRO-3), sp "
+                        "(sequence parallel), pp (GPipe over the layers), "
+                        "ep (experts, moe_tiny), 3d (stage 2 x data x "
+                        "tensor 2); one rank trains on one device whatever "
+                        "it says")
     p.add_argument("--sp-attn", default="ring", choices=["ring", "ulysses"],
                    help="sequence-parallel attention: ring (K/V chunks "
                         "travel the ranks, any degree) or ulysses (head<->"
                         "sequence all-to-all; ranks must divide the heads)")
     p.add_argument("--moe-dispatch", default="dense",
                    choices=["dense", "a2a"],
-                   help="MoE dispatch; a2a needs expert parallelism over "
-                        "more than one device")
+                   help="EP dispatch: dense (replicated tokens) or "
+                        "capacity-based all-to-all (needs --parallel ep "
+                        "over more than one rank)")
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--seq", type=int, default=128)
@@ -185,9 +278,6 @@ def main(argv=None, drain_signal: Optional[Callable[[], bool]] = None
                         "badput families plus the goodput-summary gauges) "
                         "to PATH at exit")
     args = p.parse_args(argv)
-    if args.moe_dispatch != "dense":
-        raise SystemExit("--moe-dispatch a2a requires --model moe_tiny "
-                         "--parallel ep on >1 device")
 
     joined = _join_process_group(args.device)
     try:
@@ -204,10 +294,10 @@ def _train(args, drain_signal) -> int:
     else:
         cfg = MODELS[args.model](max_seq_len=args.seq)
     n = dist.get_world_size() if dist.is_initialized() else 1
-    mesh, step_fn, init_fn = build_parallel(cfg, args, optimizer,
-                                            args.device, n)
     main_rank = not dist.is_initialized() or dist.get_rank() == 0
     say = print if main_rank else (lambda *a, **k: None)
+    mesh, step_fn, init_fn, specs = build_parallel(cfg, args, optimizer,
+                                                   args.device, n, say)
     ledger = hub = None
     if args.goodput_log != "off" and main_rank:
         hub = MetricsHub()
@@ -219,7 +309,7 @@ def _train(args, drain_signal) -> int:
                                    device=args.device, step_fn=step_fn,
                                    init_fn=init_fn, ledger=ledger,
                                    metrics_sync_every=args.goodput_sync_every,
-                                   mesh=mesh)
+                                   mesh=mesh, specs=specs)
     state = trainer.init_or_resume(0)
     start_step = int(state.step)
 

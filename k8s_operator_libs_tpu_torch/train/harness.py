@@ -26,13 +26,15 @@ it.
 Under a mesh (the reference's ``mesh=``, :139-220) every rank runs the
 loop on the same global batches. A checkpoint does not depend on the
 mesh, as orbax's does not: rank 0 writes the whole tensors in the
-one-device format (the fsdp slices all-gathered leaf by leaf, which every
-rank joins), and a restore at any world size reads them and keeps this
-rank's slices. So a run saved at 2 ranks resumes at 1, and one saved at 1
-resumes at 2. A drain is agreed: each rank's signal is all-reduced (over a
-gloo group on the host, so the loop does not wait for the device) before
-every step, and all ranks stop at the same step for the one drain save.
-Only rank 0 writes files; give only its trainer a ledger.
+one-device format (each leaf all-gathered over every axis its spec
+splits it over, which every rank joins), and a restore at any mesh reads
+them and keeps this rank's slices. So a run saved at 2 ranks resumes at
+1, and one saved at 1 resumes at 2. A drain is agreed: each rank's
+signal is all-reduced (over a gloo group on the host, so the loop does
+not wait for the device) before every step, and all ranks stop at the
+same step for the one drain save. So is a resume: every rank restores
+the step rank 0 sees. Only rank 0 writes files; give only its trainer a
+ledger.
 
 With a :class:`~..obs.goodput.GoodputLedger` the loop records goodput
 windows and badput phases (the first step, which on the card includes the
@@ -109,14 +111,17 @@ class CheckpointingTrainer:
                  step_fn: Optional[Callable] = None,
                  init_fn: Optional[Callable] = None,
                  ledger=None, metrics_sync_every: int = 10,
-                 mesh: Optional[Mesh] = None):
+                 mesh: Optional[Mesh] = None, specs=None):
         """``step_fn(state, batch) -> (state, metrics)`` and
         ``init_fn(seed) -> TrainState`` default to the Llama pair of
         :mod:`..parallel.fsdp` on ``device`` (FSDP over ``mesh``'s fsdp
         axis when given); pass both to train another model family (MoE) or
         parallelism (sequence parallel) through the same checkpoint and
         drain machinery. A batch is an int array [B, T + 1], the global
-        batch on every rank.
+        batch on every rank. ``specs`` is the spec tree of the state's
+        parameters over ``mesh`` (the path's ``*_param_specs``; the
+        moments share it); None keeps every leaf whole, except for the
+        trainer's own FSDP pair, which takes the FSDP rule.
 
         ``ledger`` (a :class:`~..obs.goodput.GoodputLedger`, duck-typed)
         turns the run loop into a goodput recorder.
@@ -132,11 +137,12 @@ class CheckpointingTrainer:
         self.ledger = ledger
         self.metrics_sync_every = max(1, int(metrics_sync_every))
         self.mesh = mesh
-        # the fsdp rule where the state is sliced over more than one rank;
-        # None keeps every leaf whole (one rank, the sequence-parallel
-        # state, and trees other than the Llama one, as the MoE's)
-        self._specs = (param_specs() if mesh is not None
-                       and mesh.size("fsdp") > 1 else None)
+        # how the state is sliced over the mesh; None keeps every leaf
+        # whole (one rank, the sequence-parallel state)
+        if specs is None and step_fn is None and mesh is not None \
+                and mesh.size("fsdp") > 1:
+            specs = param_specs()
+        self._specs = specs if mesh is not None else None
         multi = dist.is_available() and dist.is_initialized() \
             and dist.get_world_size() > 1
         self._writer_rank = not multi or dist.get_rank() == 0
@@ -149,7 +155,7 @@ class CheckpointingTrainer:
                                                    mesh=mesh)
         self._init_fn = init_fn or (
             lambda seed: init_train_state(self.cfg, seed, self.optimizer,
-                                          self.device, mesh))
+                                          self.device, mesh, self._specs))
         self._writer = ThreadPoolExecutor(max_workers=1,
                                           thread_name_prefix="ckpt-writer")
         self._pending: Optional[Future] = None
@@ -176,7 +182,7 @@ class CheckpointingTrainer:
         """Fresh init, or the latest checkpoint loaded onto the device
         (this trainer's own save in flight included: it is waited for)."""
         self.wait()
-        latest = self.latest_step
+        latest = self._agreed_latest()
         if latest is None:
             logger.info("no checkpoint found, initializing from scratch")
             return self._init_fn(seed)
@@ -185,6 +191,18 @@ class CheckpointingTrainer:
             with self.ledger.phase("ckpt_restore"):
                 return self._restore(latest)
         return self._restore(latest)
+
+    def _agreed_latest(self) -> Optional[int]:
+        """The newest finished checkpoint as rank 0, the writer, sees it,
+        on every rank: another rank listing the directory itself could
+        miss the write rank 0 is still finishing and resume from an older
+        step, out of step with rank 0."""
+        latest = self.latest_step
+        if self._ctl is None:
+            return latest
+        t = torch.tensor([-1 if latest is None else latest])
+        dist.broadcast(t, src=0, group=self._ctl)
+        return None if int(t.item()) < 0 else int(t.item())
 
     def _restore(self, step: int) -> TrainState:
         path = self.dir / str(step) / STATE_FILE

@@ -300,6 +300,18 @@ FLASH_TOL = {torch.float32: (1e-4, 1e-4, 1e-4),
     (2, 130, 4, 2, 128, False),
 ])
 def test_flash_kernels_match_plain(cuda, dtype, B, T, H, KV, Dh, causal):
+    _hold_both_directions(cuda, dtype, B, T, H, KV, Dh, causal)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernels_at_a_tensor_parallel_rank_shape(cuda, dtype):
+    """A tensor-parallel rank's attention at Llama-3-8B width (tensor 2):
+    B 1, T 2048, its H/2 = 16 query and KV/2 = 4 K/V heads, Dh 128,
+    causal; the forward and both backward kernels against plain."""
+    _hold_both_directions(cuda, dtype, 1, 2048, 16, 4, 128, True)
+
+
+def _hold_both_directions(cuda, dtype, B, T, H, KV, Dh, causal):
     q, k, v, do = _qkv(cuda, dtype, B, T, H, KV, Dh)
     fa.reset_launch_counts()
     out, lse = fa.flash_forward(q, k, v, causal)

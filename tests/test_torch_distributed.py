@@ -155,10 +155,11 @@ def _collective_inputs(n, seed=0):
 
     xs = {"ppermute": r(n, 4, 6), "all_gather": r(n, 4, 6),
           "reduce_scatter": r(n, 4 * n, 6), "all_to_all": r(n, 4 * n, 6),
-          "psum": r(n, 4, 6), "replicate": np.repeat(r(1, 4, 6), n, 0)}
+          "psum": r(n, 4, 6), "replicate": np.repeat(r(1, 4, 6), n, 0),
+          "pmean": r(n, 4, 6), "pmax": r(n, 4, 6)}
     ws = {"ppermute": r(n, 4, 6), "all_gather": r(n, 4 * n, 6),
           "reduce_scatter": r(n, 4, 6), "all_to_all": r(n, 4, 6 * n),
-          "psum": r(n, 4, 6), "replicate": r(n, 4, 6)}
+          "psum": r(n, 4, 6), "replicate": r(n, 4, 6), "pmean": r(n, 4, 6)}
     return xs, ws
 
 
@@ -179,13 +180,15 @@ def _expected(n, xs, ws, r):
                                        for i in range(n)])),
         "psum": (xs["psum"].sum(0), ws["psum"][r]),
         "replicate": (xs["replicate"][r], ws["replicate"].sum(0)),
+        "pmean": (xs["pmean"].mean(0), ws["pmean"][r] / n),
     }
 
 
 @pytest.mark.parametrize("n", [2, 4])
 def test_collectives_and_their_transposes(n, tmp_path):
     """Each collective's value and its backward against numpy, and the
-    bytes the counter books (ring algorithms: per call and rank)."""
+    bytes the counter books (ring algorithms: per call and rank). pmax
+    has no backward: its result carries no gradient."""
     xs, ws = _collective_inputs(n)
     results = launch.run(ranks.collectives, n, xs, ws,
                          timeout=GROUP_TIMEOUT, workdir=str(tmp_path))
@@ -195,13 +198,17 @@ def test_collectives_and_their_transposes(n, tmp_path):
                                        atol=1e-6, err_msg=f"{kind} value")
             np.testing.assert_allclose(got[kind][1], grad, rtol=1e-6,
                                        atol=1e-6, err_msg=f"{kind} grad")
+        value, requires_grad = got["pmax"]
+        np.testing.assert_array_equal(value, xs["pmax"].max(0))
+        assert not requires_grad
         b = 4 * 4 * 6                       # one [4, 6] fp32 tile
         assert got["bytes"] == {
             "ppermute": 2 * b,              # forward and backward
             "all_gather": (n - 1) * b + (n - 1) * b,   # + backward's a2a
             "reduce_scatter": (n - 1) * b + (n - 1) * b,
             "all_to_all": 2 * (n - 1) * b,
-            "psum": int(2 * (n - 1) / n * b) * 2,      # psum + replicate
+            "psum": int(2 * (n - 1) / n * b) * 3,   # psum, replicate, pmean
+            "pmax": int(2 * (n - 1) / n * b),
         }, got["bytes"]
 
 

@@ -276,6 +276,20 @@ def test_cli_drains_at_one_rank_and_resumes_at_two(token_file, tmp_path,
         <= CLI_RTOL * straight_loss
 
 
+def test_cli_ranks_resume_from_the_writers_checkpoint(token_file,
+                                                      tmp_path):
+    """A drained run and the same command again in one process group,
+    rank 0's writes held back 1 s: the other rank reaches the resume
+    while the drain save is still being written, and must still resume
+    at rank 0's step 3 (not at the step it could list) and train 4-6."""
+    argv = _cli_argv(token_file, tmp_path / "ck")
+    res = launch.run(ranks.cli_slow_writer, 2, [(argv, 4), (argv, None)],
+                     1.0, timeout=GROUP_TIMEOUT, workdir=str(tmp_path))
+    assert [[r["rc"] for r in rank] for rank in res] == [[0, 0], [0, 0]]
+    assert "preempted at step 3; checkpoint 3 saved" in res[0][0]["out"]
+    assert "done: 3 steps" in res[0][1]["out"]
+
+
 def test_cli_joins_the_process_group_from_the_env(token_file, tmp_path,
                                                   straight_loss):
     """Two processes started as ``torchrun`` starts them (``RANK``,
@@ -324,11 +338,13 @@ def test_cli_joins_the_process_group_from_the_env(token_file, tmp_path,
     (["--parallel", "sp", "--seq", "15"], "--seq 15 must be divisible"),
     (["--parallel", "sp", "--sp-attn", "ulysses", "--model", "small"],
      "needs head count 12 divisible by 8"),
-    (["--parallel", "sp", "--model", "moe_tiny"], "supports --parallel none")])
+    (["--parallel", "sp", "--model", "moe_tiny"],
+     re.escape("--model moe_tiny supports --parallel none|ep|3d, not sp"))])
 def test_cli_rejects_what_the_reference_rejects(token_file, tmp_path, extra,
                                                 msg):
     """The reference's checks: the batch over fsdp, the sequence over
-    seq, the heads for Ulysses; and MoE takes no mesh in this port."""
+    seq, the heads for Ulysses; and the MoE under sp, with the
+    reference's message (``cmd/train.py:90-92``)."""
     import argparse
     from k8s_operator_libs_tpu_torch.models.moe import MoEConfig
     from k8s_operator_libs_tpu_torch.parallel.fsdp import default_optimizer
@@ -338,8 +354,33 @@ def test_cli_rejects_what_the_reference_rejects(token_file, tmp_path, extra,
                                zip(args[::2], args[1::2])})
     ns.batch, ns.seq = int(ns.batch), int(ns.seq)
     ns.sp_attn = getattr(ns, "sp_attn", "ring")
+    ns.moe_dispatch = getattr(ns, "moe_dispatch", "dense")
     cfg = (MoEConfig.tiny() if ns.model == "moe_tiny"
            else cli.MODELS[ns.model]())
     n = 8 if "ulysses" in extra else 2
     with pytest.raises(SystemExit, match=msg):
         cli.build_parallel(cfg, ns, default_optimizer(), "cpu", n)
+
+
+def test_cli_default_is_fsdp_as_the_reference(token_file, tmp_path):
+    """``--parallel`` defaults to fsdp, as ``cmd/train.py``'s does: two
+    CLI ranks started without it each hold 1/2 of every split leaf of the
+    state (the norms whole), and ``--model moe_tiny`` without it exits
+    with the reference's message, whatever the rank count."""
+    argv = _cli_argv(token_file, tmp_path / "ck")[:-2]      # no --parallel
+    argv[argv.index("--steps") + 1] = "2"
+    res = launch.run(ranks.cli_held, 2, argv, timeout=GROUP_TIMEOUT,
+                     workdir=str(tmp_path))
+    cfg = tllama.LlamaConfig.tiny()
+    whole = tllama.init_params(cfg, seed=0, device="cpu")
+    total = tllama.param_count(whole)
+    norms = sum(x.numel() for k, x in whole["blocks"].items()
+                if k.endswith("norm")) + whole["final_norm"].numel()
+    for r in res:
+        assert r["rc"] == 0
+        assert r["params"] == r["moments"] == (total - norms) // 2 + norms
+    moe = argv[:]
+    moe[moe.index("--model") + 1] = "moe_tiny"
+    with pytest.raises(SystemExit, match=re.escape(
+            "--model moe_tiny supports --parallel none|ep|3d, not fsdp")):
+        train.main(moe)

@@ -201,7 +201,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "models/moe.py", "parallel/expert.py", "obs/goodput.py",
         "parallel/comm.py", "parallel/mesh.py", "parallel/distributed.py",
         "parallel/launch.py", "parallel/ring_attention.py",
-        "parallel/ulysses.py", "parallel/long_context.py")} <= names
+        "parallel/ulysses.py", "parallel/long_context.py",
+        "parallel/pipeline.py", "parallel/composed.py")} <= names
     assert len(files) > 20
     banned = ("jax", "jaxlib", "ml_dtypes", "k8s_operator_libs_tpu")
     for path in files:

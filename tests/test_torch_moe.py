@@ -359,7 +359,8 @@ def _cli(tmp_path, ckpt, *extra, drain_signal=None, steps=6):
         tloader.write_token_file(str(data), _tokens(8, B=1, T=4000)[0])
     argv = ["--data", str(data), "--ckpt", str(tmp_path / ckpt), "--model",
             "moe_tiny", "--steps", str(steps), "--batch", "2", "--seq", "16",
-            "--ckpt-interval", "2", "--device", "cpu", *extra]
+            "--ckpt-interval", "2", "--device", "cpu", "--parallel", "none",
+            *extra]
     return train.main(argv, drain_signal=drain_signal)
 
 

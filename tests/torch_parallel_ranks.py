@@ -1,6 +1,8 @@
 """Rank bodies of the port's multi-process tests
 (``test_torch_distributed.py``, ``test_torch_ring.py``,
-``test_torch_fsdp_parallel.py``), run by ``parallel/launch.py``.
+``test_torch_fsdp_parallel.py``, ``test_torch_pipeline.py``,
+``test_torch_composed.py``, ``test_torch_expert.py``), run by
+``parallel/launch.py``.
 
 A spawned rank re-imports the module its function lives in, so this one
 imports torch, numpy and the port only: no JAX, no conftest. Every
@@ -13,13 +15,19 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from torch.utils._python_dispatch import TorchDispatchMode
+
 from k8s_operator_libs_tpu_torch import convert
 from k8s_operator_libs_tpu_torch.models import llama as tllama
+from k8s_operator_libs_tpu_torch.models import moe as tmoe
 from k8s_operator_libs_tpu_torch.ops import attention as tattn
-from k8s_operator_libs_tpu_torch.parallel import comm
+from k8s_operator_libs_tpu_torch.parallel import comm, composed, expert
 from k8s_operator_libs_tpu_torch.parallel import fsdp as tfsdp
-from k8s_operator_libs_tpu_torch.parallel import long_context
-from k8s_operator_libs_tpu_torch.parallel.mesh import make_mesh
+from k8s_operator_libs_tpu_torch.parallel import long_context, pipeline
+from k8s_operator_libs_tpu_torch.parallel.mesh import (AXES, Mesh,
+                                                       coordinates,
+                                                       make_mesh, mesh_shape,
+                                                       shard)
 from k8s_operator_libs_tpu_torch.parallel.ring_attention import ring_attention
 from k8s_operator_libs_tpu_torch.parallel.ulysses import ulysses_attention
 
@@ -82,10 +90,15 @@ def attention_and_sp_loss(cases, q, k, v, dout, impls, tree, tokens):
             sp_loss(impls, tree, tokens))
 
 
-def _full_state(state, mesh):
-    specs = tfsdp.param_specs()
-    whole = lambda t: tfsdp._tree_map(  # noqa: E731
-        lambda x, s: tfsdp.full_leaf(x, s, mesh), t, specs)
+def _whole(tree, specs, mesh):
+    """Every leaf gathered whole over the axes its spec splits."""
+    return tfsdp._tree_map(lambda x, s: tfsdp.full_leaf(x, s, mesh), tree,
+                           specs)
+
+
+def _full_state(state, mesh, specs=None):
+    specs = specs or tfsdp.param_specs()
+    whole = lambda t: _whole(t, specs, mesh)  # noqa: E731
     opt = state.opt_state
     return {"params": _np(whole(state.params)), "mu": _np(whole(opt.mu)),
             "nu": _np(whole(opt.nu)), "count": opt.count}
@@ -168,6 +181,7 @@ def collectives(xs, ws):
         "all_to_all": lambda x: comm.all_to_all(x, group, 0, 1),
         "psum": lambda x: comm.psum(x, group),
         "replicate": lambda x: comm.replicate(x, group),
+        "pmean": lambda x: comm.pmean(x, (group, None)),
     }
     comm.reset_counts()
     out = {}
@@ -176,6 +190,9 @@ def collectives(xs, ws):
         y = fn(x)
         (y * torch.tensor(ws[kind][rank])).sum().backward()
         out[kind] = (y.detach().numpy(), x.grad.numpy())
+    x = torch.tensor(xs["pmax"][rank]).requires_grad_()
+    y = comm.pmax(x, group)
+    out["pmax"] = (y.numpy(), y.requires_grad)
     out["bytes"] = dict(comm.BYTES)
     return out
 
@@ -200,6 +217,47 @@ def cli(argv, drain_at=None):
     return {"rc": rc, "out": buf.getvalue()}
 
 
+def cli_held(argv):
+    """:func:`cli` recording the elements of parameters and of first
+    moments this rank's trainer holds when its run starts."""
+    from k8s_operator_libs_tpu_torch.train import harness
+    held = {}
+    real = harness.CheckpointingTrainer.run
+
+    def run(self, state, *args, **kwargs):
+        held["params"] = sum(x.numel()
+                             for x in tllama.param_leaves(state.params))
+        held["moments"] = sum(x.numel() for x in
+                              tllama.param_leaves(state.opt_state.mu))
+        return real(self, state, *args, **kwargs)
+
+    harness.CheckpointingTrainer.run = run
+    try:
+        return {**cli(argv), **held}
+    finally:
+        harness.CheckpointingTrainer.run = real
+
+
+def cli_slow_writer(runs, delay):
+    """:func:`cli` for each (argv, drain_at) in turn, with each of rank
+    0's checkpoint writes held back ``delay`` seconds (a slow disk)."""
+    import time
+
+    from k8s_operator_libs_tpu_torch.train import harness
+    real = harness.torch.save
+
+    def slow(*args, **kwargs):
+        time.sleep(delay)
+        return real(*args, **kwargs)
+
+    if dist.get_rank() == 0:
+        harness.torch.save = slow
+    try:
+        return [cli(argv, drain_at) for argv, drain_at in runs]
+    finally:
+        harness.torch.save = real
+
+
 def hang():
     """Rank 0 waits in a collective that rank 1 does not join for ten
     minutes."""
@@ -219,3 +277,256 @@ def fail():
     dist.barrier()
     return rank
 
+
+
+# ------------------------------------------------- pipeline, 3-D, experts
+
+def fake_mesh(**sizes):
+    """Rank 0's view of a mesh of these sizes with no process group (each
+    collective the identity): enough for the shape checks a loss makes
+    when it is built."""
+    world = 1
+    for n in sizes.values():
+        world *= n
+    shape = mesh_shape(world, **sizes)
+    return Mesh(shape=shape, rank=0, coords=coordinates(shape, 0),
+                groups={a: None for a in AXES})
+
+
+class VocabWatch(TorchDispatchMode):
+    """Records the shape of every tensor an op returns whose last dim is
+    the whole vocabulary (the [*, V] logits a vocab-sharded loss must
+    never make)."""
+
+    def __init__(self, vocab):
+        super().__init__()
+        self.vocab, self.hits = vocab, []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in (out if isinstance(out, (tuple, list)) else (out,)):
+            if (isinstance(t, torch.Tensor) and t.dim() >= 2
+                    and t.shape[-1] == self.vocab):
+                self.hits.append((str(func), tuple(t.shape)))
+        return out
+
+
+def _local(tree, specs, mesh):
+    """This rank's slices of the one-rank ``tree``."""
+    return tfsdp._tree_map(lambda x, s: shard(x, s, mesh),
+                           convert.to_torch(tree, device="cpu"), specs)
+
+
+def _loss_grads(loss_fn, params, tokens, specs, mesh, vocab=None):
+    """The loss, every gradient gathered whole, the plain flash calls and
+    (``vocab``) the ops that made a full-vocab tensor."""
+    tattn.reset_launch_counts()
+    watch = VocabWatch(vocab) if vocab else None
+    if watch is not None:
+        with watch:
+            loss, grads = tfsdp.value_and_grad(loss_fn, params,
+                                               torch.tensor(tokens))
+    else:
+        loss, grads = tfsdp.value_and_grad(loss_fn, params,
+                                           torch.tensor(tokens))
+    return {"loss": float(loss), "grads": _np(_whole(grads, specs, mesh)),
+            "calls": dict(tattn.PLAIN_CALLS),
+            "full_vocab": None if watch is None else watch.hits}
+
+
+def _steps(step, params, batches, specs, mesh, lr):
+    """Optimizer steps from ``params`` and zero moments: each step's
+    metrics and the whole state after it."""
+    opt = tfsdp.default_optimizer(lr)
+    state = tfsdp.TrainState(params=params, opt_state=opt.init(params),
+                             step=0)
+    metrics, states = [], []
+    for b in batches:
+        state, m = step(state, torch.tensor(b))
+        metrics.append({"loss": float(m["loss"]),
+                        "grad_norm": float(m["grad_norm"]),
+                        "step": m["step"]})
+        states.append(_full_state(state, mesh, specs))
+    return {"metrics": metrics, "states": states}
+
+
+def _planted(module, name, fn, run):
+    """``run()`` with ``module.name`` replaced by ``fn``."""
+    real = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        return run()
+    finally:
+        setattr(module, name, real)
+
+
+def pp_group(tree, tokens, cases, batches, lr):
+    """Pipeline over every rank (stage = world): for each (M, remat) the
+    loss and whole gradients (and any full-vocab tensor made); the same
+    with the head's replicate planted away; 3 steps at M 4."""
+    _setup()
+    mesh = make_mesh(stage=dist.get_world_size(), fsdp=1)
+    specs = pipeline.pp_param_specs()
+    out = {}
+    for M, remat in cases:
+        cfg = _cfg(remat=remat)
+        out[(M, remat)] = _loss_grads(
+            pipeline.make_pp_loss(cfg, mesh, M),
+            _local(tree, specs, mesh), tokens, specs, mesh,
+            vocab=cfg.vocab_size)
+    out["planted"] = _planted(
+        pipeline, "head_input", lambda h, group: h,
+        lambda: _loss_grads(pipeline.make_pp_loss(_cfg(), mesh, 2),
+                            _local(tree, specs, mesh), tokens, specs, mesh))
+    out["steps"] = _steps(
+        pipeline.make_pp_train_step(_cfg(), mesh, 4,
+                                    tfsdp.default_optimizer(lr)),
+        _local(tree, specs, mesh), batches, specs, mesh, lr)
+    out["init"] = _np(_whole(pipeline.init_pp_state(
+        _cfg(), 3, mesh, device="cpu").params, specs, mesh))
+    return out
+
+
+def composed_group(tree, tokens, mesh_sizes, cases, batches, lr,
+                   plant=False, ckpt_dir=None):
+    """The composed Llama loss on a ``mesh_sizes`` mesh: for each (M,
+    remat) the loss and whole gradients; with ``plant``, the same with
+    the column-parallel input's replicate planted away; 3 steps at M 2
+    (``batches``); with ``ckpt_dir``, a checkpointed run resumed."""
+    _setup()
+    mesh = make_mesh(**mesh_sizes)
+    specs = composed.composed_param_specs()
+    out = {}
+    for M, remat in cases:
+        cfg = _cfg(remat=remat)
+        out[(M, remat)] = _loss_grads(
+            composed.make_composed_loss(cfg, mesh, M),
+            _local(tree, specs, mesh), tokens, specs, mesh,
+            vocab=cfg.vocab_size)
+    if plant:
+        out["planted"] = _planted(
+            composed, "column_input", lambda h, group: h,
+            lambda: _loss_grads(composed.make_composed_loss(_cfg(), mesh, 2),
+                                _local(tree, specs, mesh), tokens, specs,
+                                mesh))
+    if batches:
+        out["steps"] = _steps(
+            composed.make_composed_train_step(_cfg(), mesh, 2,
+                                              tfsdp.default_optimizer(lr)),
+            _local(tree, specs, mesh), batches, specs, mesh, lr)
+    if ckpt_dir:
+        out["resume"] = _composed_resume(mesh, specs, tokens, ckpt_dir)
+    return out
+
+
+def _composed_resume(mesh, specs, tokens, ckpt_dir):
+    """3 steps checkpointed at 2 (rank 0 writes whole tensors), then a new
+    trainer restores step 2 onto the mesh and takes step 3 again: its
+    loss and the restored state against the uninterrupted run's."""
+    from k8s_operator_libs_tpu_torch.train.harness import (
+        CheckpointingTrainer)
+    cfg = _cfg()
+    opt = tfsdp.default_optimizer()
+    step = composed.make_composed_train_step(cfg, mesh, 2, opt)
+
+    def trainer():
+        return CheckpointingTrainer(
+            cfg, ckpt_dir, optimizer=opt, checkpoint_interval=2,
+            device="cpu", step_fn=step, mesh=mesh, specs=specs,
+            init_fn=lambda seed: composed.init_composed_state(
+                cfg, seed, mesh, opt, device="cpu"))
+
+    t1 = trainer()
+    losses, at2 = [], None
+    state = t1.init_or_resume(0)
+    for _ in range(3):
+        state, m = step(state, torch.tensor(tokens))
+        losses.append(float(m["loss"]))
+        if state.step == 2:
+            t1.save(state, wait=True)
+            at2 = _full_state(state, mesh, specs)
+    t1.close()
+    t2 = trainer()
+    state = t2.init_or_resume(0)
+    restored = _full_state(state, mesh, specs)
+    _, m = step(state, torch.tensor(tokens))
+    t2.close()
+    return {"losses": losses, "resumed_loss": float(m["loss"]),
+            "at2": at2, "restored": restored, "step": 2}
+
+
+def _moe_cfg(**kw):
+    return tmoe.MoEConfig.tiny(dtype=torch.float32, **kw)
+
+
+def moe_composed_group(tree, tokens, mesh_sizes, coefs, batches, lr,
+                       cli_argv=None):
+    """The composed MoE loss for each router aux coefficient: the loss
+    and whole gradients; 3 steps; then, with ``cli_argv``, ``train.main``
+    drained before step 4 on rank 0 (:func:`cli`)."""
+    _setup()
+    mesh = make_mesh(**mesh_sizes)
+    specs = composed.moe_composed_param_specs()
+    out = {}
+    for coef in coefs:
+        out[coef] = _loss_grads(
+            composed.make_moe_composed_loss(
+                _moe_cfg(router_aux_coef=coef), mesh, 2),
+            _local(tree, specs, mesh), tokens, specs, mesh)
+    out["steps"] = _steps(
+        composed.make_moe_composed_train_step(_moe_cfg(), mesh, 2,
+                                              tfsdp.default_optimizer(lr)),
+        _local(tree, specs, mesh), batches, specs, mesh, lr)
+    if cli_argv is not None:
+        out["cli"] = cli(cli_argv, 4)
+    return out
+
+
+def ep_group(tree, tokens, cases, batches, lr, layer_case=None,
+             cli_runs=()):
+    """Expert parallelism over every rank (tensor = world). ``cases``:
+    (dispatch, capacity factor or None, aux coef, remat); each gives the
+    loss, the whole gradients and, for a2a, every layer's kept (token,
+    expert) mask on this rank's rows; then the dense loss with the
+    router's replicate planted away, 3 dense and 3 a2a steps,
+    ``moe_ffn_a2a`` alone on ``layer_case``, and :func:`cli` for each
+    (argv, drain_at) of ``cli_runs`` in turn."""
+    rank, n = _setup()
+    mesh = make_mesh(tensor=n, fsdp=1)
+    specs = expert.ep_param_specs()
+    out = {}
+    for dispatch, cf, coef, remat in cases:
+        cfg = _moe_cfg(router_aux_coef=coef, remat=remat)
+        record = []
+        loss_fn = (expert.make_ep_loss(cfg, mesh) if dispatch == "dense"
+                   else expert.make_ep_a2a_loss(cfg, mesh, cf, record))
+        res = _loss_grads(loss_fn, _local(tree, specs, mesh), tokens,
+                          specs, mesh)
+        res["routed"] = [m.numpy() for m, _ in record]
+        res["kept"] = [k.numpy() for _, k in record]
+        out[(dispatch, cf, coef, remat)] = res
+    out["planted"] = _planted(
+        tmoe, "_local_experts",
+        lambda t, start, count, group: t.narrow(-1, start, count),
+        lambda: _loss_grads(expert.make_ep_loss(_moe_cfg(), mesh),
+                            _local(tree, specs, mesh), tokens, specs, mesh))
+    for dispatch in ("dense", "a2a"):
+        out[("steps", dispatch)] = _steps(
+            expert.make_ep_train_step(_moe_cfg(), mesh,
+                                      tfsdp.default_optimizer(lr),
+                                      dispatch=dispatch),
+            _local(tree, specs, mesh), batches, specs, mesh, lr)
+    if layer_case is not None:
+        h, layer, cap = layer_case
+        Bl = h.shape[0] // n
+        local = {k: (torch.tensor(v).chunk(n)[rank]
+                     if k.startswith("w_") else torch.tensor(v))
+                 for k, v in layer.items()}
+        record = []
+        y, aux = tmoe.moe_ffn_a2a(
+            torch.tensor(h[rank * Bl:(rank + 1) * Bl]), local, _moe_cfg(),
+            mesh.groups["tensor"], cap, record)
+        out["layer"] = {"y": y.numpy(), "aux": float(aux),
+                        "kept": record[0][1].numpy()}
+    out["cli"] = [cli(argv, drain_at) for argv, drain_at in cli_runs]
+    return out
