@@ -154,8 +154,34 @@ Phases, each fatal on failure:
    steps, its loss falling; ``moe_tiny --parallel ep --moe-dispatch
    a2a`` at 2 ranks drained and resumed, against uninterrupted runs.
 
-Phases run in the order 1, 2, 3, 4, 7, 5, 6, 8, 9, 10, each with its wall
-seconds. At the end it prints ``{"kernels": [...]}``, then the serving and
+11. The elastic trainer (``train/harness.py``, ``elastic=True``) at
+   Llama-3-8B width, 2 layers, bf16, remat, B 4 x T 2048, on the one
+   card over gloo as phase 9. 11a: FSDP at 4 ranks for steps 1-2; a
+   reclaim whose survivors exclude rank 0 (the checkpoint writer and the
+   ledger move to the new rank 0); steps 3-4 at 2 ranks; a grow back to
+   4, its 2 joiners started by ``launch.Job`` when the notice is given;
+   steps 5-6. Checked: steps 1-6 once each, the same loss on every rank
+   of a step, 2 resizes and 4 members on every survivor, the reclaimed
+   ranks ended cleanly, one ledger run with a 4 -> 2 ``degraded``
+   record, two drain saves and two restores and no unavailability
+   window, each rank at most 1/n of the state + 1% after each restore,
+   2 launches of A-K1-3 per rank and step on ``wgmma``. Then, in the
+   grown group, a cold start from the grow's checkpoint (step 4) takes
+   steps 5-6: its losses and every parameter must be within the
+   reference's bounds (rel 1e-5, atol 1e-6) of the elastic run's, and a
+   planted resize that re-initializes both moments must not be. Prints ms
+   per step at each membership, each resize's drain-save and restore
+   seconds, the time from each notice to the next step, peak memory and
+   launches per rank. 11b: a reclaim that keeps the one member of an
+   NCCL group re-forms it (the communicator destroyed and re-created);
+   the steps must equal those of a run without it. 11c: the native token
+   loader (``native=True``, built with ``g++``) against numpy for every
+   step of 11a, whole and sharded; a ``CheckpointUploader`` mirrors 11a's
+   saves while it trains; after it, a one-rank restore from the mirror
+   equals one from the local directory.
+
+Phases run in the order 1, 2, 3, 4, 7, 5, 6, 8, 9, 10, 11, each with its
+wall seconds. At the end it prints ``{"kernels": [...]}``, then the serving and
 training numbers and the card's name, each on a line of its own; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -3281,6 +3307,529 @@ def phase_pp_tp_ep(torch):
     return stats
 
 
+# ------------------------------------------------------------ elastic
+
+# phase 11: the elastic trainer at Llama-3-8B width, FSDP over 4 -> 2 -> 4
+# ranks sharing the card over gloo (GLOO_LABEL, MP_TIMEOUT): steps 1-2 at
+# 4 ranks, a reclaim whose survivors exclude rank 0, steps 3-4 at 2, a
+# grow with 2 joiners, steps 5-6 at 4; each rank B/n x T 2048
+EL_LAYERS, EL_B, EL_T, EL_STEPS = 2, 4, 2048, 6
+EL_SHRINK_AT, EL_GROW_AT, EL_SEED = 2, 4, 23
+EL_NCCL_B = 2                   # 11b: one rank, phase 5's B 2 x T 2048
+# the cold start from the grow's checkpoint runs the same kernels on the
+# same ranks, shapes and batches as the elastic run's steps 5-6, so every
+# loss and parameter is expected bit-equal; the bound is the reference's
+# (tests/test_elastic.py: rel 1e-5, atol 1e-6), which the moment-reset
+# fault must exceed
+EL_RTOL, EL_ATOL = 1e-5, 1e-6
+EL_DISK_BYTES = 40e9            # 11a's 2 checkpoints of 8.92 GB, mirrored
+
+
+def _el_cfg(**kw):
+    from k8s_operator_libs_tpu_torch.models.llama import LlamaConfig
+    return LlamaConfig.llama3_8b(n_layers=EL_LAYERS, max_seq_len=EL_T, **kw)
+
+
+def _el_trainer(ckpt, membership, ledger):
+    """An elastic FSDP trainer over the current group (its own ledger
+    beside the checkpoints on every rank when ``ledger``)."""
+    from k8s_operator_libs_tpu_torch.obs.goodput import GoodputLedger
+    from k8s_operator_libs_tpu_torch.parallel.mesh import make_mesh
+    from k8s_operator_libs_tpu_torch.train.harness import (
+        CheckpointingTrainer)
+    book = GoodputLedger.for_checkpoint_dir(ckpt) if ledger else None
+    trainer = CheckpointingTrainer(
+        _el_cfg(), ckpt, device="cuda", mesh=make_mesh(), elastic=True,
+        membership=membership, ledger=book, checkpoint_interval=10**6,
+        metrics_sync_every=1)
+    return trainer, book
+
+
+def _el_run(torch, dist, trainer, data, B, shrink=None, grow=None,
+            plant=False, to_step=EL_STEPS):
+    """``trainer.run`` from its restored (or fresh) step to ``to_step`` on
+    the native token stream. ``shrink`` / ``grow``: rank 0's notice
+    (generation, after step, members, marker file or None). ``plant``
+    re-initializes both moments in every restore after the first. What
+    each step and restore saw on this rank, and the final parameters
+    (None for a reclaimed rank)."""
+    from k8s_operator_libs_tpu_torch.data.loader import TokenDataset
+    from k8s_operator_libs_tpu_torch.models.llama import param_leaves
+    from k8s_operator_libs_tpu_torch.ops import attention as fa
+    from k8s_operator_libs_tpu_torch.train.harness import (GrowNotice,
+                                                           ReclaimNotice)
+    real = trainer._restore
+    held, planted = [], {"on": False}
+
+    def restore(step):
+        s = real(step)
+        if planted["on"]:
+            for tree in (s.opt_state.mu, s.opt_state.nu):
+                for leaf in param_leaves(tree):
+                    leaf.zero_()
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        held.append((world, _state_bytes(s)))
+        return s
+
+    trainer._restore = restore
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.init_or_resume(0)
+    planted["on"] = plant
+    start = int(state.step)
+    fa.reset_launch_counts()
+    losses, walls, worlds, counts, notices = {}, {}, {}, {}, {}
+
+    def on_step(step, metrics):
+        losses[step] = float(metrics["loss"])
+        walls[step] = time.time()
+        worlds[step] = dist.get_world_size()
+        counts[step] = (dict(fa.LAUNCHES), dict(fa.ROUTE_LAUNCHES))
+
+    def notice(plan, make):
+        if plan is None or trainer.membership.generation != plan[0]:
+            return None
+        if max(losses, default=start) != plan[1]:
+            return None
+        notices[plan[1]] = time.time()
+        if plan[3] is not None:
+            Path(plan[3]).touch()     # the platform starts the joiners
+        return make(plan[2])
+
+    ds = TokenDataset(data, native=True)
+    check(ds.native, "phase 11: the native token loader did not load")
+    try:
+        result = trainer.run(
+            state, ds.batches(B, EL_T + 1, seed=EL_SEED, start_step=start),
+            to_step - start, on_step=on_step,
+            reclaim_signal=lambda: notice(shrink, ReclaimNotice),
+            grow_signal=lambda: notice(grow, GrowNotice))
+    finally:
+        ds.close()
+        trainer.close()
+    torch.cuda.synchronize()
+    out = {"start": start, "losses": losses, "walls": walls,
+           "worlds": worlds, "counts": counts, "notices": notices,
+           "held": held, "peak": torch.cuda.max_memory_allocated(),
+           "reshards": result.reshards, "device_count": result.device_count,
+           "preempted": result.preempted, "reclaimed": result.reclaimed,
+           "writer": trainer._writer_rank,
+           "generation": (trainer.membership.generation
+                          if trainer.membership is not None else None),
+           "backend": dist.get_backend() if dist.is_initialized() else None}
+    params = None if result.reclaimed else result.state.params
+    del state, result
+    return out, params, trainer.membership
+
+
+def _el_compare(torch, dist, a, b):
+    """Over every parameter leaf of every rank: the largest |a - b| and
+    whether each element is within EL_ATOL + EL_RTOL |b| (ranks compare
+    their own slices: the same mesh slices both runs alike)."""
+    from k8s_operator_libs_tpu_torch.models.llama import param_leaves
+    worst, far = 0.0, 0.0
+    for x, y in zip(param_leaves(a), param_leaves(b)):
+        d = (x.float() - y.float()).abs()
+        worst = max(worst, float(d.max()))
+        far = max(far, float((d > EL_ATOL + EL_RTOL * y.float().abs())
+                             .any()))
+    t = torch.tensor([worst, far])
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return {"max_abs": float(t[0]), "close": not bool(t[1])}
+
+
+def _el_twins(torch, dist, ckpt, data, membership, params):
+    """The cold start from the latest checkpoint (the grow's) to step 6,
+    held against the elastic run's final parameters; then a resize that
+    keeps every member but restores with both moments re-initialized,
+    held against the cold start (every rank of the grown group)."""
+    trainer, _ = _el_trainer(ckpt, membership, ledger=False)
+    cold, cold_params, membership = _el_run(torch, dist, trainer, data,
+                                            EL_B)
+    out = {"cold": cold,
+           "cold_vs_elastic": _el_compare(torch, dist, params, cold_params)}
+    del params
+    trainer, _ = _el_trainer(ckpt, membership, ledger=False)
+    planted, bad, _ = _el_run(
+        torch, dist, trainer, data, EL_B,
+        shrink=(membership.generation, cold["start"],
+                list(membership.members), None), plant=True)
+    out["planted"] = planted
+    out["planted_vs_cold"] = _el_compare(torch, dist, bad, cold_params)
+    del bad, cold_params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase11_member(data, work, survivors, grown, marker):
+    """A rank of the elastic job from its start (11a)."""
+    import torch
+    import torch.distributed as dist
+
+    from k8s_operator_libs_tpu_torch.parallel import launch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ckpt = str(Path(work) / "ckpt")
+    trainer, book = _el_trainer(ckpt, launch.membership(), ledger=True)
+    try:
+        out, params, membership = _el_run(
+            torch, dist, trainer, data, EL_B,
+            shrink=(0, EL_SHRINK_AT, survivors, None),
+            grow=(1, EL_GROW_AT, grown, marker))
+    finally:
+        book.close()
+    if not out["reclaimed"]:
+        out.update(_el_twins(torch, dist, ckpt, data, membership, params))
+    return out
+
+
+def phase11_joiner(data, work):
+    """A rank the grow added (11a): it joins generation 2, restores the
+    grow's save and trains steps 5-6, then the twins."""
+    import torch
+    import torch.distributed as dist
+
+    from k8s_operator_libs_tpu_torch.parallel import launch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    joined = time.time()
+    ckpt = str(Path(work) / "ckpt")
+    trainer, book = _el_trainer(ckpt, launch.membership(), ledger=True)
+    try:
+        out, params, membership = _el_run(torch, dist, trainer, data, EL_B)
+    finally:
+        book.close()
+    out["joined"] = joined
+    out.update(_el_twins(torch, dist, ckpt, data, membership, params))
+    return out
+
+
+def phase11_nccl_rank(data, work):
+    """11b: a reclaim whose survivors are this one member re-forms the
+    group through NCCL (the communicator destroyed and re-created); the
+    step after it against the same step with no resize."""
+    import torch
+    import torch.distributed as dist
+
+    from k8s_operator_libs_tpu_torch.parallel import comm, launch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    me = launch.membership()
+    trainer, _ = _el_trainer(str(Path(work) / "nccl_resized"), me, False)
+    comm.reset_counts()
+    resized, _, after = _el_run(torch, dist, trainer, data, EL_NCCL_B,
+                                shrink=(0, 1, [me.me], None), to_step=2)
+    resized["calls"] = dict(comm.CALLS)
+    torch.cuda.empty_cache()
+    trainer, _ = _el_trainer(str(Path(work) / "nccl_straight"), after,
+                             False)
+    straight, _, _ = _el_run(torch, dist, trainer, data, EL_NCCL_B,
+                             to_step=2)
+    torch.cuda.empty_cache()
+    return {"resized": resized, "straight": straight}
+
+
+def _el_whole_bytes():
+    """(bytes of the one-rank state's parameters and both moments, its
+    parameter count), from the shapes: matrices in the model's dtype,
+    norms in fp32, each moment in its parameter's dtype."""
+    import torch
+    cfg = _el_cfg()
+    L, D, H, KV, Dh, F, V = (cfg.n_layers, cfg.d_model, cfg.n_heads,
+                             cfg.n_kv_heads, cfg.head_dim, cfg.d_ff,
+                             cfg.vocab_size)
+    mats = 2 * V * D + L * (2 * D * H * Dh + 2 * D * KV * Dh + 3 * D * F)
+    norms = 2 * L * D + D
+    elem = torch.empty(0, dtype=cfg.dtype).element_size()
+    return 3 * (mats * elem + norms * 4), mats + norms
+
+
+def _el_launch_rows(results, stats):
+    """A-K1-3 launches by the rank's rows (B 1 at 4 ranks, B 2 at 2
+    ranks and in 11b), summed over ranks and runs, each step's own delta
+    (route ``wgmma`` only)."""
+    rows = {"b1": dict.fromkeys(FLASH_NAMES, 0),
+            "b2": dict.fromkeys(FLASH_NAMES, 0)}
+    for run in results:
+        prev = (dict.fromkeys(FLASH_NAMES, 0), {"wgmma": 0, "fma": 0})
+        for step in sorted(run["counts"]):
+            launches, routes = run["counts"][step]
+            n = run["worlds"][step]
+            B = EL_B // n if n > 1 else EL_NCCL_B
+            delta = {k: launches[k] - prev[0][k] for k in FLASH_NAMES}
+            check(delta == dict.fromkeys(FLASH_NAMES, EL_LAYERS),
+                  f"phase 11: step {step} at {n} ranks launched {delta}, "
+                  f"expected {EL_LAYERS} of each")
+            check(routes["fma"] == 0 and routes["wgmma"]
+                  - prev[1]["wgmma"] == 3 * EL_LAYERS,
+                  f"phase 11: step {step} took routes {routes}")
+            for k in FLASH_NAMES:
+                rows[f"b{B}"][k] += delta[k]
+            prev = (launches, routes)
+    stats["launches"] = rows
+    return rows
+
+
+def phase_elastic(torch):
+    """Phase 11: the elastic trainer on the card. 11a: FSDP at
+    Llama-3-8B width over 4 -> 2 -> 4 ranks (gloo), the shrink reclaiming
+    rank 0, the grow adding 2 joiners; the cold start from the grow's
+    checkpoint and a planted moment-reset resize. 11b: the NCCL
+    re-formation at world size 1. 11c: the native loader against numpy,
+    the uploader's mirror of 11a's saves, and a one-rank restore from it
+    against one from the local directory."""
+    import shutil
+
+    import numpy as np
+
+    from k8s_operator_libs_tpu_torch.data.loader import (TokenDataset,
+                                                         write_token_file)
+    from k8s_operator_libs_tpu_torch.obs import goodput
+    from k8s_operator_libs_tpu_torch.parallel import launch
+    from k8s_operator_libs_tpu_torch.train import CheckpointUploader
+    from k8s_operator_libs_tpu_torch.train.harness import (
+        CheckpointingTrainer)
+    from k8s_operator_libs_tpu_torch.train.uploader import _finalized_steps
+
+    held = torch.cuda.memory_allocated()
+    check(held < 2**30, f"phase 11: {held / 2**30:.1f} GiB of the earlier "
+                        f"phases is still allocated")
+    torch.cuda.empty_cache()
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_elastic"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    free = shutil.disk_usage(work).free
+    check(free >= EL_DISK_BYTES, f"phase 11: {free / 1e9:.1f} GB free "
+                                 f"under {work}, needs {EL_DISK_BYTES / 1e9}")
+    stats = {}
+    whole, n_params = _el_whole_bytes()
+    log(f"phase 11: the state is {n_params} parameters, {whole} bytes of "
+        f"parameters and moments (from the shapes); {free / 1e9:.1f} GB "
+        f"free on disk")
+
+    # 11c, the loader: native batches equal numpy's, sharded or not
+    data = str(work / "tokens.bin")
+    write_token_file(data, np.random.default_rng(11).integers(
+        0, _el_cfg().vocab_size, size=4_000_000))
+    native, plain = TokenDataset(data, native=True), TokenDataset(data,
+                                                                  native=False)
+    try:
+        check(native.native and not plain.native,
+              "phase 11c: the native loader did not load")
+        for shard in (None, (1, 4)):
+            for step in range(EL_STEPS):
+                a = native.sample_at(EL_B, EL_T + 1, EL_SEED, step, shard)
+                b = plain.sample_at(EL_B, EL_T + 1, EL_SEED, step, shard)
+                check(np.array_equal(a, b), f"phase 11c: native batch "
+                                            f"{step} shard {shard} differs")
+    finally:
+        native.close()
+        plain.close()
+    log(f"phase 11c: native and numpy batches equal for steps 0-"
+        f"{EL_STEPS - 1}, whole and shard (1, 4) (B {EL_B}, T {EL_T + 1})")
+
+    # 11a: 4 -> 2 -> 4 ranks, the uploader mirroring the saves meanwhile
+    ckpt, mirror = work / "ckpt", work / "mirror"
+    marker = work / "grow-notice"
+    uploader = CheckpointUploader(str(ckpt), str(mirror),
+                                  poll_seconds=1.0).start()
+    t0 = time.monotonic()
+    try:
+        with launch.Job(backend="gloo", timeout=MP_TIMEOUT,
+                        workdir=str(work)) as job:
+            start = job.members(0, 4)
+            survivors, grown = start[2:], start[2:] + job.members(4, 2)
+            job.start(phase11_member, start, data, str(work), survivors,
+                      grown, str(marker))
+            job.wait(until=marker.exists)
+            spawned = time.time()
+            job.start(phase11_joiner, grown, data, str(work), generation=2,
+                      only=grown[2:])
+            res = job.wait()
+        wall = time.monotonic() - t0
+        caught_up = uploader.wait_idle(timeout=600.0)
+    finally:
+        uploader.stop()
+    log(f"phase 11a: 6 processes over gloo, wall {wall:.1f} s")
+    for name in start[:2]:
+        r = res[name]
+        check(r["reclaimed"] and r["preempted"] and not r["writer"]
+              and sorted(r["losses"]) == [1, 2],
+              f"phase 11a: reclaimed {name} ended {r}")
+    for name in survivors:
+        r = res[name]
+        check(not r["preempted"] and not r["reclaimed"]
+              and r["reshards"] == 2 and r["device_count"] == 4
+              and sorted(r["losses"]) == list(range(1, EL_STEPS + 1)),
+              f"phase 11a: survivor {name}: reshards {r['reshards']}, "
+              f"device_count {r['device_count']}, steps "
+              f"{sorted(r['losses'])}")
+    for name in grown[2:]:
+        r = res[name]
+        check(r["start"] == EL_GROW_AT and sorted(r["losses"]) == [5, 6]
+              and r["device_count"] == 4,
+              f"phase 11a: joiner {name} ran {sorted(r['losses'])} from "
+              f"{r['start']}")
+    check([n for n, r in res.items() if r["writer"]] == [survivors[0]],
+          "phase 11a: the writer did not move to the shrink's first member")
+    for step in range(1, EL_STEPS + 1):
+        seen = {r["losses"][step] for r in res.values()
+                if step in r["losses"]}
+        check(len(seen) == 1 and all(map(math.isfinite, seen)),
+              f"phase 11a: step {step} losses {seen}")
+    losses = res[survivors[0]]["losses"]
+    log("phase 11a: losses " + ", ".join(
+        f"{s} {v:.6f}" for s, v in sorted(losses.items())))
+    stats["losses"] = losses
+
+    # what each rank held after each restore: at most 1/n + 1%
+    for name, r in res.items():
+        for n, b in r["held"] + r.get("cold", {}).get("held", []):
+            check(b <= whole / n * 1.01, f"phase 11a: {name} held {b} "
+                                         f"bytes at {n} ranks, over 1/{n} "
+                                         f"of {whole} + 1%")
+    log("phase 11a: held after each restore, share of the state: "
+        + "; ".join(f"{name} " + ", ".join(
+            f"{b / whole:.4f} at {n}" for n, b in r["held"])
+            for name, r in res.items()))
+
+    # ms per step at each membership: a step after one at the same size
+    walls = res[survivors[0]]["walls"]
+    worlds = res[survivors[0]]["worlds"]
+    for step in (2, 4, 6):
+        n = worlds[step]
+        check(worlds[step - 1] == n, f"phase 11a: steps {step - 1} and "
+                                     f"{step} at different sizes")
+        ms = (walls[step] - walls[step - 1]) * 1e3
+        stats[f"ms_per_step_{n}ranks_step{step}"] = ms
+        log(f"phase 11a: step {step} at {n} ranks {ms:.1f} ms "
+            f"({GLOO_LABEL})")
+    shrink_t = res[start[0]]["notices"][EL_SHRINK_AT]
+    grow_t = res[survivors[0]]["notices"][EL_GROW_AT]
+    stats["notice_to_step_shrink_s"] = walls[3] - shrink_t
+    stats["notice_to_step_grow_s"] = walls[5] - grow_t
+    joined = [res[n]["joined"] - grow_t for n in grown[2:]]
+    stats["joiners_spawned_after_notice_s"] = spawned - grow_t
+    stats["joiners_joined_after_notice_s"] = max(joined)
+    log(f"phase 11a: notice to the first step after it: shrink "
+        f"{walls[3] - shrink_t:.1f} s, grow {walls[5] - grow_t:.1f} s "
+        f"(joiners spawned {spawned - grow_t:.1f} s after the grow "
+        f"notice, in the group {max(joined):.1f} s after it)")
+
+    # the ledger: one run, through the writer's move
+    records = goodput.read_ledger(str(ckpt / goodput.LEDGER_BASENAME))
+    check(len(goodput.split_runs(records)) == 1
+          and goodput.unavailability_windows(records) == [],
+          "phase 11a: the ledger is not one run")
+    phases = [r for r in records if r["kind"] == "phase"]
+    degraded = [r for r in phases if r["phase"] == "degraded"]
+    check([(d["devices_before"], d["devices_after"]) for d in degraded]
+          == [(4, 2)] and degraded[0]["seconds_lost"] > 0,
+          f"phase 11a: degraded records {degraded}")
+    saves = [r for r in phases if r["phase"] == "drain_save"]
+    restores = [r for r in phases if r["phase"] == "ckpt_restore"]
+    check(len(saves) == 2 and len(restores) == 2,
+          f"phase 11a: {len(saves)} drain saves, {len(restores)} restores")
+    for kind, s, r in zip(("shrink", "grow"), saves, restores):
+        log(f"phase 11a: {kind}: drain save {s['duration_s']:.2f} s "
+            f"(device to host {s['fetch_s']:.2f} s, write "
+            f"{s['write_s']:.2f} s), restore {r['duration_s']:.2f} s, "
+            f"for {whole} bytes")
+        stats[f"{kind}_drain_save_s"] = s["duration_s"]
+        stats[f"{kind}_fetch_s"] = s["fetch_s"]
+        stats[f"{kind}_write_s"] = s["write_s"]
+        stats[f"{kind}_restore_s"] = r["duration_s"]
+    s = goodput.summarize(records)
+    log(f"phase 11a: ledger: degraded {degraded[0]['duration_s']:.1f} s at "
+        f"2 of 4 ranks, priced {degraded[0]['seconds_lost']:.1f} s; "
+        f"goodput {s['goodput_s']:.1f} s of {s['total_s']:.1f} s")
+    stats["degraded_seconds_lost"] = degraded[0]["seconds_lost"]
+
+    # the cold start and the planted fault (every rank of the grown group)
+    twins = res[survivors[0]]
+    cold = twins["cold"]
+    check(cold["start"] == EL_GROW_AT and twins["planted"]["reshards"] == 1,
+          f"phase 11a: the cold start began at {cold['start']}")
+    for step in (5, 6):
+        d = abs(cold["losses"][step] - losses[step])
+        check(d <= EL_RTOL * abs(losses[step]),
+              f"phase 11a: step {step} loss {losses[step]} vs the cold "
+              f"start's {cold['losses'][step]}")
+    cmp_cold, cmp_bad = twins["cold_vs_elastic"], twins["planted_vs_cold"]
+    check(cmp_cold["close"], f"phase 11a: the parameters after the grow "
+                             f"differ from the cold start's by "
+                             f"{cmp_cold['max_abs']:.3e}")
+    check(not cmp_bad["close"], "phase 11a: the bound passes a resize "
+                                "that re-initializes the moments")
+    log(f"phase 11a: cold start from step {EL_GROW_AT} at 4 ranks: losses "
+        f"5-6 {cold['losses'][5]:.6f}, {cold['losses'][6]:.6f} (elastic "
+        f"{losses[5]:.6f}, {losses[6]:.6f}); every parameter within "
+        f"atol {EL_ATOL} + rtol {EL_RTOL}, largest difference "
+        f"{cmp_cold['max_abs']:.3e}; planted moment reset: largest "
+        f"{cmp_bad['max_abs']:.3e}, over the bound: caught")
+    stats.update(cold_max_abs=cmp_cold["max_abs"],
+                 planted_max_abs=cmp_bad["max_abs"])
+    for name, r in res.items():
+        log(f"phase 11a: {name} peak {r['peak'] / 2**30:.1f} GiB, launches "
+            f"per kernel {r['counts'][max(r['counts'])][0]}")
+        stats[f"peak_bytes_{name}"] = r["peak"]
+
+    # 11c, the uploader: the mirror holds every finished step
+    local_steps = _finalized_steps(str(ckpt))
+    check(caught_up and local_steps == [str(EL_SHRINK_AT), str(EL_GROW_AT)]
+          and set(local_steps) <= set(_finalized_steps(str(mirror))),
+          f"phase 11c: local steps {local_steps}, mirrored "
+          f"{_finalized_steps(str(mirror))}")
+
+    # 11c: a one-rank restore from the mirror equals one from the disk
+    states = []
+    for root in (ckpt, mirror):
+        trainer = CheckpointingTrainer(_el_cfg(), str(root), device="cuda")
+        t2 = time.monotonic()
+        states.append(trainer.init_or_resume(0))
+        trainer.close()
+        log(f"phase 11c: one-rank restore of step {EL_GROW_AT} from "
+            f"{root.name}: {time.monotonic() - t2:.1f} s")
+    from k8s_operator_libs_tpu_torch.models.llama import param_leaves
+    x, y = states
+    check(x.step == y.step == EL_GROW_AT and all(
+        torch.equal(p, q) for t, u in ((x.params, y.params),
+                                       (x.opt_state.mu, y.opt_state.mu),
+                                       (x.opt_state.nu, y.opt_state.nu))
+        for p, q in zip(param_leaves(t), param_leaves(u))),
+        "phase 11c: the mirror's restore differs from the local one")
+    del states, x, y
+    torch.cuda.empty_cache()
+    log("phase 11c: the mirror's step-4 restore equals the local one "
+        "(every parameter and moment)")
+    shutil.rmtree(ckpt)
+    shutil.rmtree(mirror)
+
+    # 11b: the NCCL re-formation at world size 1
+    t1 = time.monotonic()
+    (one,) = launch.run(phase11_nccl_rank, 1, data, str(work),
+                        backend="nccl", timeout=MP_TIMEOUT, workdir=str(work))
+    a, b = one["resized"], one["straight"]
+    check(a["reshards"] == 1 and a["backend"] == "nccl"
+          and a["generation"] == 1 and a["calls"]["all_gather"] > 0,
+          f"phase 11b: {a['reshards']} resizes, backend {a['backend']}, "
+          f"generation {a['generation']}, collectives {a['calls']}")
+    check(a["losses"] == b["losses"], f"phase 11b: losses {a['losses']} "
+                                      f"after the NCCL re-formation vs "
+                                      f"{b['losses']} without it")
+    log(f"phase 11b: NCCL re-formed at world size 1 (the only NCCL resize "
+        f"one card allows), wall {time.monotonic() - t1:.1f} s; step 2 loss "
+        f"{a['losses'][2]:.6f} after it, {b['losses'][2]:.6f} without")
+    stats["nccl_step2_loss"] = a["losses"][2]
+
+    runs = list(res.values())
+    runs += [r[k] for r in res.values() if "cold" in r
+             for k in ("cold", "planted")]
+    runs += [a, b]
+    rows = _el_launch_rows(runs, stats)
+    log(f"phase 11: A-K1-3 launches, B 1 rows (4 ranks) {rows['b1']}, "
+        f"B 2 rows (2 ranks, 11b) {rows['b2']}")
+    shutil.rmtree(work, ignore_errors=True)
+    return stats
+
+
 def _log_bytes(tag, per_step, stats, key):
     total = sum(per_step.values())
     log(f"{tag}: bytes sent per step and rank, by kind: "
@@ -3336,6 +3885,7 @@ def main():
         moe_train.update(timed("phase 8b", phase_moe_train_parity, torch))
         multi = timed("phase 9", phase_multiprocess, torch)
         composed = timed("phase 10", phase_pp_tp_ep, torch)
+        elastic = timed("phase 11", phase_elastic, torch)
     except (SmokeFailure, subprocess.SubprocessError, OSError,
             RuntimeError, ValueError) as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
@@ -3407,11 +3957,27 @@ def main():
                          "bound_ms": k["bound_ms"],
                          "bound_by": k["bound_by"],
                          "library_ms": k["library_ms"]})
+    # phase 11's elastic FSDP ranks: B 1 x T 2048 at 4 ranks (the FSDP
+    # rank's case), B 2 at 2 ranks and in 11b (the main shape)
+    for path, measured in (("elastic_b1", "_fsdp"), ("elastic_b2", "")):
+        for kname, line in (("flash_forward", 236), ("flash_bwd_dq", 439),
+                            ("flash_bwd_dkv", 519)):
+            k = kernels[kname + measured]
+            rows.append({"name": f"{kname}_{path}", "route": "cuda",
+                         "source": CSRC.format("flash_attention_tc"),
+                         "replaces": f"{jax_attn}:{line}",
+                         "launches": elastic["launches"][path[-2:]][kname],
+                         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+                         "plain_ms": k["plain_ms"],
+                         "bound_ms": k["bound_ms"],
+                         "bound_by": k["bound_by"],
+                         "library_ms": k["library_ms"]})
     print(json.dumps({"kernels": rows}))
     for key, stats in (("serving", serve), ("training", training),
                        ("moe_serving", moe_serve), ("moe_training", moe_train),
                        ("multiprocess", multi),
                        ("pipeline_tensor_expert", composed),
+                       ("elastic", elastic),
                        ("flash_backward", kernels["backward"])):
         print(json.dumps({key: {k: (round(v, 6) if isinstance(v, float)
                                     else v) for k, v in stats.items()}}))

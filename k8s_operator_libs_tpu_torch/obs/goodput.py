@@ -12,9 +12,9 @@ train steps) or **badput**, segmented by cause:
                   device->host snapshot only)
 ``drain_save``    the synchronous drain-triggered save before exit
 ``ckpt_restore``  restoring the latest checkpoint on resume
-``degraded``      elastic mode's shrunken-mesh window, priced by the
-                  capacity lost (written by the reference's elastic
-                  trainer; the port reads it)
+``degraded``      the elastic trainer's window on fewer ranks than its
+                  baseline, priced by the capacity lost
+                  (:meth:`GoodputLedger.degraded`)
 ``idle_gap``      derived, never written: wall time between one run's
                   drain and the next run's first goodput step
 
@@ -141,6 +141,21 @@ class GoodputLedger:
         finally:
             self.record_phase(name, t0_wall,
                               max(0.0, self.clock.now() - t0_mono), **extra)
+
+    def degraded(self, start_wall: float, duration_s: float,
+                 devices_before: int, devices_after: int) -> None:
+        """An elastic resize's pricing: the job ran ``duration_s`` on
+        ``devices_after`` of its ``devices_before`` devices. The steps
+        already booked that wall time as goodput, so the priced loss is
+        the capacity share gone, ``seconds_lost``, which :func:`summarize`
+        charges instead of the duration (the reference's record, field
+        for field)."""
+        devices_before = max(1, int(devices_before))
+        lost = max(0.0, 1.0 - devices_after / devices_before)
+        self.record_phase("degraded", start_wall, float(duration_s),
+                          devices_before=devices_before,
+                          devices_after=int(devices_after),
+                          seconds_lost=round(duration_s * lost, 6))
 
     def first_step(self, step: int, wall_s: float, tokens: int) -> None:
         """The first step of a run is compile/rewarmup badput, not

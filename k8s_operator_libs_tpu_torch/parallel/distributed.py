@@ -10,13 +10,21 @@ Service) and, for a job over several slices, ``MEGASCALE_NUM_SLICES`` and
 rank, world size and rendezvous: a TCP store at the coordinator's address
 (rank 0 serves it). A single-host job returns None and initializes
 nothing, so one entry point runs everywhere.
+
+An elastic job re-forms its group when ranks leave or join
+(:class:`Membership`): a ``torch.distributed`` world cannot add or drop a
+rank in place, so every member destroys the group (and with it every
+subgroup) and the members of the next generation join a new one, through
+a rendezvous of that generation alone.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
-from typing import Optional
+from typing import Optional, Sequence
+from urllib.parse import urlsplit
 
 import torch
 import torch.distributed as dist
@@ -46,6 +54,85 @@ def cluster_env(environ=None) -> Optional[dict]:
         rank += int(env.get("MEGASCALE_SLICE_ID", "0")) * num_hosts
     return {"init_method": f"tcp://{coordinator}",
             "world_size": num_hosts * num_slices, "rank": rank}
+
+
+def cluster_membership(environ=None,
+                       backend: Optional[str] = None
+                       ) -> Optional["Membership"]:
+    """This host's :class:`Membership` of the group :func:`cluster_env`
+    describes, its members named ``"<hostname>/cuda:0"`` in rank order;
+    None where :func:`cluster_env` is None or the job spans slices (the
+    env names only this slice's hosts)."""
+    env = os.environ if environ is None else environ
+    kwargs = cluster_env(env)
+    if kwargs is None or int(env.get("MEGASCALE_NUM_SLICES", "1")) > 1:
+        return None
+    hosts = [h for h in env["TPU_WORKER_HOSTNAMES"].split(",") if h]
+    members = tuple(f"{h}/cuda:0" for h in hosts)
+    return Membership(rendezvous=kwargs["init_method"], members=members,
+                      me=members[kwargs["rank"]],
+                      backend=backend or default_backend())
+
+
+@dataclasses.dataclass(frozen=True)
+class Membership:
+    """One generation of an elastic job's process group. ``members`` name
+    the ranks' devices (opaque strings, e.g. ``"<host>/cuda:<i>"``) in
+    rank order; ``me`` is this process's. ``rendezvous`` is the job's
+    ``init_method``: ``file://<path>`` (one host or a shared file
+    system) or ``tcp://<host>:<port>``."""
+
+    rendezvous: str
+    members: Sequence[str]
+    me: str
+    backend: str
+    generation: int = 0
+
+    @property
+    def rank(self) -> int:
+        return list(self.members).index(self.me)
+
+    def init_method(self) -> str:
+        """This generation's rendezvous. A file store is never reused
+        across inits (a stale file deadlocks or mis-ranks the next one),
+        so each generation has its own path. A TCP store is served by
+        rank 0, so generation g's is served by its first member, on the
+        host its name starts with, at the job's port + g: it does not
+        depend on a rank that left."""
+        if self.generation == 0:
+            return self.rendezvous
+        if self.rendezvous.startswith("file://"):
+            return f"{self.rendezvous}.g{self.generation}"
+        url = urlsplit(self.rendezvous)
+        if url.scheme != "tcp" or url.port is None:
+            raise ValueError(f"rendezvous {self.rendezvous!r} is neither "
+                             f"file:// nor tcp://host:port")
+        host = str(self.members[0]).split("/")[0]
+        return f"tcp://{host}:{url.port + self.generation}"
+
+    def join(self) -> None:
+        """Join this generation's group as ``rank``."""
+        logger.info("joining generation %d as rank %d of %d",
+                    self.generation, self.rank, len(self.members))
+        dist.init_process_group(self.backend,
+                                init_method=self.init_method(),
+                                world_size=len(self.members),
+                                rank=self.rank)
+
+    def reform(self, members: Sequence[str]) -> Optional["Membership"]:
+        """Leave this generation's group and, when ``me`` is among
+        ``members``, join the next generation's over them (their order is
+        the new rank order); None for a member that left. Every member of
+        this generation calls it with the same list; a new member joins
+        with ``Membership(..., members, me, generation=g + 1).join()``."""
+        if dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
+        nxt = dataclasses.replace(self, members=tuple(members),
+                                  generation=self.generation + 1)
+        if self.me not in nxt.members:
+            return None
+        nxt.join()
+        return nxt
 
 
 def default_backend(device: str = "cuda", environ=None) -> str:

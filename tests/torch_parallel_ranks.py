@@ -530,3 +530,169 @@ def ep_group(tree, tokens, cases, batches, lr, layer_case=None,
                         "kept": record[0][1].numpy()}
     out["cli"] = [cli(argv, drain_at) for argv, drain_at in cli_runs]
     return out
+
+
+# ------------------------------------------------------------- elastic
+
+ELASTIC_SEQ = 16          # tokens per row the elastic runs train on
+
+def reform_member(shrink_to, grow_to):
+    """The members of each generation as every rank of it sees them (an
+    all-gather of names) and an all-reduce over it: the launch's group,
+    then the group re-formed over ``shrink_to``, then over ``grow_to``
+    (which adds joiners: :func:`reform_joiner`)."""
+    from k8s_operator_libs_tpu_torch.parallel import launch
+    _setup()
+    m = launch.membership()
+    seen = [_generation_view(m)]
+    for members in (shrink_to, grow_to):
+        m = m.reform(members)
+        if m is None:
+            return {"left_at": len(seen), "seen": seen}
+        seen.append(_generation_view(m))
+    return {"left_at": None, "seen": seen}
+
+
+def reform_joiner():
+    from k8s_operator_libs_tpu_torch.parallel import launch
+    _setup()
+    return {"left_at": None, "seen": [_generation_view(launch.membership())]}
+
+
+def _generation_view(m):
+    names = [None] * dist.get_world_size()
+    dist.all_gather_object(names, m.me)
+    total = torch.tensor([float(dist.get_rank() + 1)])
+    dist.all_reduce(total)
+    return {"generation": m.generation, "rank": dist.get_rank(),
+            "names": names, "sum": float(total), "init": m.init_method()}
+
+
+def _elastic_trainer(tree, ckpt, lr, ledger=True):
+    """An elastic FSDP trainer of the tiny fp32 Llama over the launched
+    group, its state initialized from ``tree`` (the JAX parameters),
+    every rank holding the ledger beside the checkpoints."""
+    from k8s_operator_libs_tpu_torch.obs.goodput import GoodputLedger
+    from k8s_operator_libs_tpu_torch.parallel import launch
+    from k8s_operator_libs_tpu_torch.train.harness import CheckpointingTrainer
+    opt = tfsdp.default_optimizer(lr)
+
+    def init_factory(mesh):
+        return lambda seed: tfsdp.init_train_state(
+            _cfg(), seed, opt, "cpu", mesh,
+            params_init=lambda cfg, seed, device: convert.to_torch(
+                tree, device=device))
+
+    mesh = make_mesh()
+    book = GoodputLedger.for_checkpoint_dir(ckpt) if ledger else None
+    trainer = CheckpointingTrainer(
+        _cfg(), ckpt, optimizer=opt, device="cpu", mesh=mesh,
+        checkpoint_interval=100, ledger=book, metrics_sync_every=2,
+        elastic=True, membership=launch.membership(),
+        init_fn=init_factory(mesh), init_factory=init_factory)
+    return trainer, book
+
+
+def _elastic_run(trainer, data, batch, seed, steps, reclaim=None,
+                 grow=None, plant=None):
+    """``trainer.run`` to step ``steps`` on the native token stream from
+    the state's step; rank 0's notices as ``reclaim`` / ``grow`` plan
+    them ((generation, step, members): after that step, in that
+    generation of the group, so that a new rank 0 does not repeat one;
+    or None); ``plant`` wraps the
+    trainer's restore after the first. The losses by step, the result
+    and, on rank 0 of the last group, the whole parameters (gathered,
+    every rank still in the group joining)."""
+    from k8s_operator_libs_tpu_torch.data.loader import TokenDataset
+    from k8s_operator_libs_tpu_torch.parallel.fsdp import _tree_map, full_leaf
+    from k8s_operator_libs_tpu_torch.train.harness import (GrowNotice,
+                                                           ReclaimNotice)
+    from k8s_operator_libs_tpu_torch.parallel.mesh import param_specs
+    state = trainer.init_or_resume(0)
+    start = int(state.step)
+    if plant is not None:
+        trainer._restore = plant(trainer._restore)
+    losses = {}
+
+    def notice(plan, make):
+        if plan is None or trainer.membership.generation != plan[0]:
+            return None
+        if max(losses, default=start) == plan[1]:
+            return make(plan[2])
+        return None
+
+    ds = TokenDataset(data, native=True)
+    try:
+        result = trainer.run(
+            state, ds.batches(batch, ELASTIC_SEQ + 1, seed=seed,
+                              start_step=start),
+            steps - start,
+            on_step=lambda s, m: losses.__setitem__(s, float(m["loss"])),
+            reclaim_signal=lambda: notice(reclaim, ReclaimNotice),
+            grow_signal=lambda: notice(grow, GrowNotice))
+    finally:
+        ds.close()
+        trainer.close()
+    out = {"start": start, "losses": losses, "reshards": result.reshards,
+           "device_count": result.device_count,
+           "preempted": result.preempted, "reclaimed": result.reclaimed,
+           "steps_done": result.steps_done,
+           "writer": trainer._writer_rank,
+           "generation": (trainer.membership.generation
+                          if trainer.membership else None)}
+    if not result.reclaimed:
+        whole = _tree_map(lambda t, s: full_leaf(t, s, trainer.mesh),
+                          result.state.params, param_specs())
+        out["params"] = _np(whole) if trainer._writer_rank else None
+    return out
+
+
+def elastic_member(tree, data, ckpt, lr, batch, seed, steps, reclaim,
+                   grow):
+    """A rank of the job from its start: shrinks and grows as rank 0's
+    notices say."""
+    _setup()
+    trainer, book = _elastic_trainer(tree, ckpt, lr)
+    try:
+        return _elastic_run(trainer, data, batch, seed, steps, reclaim,
+                            grow)
+    finally:
+        book.close()
+
+
+def elastic_joiner(tree, data, ckpt, lr, batch, seed, steps):
+    """A rank a grow added: restores the grow's save and trains the
+    steps left on the stream from there."""
+    _setup()
+    trainer, book = _elastic_trainer(tree, ckpt, lr)
+    try:
+        return _elastic_run(trainer, data, batch, seed, steps)
+    finally:
+        book.close()
+
+
+def elastic_cold(tree, data, ckpt, lr, batch, seed, steps, plant):
+    """A cold start from the latest checkpoint to step ``steps``; with
+    ``plant``, then a resize (a reclaim that keeps every member) whose
+    restore re-initializes both moments, from the same checkpoint."""
+    _setup()
+    trainer, _ = _elastic_trainer(tree, ckpt, lr, ledger=False)
+    out = {"cold": _elastic_run(trainer, data, batch, seed, steps)}
+    if plant:
+        from k8s_operator_libs_tpu_torch.parallel import launch
+        trainer, _ = _elastic_trainer(tree, ckpt, lr, ledger=False)
+
+        def moments_reset(real):
+            def restore(step):
+                s = real(step)
+                for m in (s.opt_state.mu, s.opt_state.nu):
+                    for leaf in tllama.param_leaves(m):
+                        leaf.zero_()
+                return s
+            return restore
+
+        out["planted"] = _elastic_run(
+            trainer, data, batch, seed, steps, plant=moments_reset,
+            reclaim=(0, out["cold"]["start"],
+                     list(launch.membership().members)))
+    return out
