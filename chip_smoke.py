@@ -124,7 +124,7 @@ Phases, each fatal on failure:
    Ulysses 1, all ``wgmma``), ms per step, peak memory and the bytes of
    each collective kind per step (with what they would take at NVLink's
    rate, a reckoning); then fp32 at T 1024 against the plain attention.
-   9b: FSDP over 2 ranks, 4 layers, B 2 x T 2048: loss and gradients
+   9b: FSDP over 2 ranks, 2 layers, B 2 x T 2048: loss and gradients
    against the one-rank step, each rank's parameters and moments at most
    1/2 of the one-rank state + 1%, launches, ms per step, peak memory.
    9c: the same SP and FSDP steps through an NCCL group of one rank.
@@ -134,11 +134,11 @@ Phases, each fatal on failure:
 10. Pipeline, 3-D and expert parallelism at Llama-3-8B width on the one
    card over gloo, as phase 9, each step held against its one-rank step
    (run first in rank 0, then freed to the host) by phase 9's bounds,
-   every gradient leaf gathered to rank 0. 10a: GPipe over 2 ranks, 4
-   layers, M 4, B 4 x T 2048: (L/S)(S + M - 1) = 10 launches of each
+   every gradient leaf gathered to rank 0. 10a: GPipe over 2 ranks, 2
+   layers, M 4, B 4 x T 2048: (L/S)(S + M - 1) = 5 launches of each
    flash kernel per rank (bubble ticks compute on zeros, as the
    reference's do), ms per step, bytes per collective kind, peak. 10b:
-   stage 2 x tensor 2 on 4 ranks, 4 layers, M 2, B 2 x T 2048: 6
+   stage 2 x tensor 2 on 4 ranks, 2 layers, M 2, B 2 x T 2048: 3
    launches of each per rank at 16/4 heads, each rank at most 1/4 of the
    layer stacks and 1/2 of embed/lm_head + 1%, and the step without the
    replicate before the column-parallel matmuls (a planted fault) must
@@ -180,8 +180,31 @@ Phases, each fatal on failure:
    saves while it trains; after it, a one-rank restore from the mirror
    equals one from the local directory.
 
-Phases run in the order 1, 2, 3, 4, 7, 5, 6, 8, 9, 10, 11, each with its
-wall seconds. At the end it prints ``{"kernels": [...]}``, then the serving and
+12. One rank per GPU under the operator, and tensor-parallel decoding,
+   on the one card over gloo as phase 9. 12a: the port's GPU scheduler
+   (``gpu/scheduler.py``) places a workload on two in-script nodes that
+   GPU Feature Discovery's labels call this card's product with 2 GPUs
+   each: one pod per node requesting both, a headless Service, an env
+   with ``LOCAL_WORLD_SIZE`` 2. The four processes started from the
+   pods' env (``LOCAL_RANK`` 0 and 1 each, the coordinator at localhost)
+   join one gloo group through ``cluster_env``: ranks 0-3, world 4, each
+   named ``<pod>.<service>/cuda:<local rank>``. They take FSDP at
+   Llama-3-8B width, 2 layers, bf16, remat, B 4 x T 2048: one step's
+   loss and every gradient against the one-rank step within phase 9's
+   bounds, then 2 optimizer steps, the same loss on every rank, 2
+   launches of A-K1-3 per rank and step on ``wgmma``; ms per step per
+   rank. 12b: ``make_tp_generate`` over 2 tensor ranks at Llama-3-8B,
+   all 32 layers, bf16 (each rank half of every block's heads and FFN
+   columns, the embedding and lm_head whole), phase 3's prompts, 32
+   greedy tokens each: the tokens equal the one-rank ``generate``'s (run
+   first, then freed) up to the first position whose top-2 logit gap is
+   under ``SPEC_GAP_EPS`` (the sums' order may flip a near-tie in bf16);
+   its fp32 twin at 2 layers token for token. Prints ms per decode step
+   per rank and one rank's alone (two points: 32 tokens less 2), the
+   bytes each decode step sums per rank, weights held and peak memory.
+
+Phases run in the order 1, 2, 3, 4, 7, 5, 6, 8, 9, 10, 11, 12, each with
+its wall seconds. At the end it prints ``{"kernels": [...]}``, then the serving and
 training numbers and the card's name, each on a line of its own; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -507,15 +530,19 @@ def phase_kernels(torch):
 
 # ------------------------------------------------------------ flash kernels
 
-# phase 9's shapes: its ranks share the one card (see phase_multiprocess)
+# phase 9's shapes: its ranks share the one card (see phase_multiprocess).
+# 9b and 10a-10b are cut from Llama-3-8B's 32 layers to 2 (4 before phase
+# 12 joined): a step's gloo-staged bytes, and with them its time, grow
+# with the layers, and what these phases check (the collectives, their
+# transposes, each rank's shards) is the same at any depth
 MP_RANKS = 2
 SP_LAYERS, SP_B, SP_T = 2, 1, 8192          # 9a, bf16
 SP32_B, SP32_T = 2, 1024                    # 9a, fp32 against plain
-FSDP_LAYERS, FSDP_B, FSDP_T = 4, 2, 2048    # 9b
+FSDP_LAYERS, FSDP_B, FSDP_T = 2, 2, 2048    # 9b
 # phase 10's (see phase_pp_tp_ep): pipeline (stages, microbatches), 3-D
 # (stage 2 x tensor 2, microbatches), experts (MoE 8 experts, top-2)
-PP_LAYERS, PP_S, PP_M, PP_B, PP_T = 4, 2, 4, 4, 2048         # 10a
-TD_LAYERS, TD_S, TD_TP, TD_M, TD_B, TD_T = 4, 2, 2, 2, 2, 2048  # 10b
+PP_LAYERS, PP_S, PP_M, PP_B, PP_T = 2, 2, 4, 4, 2048         # 10a
+TD_LAYERS, TD_S, TD_TP, TD_M, TD_B, TD_T = 2, 2, 2, 2, 2, 2048  # 10b
 EP_LAYERS, EP_RANKS, EP_B, EP_T, EP_CF = 2, 2, 2, 2048, 2.0   # 10c
 # 10c holds every gradient leaf in fp32: in bf16 a rank's experts' partial
 # outputs are rounded before their psum (as the reference's are), and a
@@ -3830,6 +3857,408 @@ def phase_elastic(torch):
     return stats
 
 
+# ------------------------------- placed ranks and tensor-parallel decoding
+
+# phase 12a: the port's GPU scheduler places a workload on PL_NODES
+# in-script nodes of PL_GPUS GPUs (GFD's labels, the card's own product),
+# and the processes the placed pods start, one per GPU, train FSDP at
+# phase 11a's 4-rank shape: Llama-3-8B width, 2 layers, B 4 x T 2048
+PL_NODES, PL_GPUS = 2, 2
+PL_LAYERS, PL_B, PL_T, PL_STEPS = 2, 4, 2048, 2
+# phase 12b: tensor-parallel decoding on TPD_RANKS ranks at Llama-3-8B's
+# full depth in bf16 (phase 3's prompts, MAX_NEW greedy tokens), then its
+# fp32 twin at TPD32_LAYERS layers; ms per decode step by two points (a
+# decode of MAX_NEW tokens less one of TPD_SHORT, over the steps between)
+TPD_RANKS, TPD32_LAYERS, TPD_SHORT = 2, 2, 2
+
+
+class PlacementCluster:
+    """The nodes the GPU scheduler sees in phase 12a, and the pods and
+    Services it creates there: the client surface it takes (``direct``,
+    ``list_nodes``, ``list_pods``, ``create_pod``, ``create_service``,
+    ``delete_pod``). Nodes are Ready and
+    schedulable, labelled as GPU Feature Discovery labels a node."""
+
+    def __init__(self, names, product, gpus):
+        import types
+
+        from k8s_operator_libs_tpu_torch.gpu import (COUNT_LABEL,
+                                                     PRODUCT_LABEL)
+        self.nodes = [types.SimpleNamespace(
+            metadata=types.SimpleNamespace(
+                name=n, labels={PRODUCT_LABEL: product,
+                                COUNT_LABEL: str(gpus)}),
+            spec=types.SimpleNamespace(unschedulable=False),
+            is_ready=lambda: True) for n in names]
+        self.pods, self.services = {}, {}
+
+    def direct(self):
+        return self
+
+    def list_nodes(self):
+        return list(self.nodes)
+
+    def list_pods(self, namespace=None, label_selector=None):
+        return [p for p in self.pods.values()
+                if namespace in (None, p.metadata.namespace)
+                and all(p.metadata.labels.get(k) == v
+                        for k, v in (label_selector or {}).items())]
+
+    def create_pod(self, pod):
+        self.pods[pod.metadata.name] = pod
+        return pod
+
+    def create_service(self, svc):
+        self.services[svc.metadata.name] = svc
+        return svc
+
+    def delete_pod(self, namespace, name):
+        del self.pods[name]
+
+
+def phase12_placed_rank():
+    """12a in one rank started from a placed pod's env: the one-rank step
+    (rank 0, then freed), FSDP's step over every rank against it, then
+    PL_STEPS timed optimizer steps."""
+    import torch
+    import torch.distributed as dist
+
+    from k8s_operator_libs_tpu_torch.models.llama import (LlamaConfig,
+                                                          init_params)
+    from k8s_operator_libs_tpu_torch.ops import attention as fa
+    from k8s_operator_libs_tpu_torch.parallel import comm, fsdp, launch
+    from k8s_operator_libs_tpu_torch.parallel.mesh import (make_mesh,
+                                                           param_specs)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = LlamaConfig.llama3_8b(n_layers=PL_LAYERS, max_seq_len=PL_T)
+    tokens = _tokens(torch, cfg, PL_B, PL_T, 13)
+    ref = _one_rank_ref(torch, dist, lambda p, t: fsdp.causal_lm_loss(
+        p, t, cfg), lambda: init_params(cfg, seed=0, device="cuda"), tokens)
+    mesh = make_mesh()
+    specs = param_specs()
+    state = fsdp.init_train_state(cfg, seed=0, device="cuda", mesh=mesh)
+    res = _path_step(torch, fsdp.fsdp_loss(cfg, mesh, specs), state.params,
+                     tokens, specs, mesh, ref, MP_BF16_TOL)
+    step = fsdp.make_train_step(cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    dist.barrier()
+    fa.reset_launch_counts()
+    comm.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    t0 = time.monotonic()
+    for _ in range(PL_STEPS):
+        state, m = step(state, tokens)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    res.update(ms_per_step=(time.monotonic() - t0) / PL_STEPS * 1e3,
+               step_losses=losses, step_launches=dict(fa.LAUNCHES),
+               step_routes=dict(fa.ROUTE_LAUNCHES),
+               bytes_per_step={k: v // PL_STEPS
+                               for k, v in comm.BYTES.items()},
+               step_peak=torch.cuda.max_memory_allocated(),
+               rank=dist.get_rank(), world=dist.get_world_size(),
+               backend=dist.get_backend(), member=launch.membership().me)
+    del state
+    torch.cuda.empty_cache()
+    return res
+
+
+def _tp_decode_params(torch, cfg, mesh):
+    """This rank's slices of the seeded one-rank parameters by
+    ``tp_generate_param_specs``, each whole leaf freed as it is cut (a
+    rank holds the whole tree once, briefly)."""
+    from k8s_operator_libs_tpu_torch.models.generate import (
+        tp_generate_param_specs)
+    from k8s_operator_libs_tpu_torch.models.llama import init_params
+    from k8s_operator_libs_tpu_torch.parallel.mesh import shard
+    whole = init_params(cfg, seed=0, device="cuda")
+    specs = tp_generate_param_specs()
+    out = {}
+    for key in list(whole):
+        if isinstance(whole[key], dict):
+            blocks = whole.pop(key)
+            out[key] = {}
+            for name in list(blocks):
+                out[key][name] = shard(blocks.pop(name), specs[key][name],
+                                       mesh)
+        else:
+            out[key] = shard(whole.pop(key), specs[key], mesh)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _two_point_decode(torch, dist, make, params, prompt):
+    """ms and bytes of one decode step: a decode of MAX_NEW tokens less
+    one of TPD_SHORT, over the MAX_NEW - TPD_SHORT steps between (prefill
+    and set-up cancel). The caller has decoded ``prompt`` once already:
+    that is the warm-up."""
+    from k8s_operator_libs_tpu_torch.parallel import comm
+    out = {}
+    for n in (TPD_SHORT, MAX_NEW):
+        gen = make(n)
+        torch.cuda.synchronize()
+        if dist is not None:
+            dist.barrier()
+        comm.reset_counts()
+        t0 = time.monotonic()
+        gen(params, prompt)
+        torch.cuda.synchronize()
+        out[n] = (time.monotonic() - t0, dict(comm.BYTES))
+    steps = MAX_NEW - TPD_SHORT
+    return ((out[MAX_NEW][0] - out[TPD_SHORT][0]) / steps * 1e3,
+            {k: (out[MAX_NEW][1][k] - out[TPD_SHORT][1][k]) // steps
+             for k in out[MAX_NEW][1]})
+
+
+def phase12_tp_rank(prompts):
+    """12b in one rank: tensor-parallel decoding of every prompt at
+    Llama-3-8B's full depth in bf16, then the fp32 twin; the tokens, the
+    rank's bytes held, peak memory, and ms and bytes per decode step."""
+    import torch
+    import torch.distributed as dist
+
+    from k8s_operator_libs_tpu_torch.models.generate import make_tp_generate
+    from k8s_operator_libs_tpu_torch.models.llama import (LlamaConfig,
+                                                          param_leaves)
+    from k8s_operator_libs_tpu_torch.parallel.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(tensor=dist.get_world_size(), fsdp=1)
+    out = {"rank": dist.get_rank()}
+    for tag, dtype, layers in (("bf16", torch.bfloat16, None),
+                               ("fp32", torch.float32, TPD32_LAYERS)):
+        cfg = LlamaConfig.llama3_8b(dtype=dtype, **(
+            {"n_layers": layers} if layers else {}))
+        torch.cuda.reset_peak_memory_stats()
+        params = _tp_decode_params(torch, cfg, mesh)
+        gen = make_tp_generate(cfg, mesh, max_new_tokens=MAX_NEW)
+        res = {"tokens": [gen(params, torch.as_tensor([p])).tolist()[0]
+                          for p in prompts],
+               "held": sum(t.numel() * t.element_size()
+                           for t in param_leaves(params))}
+        if tag == "bf16":
+            res["ms_per_step"], res["bytes_per_step"] = _two_point_decode(
+                torch, dist, lambda n: make_tp_generate(
+                    cfg, mesh, max_new_tokens=n), params,
+                torch.as_tensor([prompts[0]]))
+        res["peak"] = torch.cuda.max_memory_allocated()
+        out[tag] = res
+        del params, gen
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_placed(torch):
+    """12a: the GPU scheduler's placement of a 2-node x 2-GPU workload,
+    its pods' env into 4 ranks over gloo (``cluster_env``), FSDP at
+    Llama-3-8B width against the one-rank step."""
+    import shutil
+    import socket
+
+    from k8s_operator_libs_tpu_torch.gpu import GPUScheduler, GPUWorkload
+    from k8s_operator_libs_tpu_torch.parallel import launch
+    from k8s_operator_libs_tpu_torch.parallel.distributed import (
+        cluster_env, default_backend)
+
+    held = torch.cuda.memory_allocated()
+    check(held < 2**30, f"phase 12: {held / 2**30:.1f} GiB of the earlier "
+                        f"phases is still allocated")
+    torch.cuda.empty_cache()
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_placed"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    stats = {}
+    product = torch.cuda.get_device_name(0).replace(" ", "-")
+    cluster = PlacementCluster([f"node-{i}" for i in range(PL_NODES)],
+                               product, PL_GPUS)
+    wl = GPUWorkload(name="smoke", product=product, gpus_per_node=PL_GPUS,
+                     num_nodes=PL_NODES)
+    placement = GPUScheduler(cluster).place(wl)
+    check(placement is not None
+          and placement.node_names == [n.metadata.name
+                                       for n in cluster.nodes]
+          and "smoke" in cluster.services,
+          f"phase 12a: placement {placement}, Services "
+          f"{list(cluster.services)}")
+    # the placed coordinator is a pod's DNS name behind the Service; one
+    # machine has no cluster DNS, so it becomes localhost at a free port
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    envs = []
+    for pod in cluster.list_pods():
+        env = dict(pod.spec.env, JAX_COORDINATOR_ADDRESS=f"localhost:{port}")
+        envs += [dict(env, LOCAL_RANK=str(i))
+                 for i in range(int(env["LOCAL_WORLD_SIZE"]))]
+    world = PL_NODES * PL_GPUS
+    ranks = sorted(cluster_env(e)["rank"] for e in envs)
+    check(ranks == list(range(world))
+          and {cluster_env(e)["world_size"] for e in envs} == {world},
+          f"phase 12a: the placed env gives ranks {ranks}")
+    backend = default_backend("cuda", envs[0])
+    check(backend == "gloo", f"phase 12a: {PL_GPUS} ranks per card chose "
+                             f"{backend}")
+    log(f"phase 12a: the GPU scheduler placed {placement.pods} on "
+        f"{placement.node_names} ({product}, {PL_GPUS} GPUs each, "
+        f"LOCAL_WORLD_SIZE {envs[0]['LOCAL_WORLD_SIZE']}); their "
+        f"{len(envs)} processes are ranks {ranks} of {world} ({backend}: "
+        f"the {world} ranks share the one card)")
+    t0 = time.monotonic()
+    results = launch.run_placed(phase12_placed_rank, envs, backend=backend,
+                                timeout=MP_TIMEOUT, workdir=str(work))
+    log(f"phase 12a: {world} ranks over {backend}, wall "
+        f"{time.monotonic() - t0:.1f} s")
+    check([(r["rank"], r["world"], r["backend"]) for r in results]
+          == [(i, world, "gloo") for i in range(world)]
+          and [r["member"] for r in results]
+          == [f"smoke-{h}.smoke/cuda:{g}" for h in range(PL_NODES)
+              for g in range(PL_GPUS)],
+          f"phase 12a: ranks joined as "
+          f"{[(r['rank'], r['member']) for r in results]}")
+    for r, res in enumerate(results):
+        _check_rank("phase 12a", r, res, world, PL_LAYERS, "fsdp")
+        want = PL_STEPS * PL_LAYERS
+        check(res["step_launches"] == dict.fromkeys(FLASH_NAMES, want)
+              and res["step_routes"] == {"wgmma": 3 * want, "fma": 0},
+              f"phase 12a: rank {r}'s {PL_STEPS} steps launched "
+              f"{res['step_launches']} on {res['step_routes']}")
+        for key in ("loss", "step_losses"):
+            check(res[key] == results[0][key] and all(map(
+                math.isfinite, res["step_losses"] + [res["loss"]])),
+                f"phase 12a: rank {r}'s {key} {res[key]} vs rank 0's "
+                f"{results[0][key]}")
+    stats["loss_diff"] = _check_parity(
+        f"phase 12a FSDP bf16 from the placed env ({world} ranks, B {PL_B} "
+        f"T {PL_T}, {PL_LAYERS} layers)", results[0])
+    stats["worst_grad"] = results[0]["worst"]
+    stats["step_losses"] = results[0]["step_losses"]
+    for r, res in enumerate(results):
+        log(f"phase 12a: rank {r} ({res['member']}): "
+            f"{res['ms_per_step']:.1f} ms per step ({GLOO_LABEL}), peak "
+            f"memory of a train step {res['step_peak'] / 2**30:.1f} GiB")
+        stats[f"ms_per_step_rank{r}"] = res["ms_per_step"]
+        stats[f"peak_bytes_rank{r}"] = res["step_peak"]
+    _log_bytes("phase 12a: FSDP", results[0]["bytes_per_step"], stats,
+               "placed")
+    stats["launches"] = {name: sum(res["step_launches"][name]
+                                   for res in results)
+                         for name in FLASH_NAMES}
+    log(f"phase 12a: A-K1-3 launches over the {PL_STEPS} steps, summed over "
+        f"the ranks: {stats['launches']} (all wgmma)")
+    shutil.rmtree(work, ignore_errors=True)
+    return stats
+
+
+def phase_tp_decode(torch):
+    """12b: tensor-parallel decoding over gloo against the one-rank
+    ``generate`` of the same weights: Llama-3-8B, 32 layers, bf16, to the
+    first near-tie; its fp32 twin at 2 layers, token for token."""
+    import shutil
+
+    import numpy as np
+
+    from k8s_operator_libs_tpu_torch.models.generate import (
+        generate, make_tp_generate)
+    from k8s_operator_libs_tpu_torch.models.llama import (LlamaConfig,
+                                                          init_params,
+                                                          param_leaves)
+    from k8s_operator_libs_tpu_torch.parallel import launch
+    from k8s_operator_libs_tpu_torch.parallel.mesh import local_mesh
+
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_tp"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    gen = np.random.default_rng(0)            # phase 3's prompts
+    vocab = LlamaConfig.llama3_8b().vocab_size
+    prompts = [gen.integers(0, vocab, size=n).tolist() for n in PROMPT_LENS]
+    stats, ref = {}, {}
+    # the one-rank references first, each freed before the ranks start
+    for tag, dtype, layers in (("bf16", torch.bfloat16, None),
+                               ("fp32", torch.float32, TPD32_LAYERS)):
+        cfg = LlamaConfig.llama3_8b(dtype=dtype, **(
+            {"n_layers": layers} if layers else {}))
+        params = init_params(cfg, seed=0, device="cuda")
+        if tag == "bf16":
+            whole = sum(t.numel() * t.element_size()
+                        for t in param_leaves(params))
+            embeds = sum(params[k].numel() * params[k].element_size()
+                         for k in ("embed", "lm_head"))
+        toks = [generate(params, torch.as_tensor([p]), cfg,
+                         max_new_tokens=MAX_NEW).tolist()[0]
+                for p in prompts]
+        ref[tag] = {"tokens": toks, "gaps": [
+            top2_gaps(torch, params, cfg, t, len(p))
+            for t, p in zip(toks, prompts)]}
+        if tag == "bf16":
+            # the one-rank decode step, timed as the ranks time theirs (a
+            # local mesh: the same forward, no sums)
+            mesh = local_mesh()
+            ms, _ = _two_point_decode(torch, None, lambda n: make_tp_generate(
+                cfg, mesh, max_new_tokens=n), params,
+                torch.as_tensor([prompts[0]]))
+            stats["one_rank_ms_per_step"] = ms
+        del params
+        torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    results = launch.run(phase12_tp_rank, TPD_RANKS, prompts,
+                         backend="gloo", timeout=MP_TIMEOUT,
+                         workdir=str(work))
+    log(f"phase 12b: {TPD_RANKS} tensor ranks over gloo, wall "
+        f"{time.monotonic() - t0:.1f} s")
+    for r, res in enumerate(results):
+        check(res["fp32"]["tokens"] == ref["fp32"]["tokens"],
+              f"phase 12b: fp32 rank {r}'s tokens differ from the one-rank "
+              f"generate's at token "
+              + str([first_mismatch(a[len(p):], b[len(p):]) for a, b, p in
+                     zip(res["fp32"]["tokens"], ref["fp32"]["tokens"],
+                         prompts)]))
+        check(res["bf16"]["tokens"] == results[0]["bf16"]["tokens"],
+              f"phase 12b: bf16 ranks 0 and {r} decoded different tokens")
+    log(f"phase 12b: fp32, {TPD32_LAYERS} layers: every rank's tokens equal "
+        f"the one-rank generate's for prompts {PROMPT_LENS}")
+    notes = []
+    for i, (p, got, want, gaps) in enumerate(zip(
+            prompts, results[0]["bf16"]["tokens"], ref["bf16"]["tokens"],
+            ref["bf16"]["gaps"])):
+        small = next((j for j, g in enumerate(gaps) if g < SPEC_GAP_EPS),
+                     MAX_NEW)
+        i_diff = first_mismatch(got[len(p):], want[len(p):])
+        check(i_diff is None or (i_diff >= small
+                                 and gaps[i_diff] < SPEC_GAP_EPS),
+              f"phase 12b: bf16 prompt {len(p)}: token {i_diff} differs "
+              f"from the one-rank generate's where the top-2 logit gap is "
+              f"{gaps[i_diff] if i_diff is not None else None} (first gap "
+              f"under {SPEC_GAP_EPS} at token {small})")
+        notes.append(f"prompt {len(p)}: "
+                     + ("identical" if i_diff is None else
+                        f"first differs at token {i_diff} (gap there "
+                        f"{gaps[i_diff]:.4f})")
+                     + f", first gap < {SPEC_GAP_EPS} at token "
+                     + (str(small) if small < MAX_NEW else "none"))
+        stats[f"bf16_first_diff_prompt{len(p)}"] = i_diff
+    log(f"phase 12b: bf16, {LlamaConfig.llama3_8b().n_layers} layers, "
+        f"against the one-rank generate up to "
+        f"the first top-2 logit gap under {SPEC_GAP_EPS}: " + "; ".join(notes))
+    rep = whole - embeds
+    for r, res in enumerate(results):
+        b = res["bf16"]
+        check(b["held"] <= embeds + rep / TPD_RANKS * 1.01,
+              f"phase 12b: rank {r} holds {b['held']} bytes, over the "
+              f"replicated {embeds} + 1/{TPD_RANKS} of {rep} + 1%")
+        log(f"phase 12b: rank {r}: {b['ms_per_step']:.2f} ms per decode step "
+            f"at B 1 ({GLOO_LABEL}; one rank alone "
+            f"{stats['one_rank_ms_per_step']:.2f} ms), weights held "
+            f"{b['held'] / 1e9:.3f} GB of {whole / 1e9:.3f}, peak "
+            f"{b['peak'] / 2**30:.1f} GiB")
+        stats[f"ms_per_step_rank{r}"] = b["ms_per_step"]
+        stats[f"peak_bytes_rank{r}"] = b["peak"]
+        stats[f"held_bytes_rank{r}"] = b["held"]
+    _log_bytes("phase 12b: tensor-parallel decode",
+               results[0]["bf16"]["bytes_per_step"], stats, "tp_decode")
+    shutil.rmtree(work, ignore_errors=True)
+    return stats
+
+
 def _log_bytes(tag, per_step, stats, key):
     total = sum(per_step.values())
     log(f"{tag}: bytes sent per step and rank, by kind: "
@@ -3886,6 +4315,8 @@ def main():
         multi = timed("phase 9", phase_multiprocess, torch)
         composed = timed("phase 10", phase_pp_tp_ep, torch)
         elastic = timed("phase 11", phase_elastic, torch)
+        placed = timed("phase 12a", phase_placed, torch)
+        tp_decode = timed("phase 12b", phase_tp_decode, torch)
     except (SmokeFailure, subprocess.SubprocessError, OSError,
             RuntimeError, ValueError) as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
@@ -3972,12 +4403,26 @@ def main():
                          "bound_ms": k["bound_ms"],
                          "bound_by": k["bound_by"],
                          "library_ms": k["library_ms"]})
+    # phase 12a's ranks started from the placed pods' env: B 1 x T 2048
+    # each (the FSDP rank's case)
+    for kname, line in (("flash_forward", 236), ("flash_bwd_dq", 439),
+                        ("flash_bwd_dkv", 519)):
+        k = kernels[kname + "_fsdp"]
+        rows.append({"name": f"{kname}_placed", "route": "cuda",
+                     "source": CSRC.format("flash_attention_tc"),
+                     "replaces": f"{jax_attn}:{line}",
+                     "launches": placed["launches"][kname],
+                     "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+                     "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                     "bound_by": k["bound_by"],
+                     "library_ms": k["library_ms"]})
     print(json.dumps({"kernels": rows}))
     for key, stats in (("serving", serve), ("training", training),
                        ("moe_serving", moe_serve), ("moe_training", moe_train),
                        ("multiprocess", multi),
                        ("pipeline_tensor_expert", composed),
-                       ("elastic", elastic),
+                       ("elastic", elastic), ("placed", placed),
+                       ("tp_decode", tp_decode),
                        ("flash_backward", kernels["backward"])):
         print(json.dumps({key: {k: (round(v, 6) if isinstance(v, float)
                                     else v) for k, v in stats.items()}}))

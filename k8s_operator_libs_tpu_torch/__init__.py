@@ -16,6 +16,10 @@ by ``/export`` and ``/adopt``, request tracing). Slice 7 adds the MoE
 family, the goodput ledger and asynchronous checkpoints; slice 8 training
 over a process group's ranks: FSDP (ZeRO-3) and sequence parallelism
 (ring attention, Ulysses) over ``torch.distributed`` (``parallel/``).
+Slice 11 adds ``gpu/``, the GPU twins of the JAX package's ``tpu/`` (node
+facts from GPU Feature Discovery, the upgrade grouper and deletion
+filter, a scheduler that places one rank per GPU), and tensor-parallel
+decoding (``models/generate.py:make_tp_generate``).
 
 The package imports ``torch``, ``numpy`` and the standard library only.
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU,

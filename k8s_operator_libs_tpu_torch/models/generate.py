@@ -1,10 +1,11 @@
 """Autoregressive decoding over a contiguous KV cache.
 
-Port of the JAX package's ``models/generate.py`` (single device, no
-tensor parallelism). The contiguous :func:`generate` is the plain oracle
-the paged paths are held against. ``lax.scan`` becomes a Python loop;
-sampling draws from an explicit ``torch.Generator``, which cannot match
-``jax.random``, so only greedy decoding compares token by token.
+Port of the JAX package's ``models/generate.py``: one device
+(:func:`generate`) and tensor-parallel over a mesh's ``tensor`` axis
+(:func:`make_tp_generate`). The contiguous :func:`generate` is the plain
+oracle the paged paths are held against. ``lax.scan`` becomes a Python
+loop; sampling draws from an explicit ``torch.Generator``, which cannot
+match ``jax.random``, so only greedy decoding compares token by token.
 """
 
 from __future__ import annotations
@@ -16,8 +17,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ..parallel import comm
+from ..parallel.mesh import Mesh
 from ..utils.device import DeviceLike, resolve_device
-from .llama import LlamaConfig, rms_norm, rope, swiglu
+from .llama import LlamaConfig, identity, rms_norm, rope, swiglu
 from .llama import matmul as _plain_matmul
 
 Params = Dict[str, Any]
@@ -63,14 +66,19 @@ def _attend_cached(cfg: LlamaConfig, q: torch.Tensor, k_cache: torch.Tensor,
 @torch.no_grad()
 def _forward_cached(params: Params, tokens: torch.Tensor, cache: KVCache,
                     cfg: LlamaConfig, matmul=None, ffn=None,
-                    lm_head_fn=None) -> Tuple[torch.Tensor, KVCache]:
+                    lm_head_fn=None, tp_out=identity
+                    ) -> Tuple[torch.Tensor, KVCache]:
     """Forward [B, T] starting at ``cache.length``; appends K/V to the
     cache in place. Prefill (T = prompt length) and decode (T = 1).
     Every contiguous-cache variant shares it through the reference's
     three hooks: ``matmul(x, layer, name)`` (default ``x @ layer[name]``;
     int8 weights swap in ``quant._qmat``), ``ffn(h, layer)`` (the MLP)
     and ``lm_head_fn(x, params)``. Head counts come from the product
-    shapes, so ``{"q", "s"}`` weight dicts work unchanged."""
+    shapes, so ``{"q", "s"}`` weight dicts and a tensor-parallel rank's
+    column and row slices work unchanged. ``tp_out`` is the reference's
+    ``tp_axis`` psum: it sums the attention output after ``wo`` and the
+    MLP's after ``w_down`` over the tensor group, restoring the whole
+    residual stream on every rank (the identity on one rank)."""
     mm = matmul or _plain_matmul
     lm = lm_head_fn or _plain_lm_head
     B, T = tokens.shape
@@ -95,10 +103,10 @@ def _forward_cached(params: Params, tokens: torch.Tensor, cache: KVCache,
         cache.k[i, :, start:start + T] = k.to(cache.k.dtype)
         cache.v[i, :, start:start + T] = v.to(cache.v.dtype)
         attn = _attend_cached(cfg, q, cache.k[i], cache.v[i], positions)
-        x = x + mm(attn.reshape(B, T, H * Dh), layer, "wo")
+        x = x + tp_out(mm(attn.reshape(B, T, H * Dh), layer, "wo"))
         h2 = rms_norm(x, layer["mlp_norm"])
-        x = x + (ffn(h2, layer) if ffn is not None
-                 else swiglu(h2, layer, mm))
+        x = x + tp_out(ffn(h2, layer) if ffn is not None
+                       else swiglu(h2, layer, mm))
     x = rms_norm(x, params["final_norm"])
     logits = lm(x, params).float()
     return logits, dataclasses.replace(cache, length=start + T)
@@ -169,6 +177,19 @@ def scan_decode(forward_fn, params: Params, prompt: torch.Tensor, cache,
     return torch.cat([prompt, generated], dim=1)
 
 
+def _decode_loop(forward_fn, params: Params, prompt: torch.Tensor,
+                 cache: KVCache, max_new_tokens: int, temperature: float,
+                 generator: Optional[torch.Generator] = None,
+                 top_k: Optional[int] = None,
+                 top_p: Optional[float] = None) -> torch.Tensor:
+    """Prefill + :func:`scan_decode` for the contiguous cache (one device
+    and tensor-parallel: only the cache's heads and the sums differ)."""
+    logits, cache = forward_fn(params, prompt, cache)
+    return scan_decode(forward_fn, params, prompt, cache, logits[:, -1],
+                       max_new_tokens, temperature, generator, top_k=top_k,
+                       top_p=top_p)
+
+
 @torch.no_grad()
 def generate(params: Params, prompt: torch.Tensor, cfg: LlamaConfig,
              max_new_tokens: int = 32, temperature: float = 0.0,
@@ -181,7 +202,54 @@ def generate(params: Params, prompt: torch.Tensor, cfg: LlamaConfig,
     prompt = prompt.to(device)
     B, Tp = prompt.shape
     cache = init_cache(cfg, B, Tp + max_new_tokens, device=device)
-    logits, cache = _forward_cached(params, prompt, cache, cfg)
-    return scan_decode(partial(_forward_cached, cfg=cfg), params, prompt,
-                       cache, logits[:, -1], max_new_tokens, temperature,
-                       generator, top_k=top_k, top_p=top_p)
+    return _decode_loop(partial(_forward_cached, cfg=cfg), params, prompt,
+                        cache, max_new_tokens, temperature, generator,
+                        top_k=top_k, top_p=top_p)
+
+
+def tp_generate_param_specs() -> Params:
+    """The specs of tensor-parallel decode (``parallel/mesh.py``'s
+    PartitionSpec tuples): Megatron column-split wq/wk/wv/w_gate/w_up,
+    row-split wo/w_down; embed, the norms and lm_head replicated (every
+    rank samples from the whole logits)."""
+    col, row = (None, None, "tensor"), (None, "tensor", None)
+    return {"embed": (None, None),
+            "blocks": {"attn_norm": (None, None), "wq": col, "wk": col,
+                       "wv": col, "wo": row, "mlp_norm": (None, None),
+                       "w_gate": col, "w_up": col, "w_down": row},
+            "final_norm": (None,), "lm_head": (None, None)}
+
+
+def make_tp_generate(cfg: LlamaConfig, mesh: Mesh, max_new_tokens: int = 32,
+                     temperature: float = 0.0):
+    """Tensor-parallel ``generate(params, prompt, generator=None) ->
+    tokens`` on every rank of ``mesh``'s ``tensor`` axis. ``params`` are
+    the rank's slices by :func:`tp_generate_param_specs`
+    (``parallel/mesh.py:shard`` of each whole leaf): its H/tp heads and
+    d_ff/tp FFN columns, and a KV cache of KV/tp heads, so each rank
+    streams 1/tp of the blocks' weights and of the cache per step. Two
+    sums per block over the tensor group (``comm.psum``) give every rank
+    the whole residual stream, hence the same logits and tokens; a
+    sampled decode needs the same seeded ``generator`` on every rank."""
+    tp = mesh.size("tensor")
+    if cfg.n_heads % tp or cfg.n_kv_heads % tp:
+        raise ValueError(f"heads {cfg.n_heads}/kv {cfg.n_kv_heads} not "
+                         f"divisible by {tp}-way tensor parallelism")
+    if cfg.d_ff % tp:
+        raise ValueError(f"d_ff {cfg.d_ff} not divisible by {tp}")
+    local_cfg = dataclasses.replace(cfg, n_kv_heads=cfg.n_kv_heads // tp)
+    forward = partial(_forward_cached, cfg=cfg,
+                      tp_out=partial(comm.psum, group=mesh.groups["tensor"]))
+
+    @torch.no_grad()
+    def generate_fn(params: Params, prompt: torch.Tensor,
+                    generator: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
+        device = params["embed"].device
+        prompt = prompt.to(device)
+        B, Tp = prompt.shape
+        cache = init_cache(local_cfg, B, Tp + max_new_tokens, device=device)
+        return _decode_loop(forward, params, prompt, cache, max_new_tokens,
+                            temperature, generator)
+
+    return generate_fn

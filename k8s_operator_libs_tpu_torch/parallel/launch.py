@@ -32,7 +32,7 @@ import time
 import traceback
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
-from .distributed import Membership
+from .distributed import Membership, cluster_membership
 
 
 class RankFailed(RuntimeError):
@@ -122,16 +122,20 @@ class Job:
         each joining generation ``generation`` over ``members`` and then
         calling ``fn(*args)``."""
         for name in (members if only is None else only):
-            if name in self._procs:
-                raise ValueError(f"member {name} already started")
-            member = Membership(self.rendezvous, tuple(members), name,
-                                self.backend, generation)
-            index = int(name.rsplit("/", 1)[-1])
-            p = self._ctx.Process(target=_entry, daemon=True,
-                                  args=(index, member, fn, args,
-                                        self._results))
-            p.start()
-            self._procs[name] = p
+            self._spawn(fn, Membership(self.rendezvous, tuple(members), name,
+                                       self.backend, generation),
+                        int(name.rsplit("/", 1)[-1]), args)
+
+    def _spawn(self, fn: Callable, member: Membership, index: int,
+               args: tuple) -> None:
+        """One process that joins as ``member`` on card ``index`` (modulo
+        the cards there are) and calls ``fn(*args)``."""
+        if member.me in self._procs:
+            raise ValueError(f"member {member.me} already started")
+        p = self._ctx.Process(target=_entry, daemon=True,
+                              args=(index, member, fn, args, self._results))
+        p.start()
+        self._procs[member.me] = p
 
     def _failures(self, name: str, trace: str, wait: float = 3.0) -> str:
         """The first failure and those the other ranks report within
@@ -215,5 +219,27 @@ def run(fn: Callable, world: int, *args: Any, backend: str = "gloo",
     with Job(backend, timeout, workdir) as job:
         members = job.members(0, world)
         job.start(fn, members, *args)
+        out = job.wait()
+    return [out[m] for m in members]
+
+
+def run_placed(fn: Callable, envs: Sequence[dict], *args: Any,
+               backend: str = "gloo", timeout: float = 120.0,
+               workdir: Optional[str] = None) -> List[Any]:
+    """``fn(*args)`` in one process per env: each a placed pod's env
+    (``gpu/scheduler.py``) with the ``LOCAL_RANK`` of one of the
+    processes the pod starts, joined through
+    :func:`..parallel.distributed.cluster_membership` at the env's
+    coordinator, on card ``LOCAL_RANK``. The results in rank order."""
+    placed = [(cluster_membership(env, backend), env) for env in envs]
+    if any(m is None for m, _ in placed):
+        raise ValueError("an env names no process group")
+    members = placed[0][0].members
+    if sorted(m.me for m, _ in placed) != sorted(members):
+        raise ValueError(f"the envs are not one process for each of "
+                         f"{list(members)}")
+    with Job(backend, timeout, workdir) as job:
+        for member, env in placed:
+            job._spawn(fn, member, int(env.get("LOCAL_RANK", "0")), args)
         out = job.wait()
     return [out[m] for m in members]

@@ -67,6 +67,41 @@ def test_cluster_env_matches_reference(env):
                    "rank": ref["process_id"]}
 
 
+
+@pytest.mark.parametrize("hosts,slices", [(2, 1), (1, 2)])
+def test_each_gpu_process_is_a_rank_of_its_own(hosts, slices):
+    """A job on 2 nodes x 2 GPUs (one slice of 2 hosts, or 2 slices of 1):
+    each node's pod starts 2 processes, LOCAL_RANK 0 and 1 of
+    LOCAL_WORLD_SIZE 2. Every process is a rank of its own, a host's
+    consecutive, and over one slice each membership names its GPU."""
+    seen = []
+    for s in range(slices):
+        for worker in range(hosts):
+            for local in range(2):
+                env = {"TPU_WORKER_ID": str(worker),
+                       "TPU_WORKER_HOSTNAMES": ",".join(
+                           f"j-{i}.j" for i in range(hosts)),
+                       "JAX_COORDINATOR_ADDRESS": "j-0.j:8476",
+                       "LOCAL_WORLD_SIZE": "2", "LOCAL_RANK": str(local)}
+                if slices > 1:
+                    env.update(MEGASCALE_NUM_SLICES=str(slices),
+                               MEGASCALE_SLICE_ID=str(s))
+                got = tdist.cluster_env(env)
+                assert got["world_size"] == 4
+                assert got["init_method"] == "tcp://j-0.j:8476"
+                seen.append(got["rank"])
+                m = tdist.cluster_membership(env, backend="gloo")
+                if slices > 1:
+                    assert m is None
+                    continue
+                assert m.members == ("j-0.j/cuda:0", "j-0.j/cuda:1",
+                                     "j-1.j/cuda:0", "j-1.j/cuda:1")
+                assert (m.me, m.rank) == (f"j-{worker}.j/cuda:{local}",
+                                          got["rank"])
+    assert seen == [0, 1, 2, 3]
+    with pytest.raises(ValueError, match="LOCAL_RANK 2"):
+        tdist.cluster_env(dict(env, LOCAL_RANK="2"))
+
 def test_maybe_initialize_passes_the_env_to_the_process_group():
     calls = []
     assert tdist.maybe_initialize_from_env(

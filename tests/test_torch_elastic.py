@@ -413,6 +413,33 @@ def test_cluster_membership_serves_each_generation_from_its_first_member(
         dict(env, MEGASCALE_NUM_SLICES="2")) is None
 
 
+
+def test_a_taken_rendezvous_port_fails_the_join_and_the_reform(tmp_path):
+    """Generation g's TCP store is served at the job's port + g by its
+    first member. With another socket on that port, the first member's
+    join raises a clear error, and a re-formation onto it raises on every
+    member before any leaves the old group: none waits at a store that
+    will never answer."""
+    import socket
+    with socket.socket() as squatter:
+        squatter.bind(("localhost", 0))
+        squatter.listen()
+        port = squatter.getsockname()[1]
+        m = tdist.Membership(f"tcp://localhost:{port - 1}",
+                             ("localhost/0", "localhost/1"), "localhost/0",
+                             "gloo", generation=1)
+        assert m.port_taken() and f"port {port}" in m.port_taken()
+        assert dataclasses.replace(m, me="localhost/1").port_taken() is None
+        with pytest.raises(tdist.RendezvousPortTaken,
+                           match=f"generation 1's rendezvous port {port} "):
+            m.join()
+    with launch.Job("gloo", 60.0, str(tmp_path), rendezvous="tcp") as job:
+        job.start(ranks.reform_onto_a_taken_port, job.members(0, 2))
+        out = job.wait()
+    for res in out.values():
+        assert res["left"] and "generation 1's rendezvous port" in \
+            res["raised"], res
+
 def _jax_elastic(data, tmp_path):
     """The JAX elastic trainer on 4 -> 2 -> 4 virtual CPU devices: the
     initial parameters and the losses by step."""

@@ -1,8 +1,9 @@
 """Rank bodies of the port's multi-process tests
 (``test_torch_distributed.py``, ``test_torch_ring.py``,
 ``test_torch_fsdp_parallel.py``, ``test_torch_pipeline.py``,
-``test_torch_composed.py``, ``test_torch_expert.py``), run by
-``parallel/launch.py``.
+``test_torch_composed.py``, ``test_torch_expert.py``,
+``test_torch_elastic.py``, ``test_torch_gpu.py``,
+``test_torch_tp_generate.py``), run by ``parallel/launch.py``.
 
 A spawned rank re-imports the module its function lives in, so this one
 imports torch, numpy and the port only: no JAX, no conftest. Every
@@ -696,3 +697,72 @@ def elastic_cold(tree, data, ckpt, lr, batch, seed, steps, plant):
             reclaim=(0, out["cold"]["start"],
                      list(launch.membership().members)))
     return out
+
+
+def reform_onto_a_taken_port():
+    """Generation 0 over the launch's TCP store, then a re-formation over
+    the same members while another socket holds generation 1's port (the
+    job's + 1, on rank 0's host): every rank must raise, none wait."""
+    import socket
+
+    from k8s_operator_libs_tpu_torch.parallel import launch
+    from k8s_operator_libs_tpu_torch.parallel.distributed import (
+        RendezvousPortTaken)
+    rank, _ = _setup()
+    m = launch.membership()
+    port = int(m.init_method().rsplit(":", 1)[1]) + 1
+    with socket.socket() as squatter:
+        if rank == 0:
+            squatter.bind(("localhost", port))
+            squatter.listen()
+        dist.barrier()
+        try:
+            m.reform(m.members)
+        except RendezvousPortTaken as exc:
+            return {"raised": str(exc), "left": not dist.is_initialized()}
+    return {"raised": None, "left": not dist.is_initialized()}
+
+
+# ------------------------------------------ placed by the GPU scheduler
+
+def placed_member():
+    """A rank started from a placed pod's env: its rank and world, and an
+    all-reduce of every rank's number."""
+    rank, world = _setup()
+    total = torch.tensor([float(rank)])
+    dist.all_reduce(total)
+    return {"rank": rank, "world": world, "sum": float(total)}
+
+
+# --------------------------------------------- tensor-parallel decoding
+
+def tp_generate(tree, prompt, max_new):
+    """Greedy tensor-parallel decode of ``prompt`` on this rank's slices
+    of ``tree`` (fp32 tiny Llama), the mesh's tensor axis over every
+    rank: the tokens, the KV cache's shape and the sums' calls and
+    bytes."""
+    from k8s_operator_libs_tpu_torch.models import generate as tgen
+    from k8s_operator_libs_tpu_torch.parallel.fsdp import _tree_map
+    _, world = _setup()
+    cfg = _cfg()
+    mesh = make_mesh(tensor=world, fsdp=1)
+    params = _tree_map(lambda x, spec: shard(x, spec, mesh),
+                       convert.to_torch(tree, device="cpu"),
+                       tgen.tp_generate_param_specs())
+    caches = []
+    real = tgen.init_cache
+
+    def init_cache(*args, **kwargs):
+        caches.append(real(*args, **kwargs))
+        return caches[-1]
+
+    tgen.init_cache = init_cache
+    comm.reset_counts()
+    try:
+        out = tgen.make_tp_generate(cfg, mesh, max_new_tokens=max_new)(
+            params, torch.as_tensor(prompt))
+    finally:
+        tgen.init_cache = real
+    return {"tokens": out.numpy(), "cache_shape": tuple(caches[0].k.shape),
+            "psum_calls": comm.CALLS["psum"],
+            "psum_bytes": comm.BYTES["psum"]}
