@@ -67,6 +67,25 @@ Phases, each fatal on failure:
    and the rest is read from B's ``/stream``. The spliced stream must be
    gapless and equal B's undisturbed run, and both hops' ``/trace``
    carry one trace id.
+   3d. The serving tier in-process: three ``serving.BatcherRuntime``
+   replicas over phase 3's weights (its slots, capacity and block) on
+   three in-script nodes, under the port's ``ReplicaPool`` and
+   ``RequestRouter``. Phase 3's four prompts stream in the interactive
+   lane; once every replica has streamed 4 tokens the batch and
+   best-effort lanes arrive (12 requests, 32 new tokens each) and node
+   A's upgrade-state label turns ``cordon-required``. The router's own
+   drain watch must drain A: its streams live-migrate to B and C (KV
+   export, adoption), its never-admitted requests are placed again, no
+   admission lands on A after it. A fresh replica then takes A back and
+   serves 4 new prompts. Every request completes exactly once, every
+   stream is gapless, ``check_invariants`` is empty at every tick, at
+   least one live migration and no re-prefill fallback, tokens equal
+   phase 3's (``generate``'s for the new prompts) by 3b's near-tie rule,
+   and A-K4 launches 32 x the decode steps of all the replicas. Prints
+   ms per router tick, TTFT per lane, ms per decode step per replica and
+   each migration's export and adopt ms and KV bytes. Its fp32 twin:
+   two replicas at Llama-3-8B width, 2 layers, one drain, every
+   request's tokens equal to the contiguous ``generate``'s.
 4. Token parity in fp32 at Llama-3-8B width, 2 layers: the batcher's
    greedy tokens (through A-K4) against the contiguous ``generate``
    (plain), and ``paged_generate(kv_int8=True)`` through A-K5 against the
@@ -124,7 +143,7 @@ Phases, each fatal on failure:
    Ulysses 1, all ``wgmma``), ms per step, peak memory and the bytes of
    each collective kind per step (with what they would take at NVLink's
    rate, a reckoning); then fp32 at T 1024 against the plain attention.
-   9b: FSDP over 2 ranks, 2 layers, B 2 x T 2048: loss and gradients
+   9b: FSDP over 2 ranks, 1 layer, B 2 x T 2048: loss and gradients
    against the one-rank step, each rank's parameters and moments at most
    1/2 of the one-rank state + 1%, launches, ms per step, peak memory.
    9c: the same SP and FSDP steps through an NCCL group of one rank.
@@ -142,8 +161,8 @@ Phases, each fatal on failure:
    launches of each per rank at 16/4 heads, each rank at most 1/4 of the
    layer stacks and 1/2 of embed/lm_head + 1%, and the step without the
    replicate before the column-parallel matmuls (a planted fault) must
-   read over the gradient bound. 10c: the MoE (8 experts, top-2, 2
-   layers) over 2 ranks: dense dispatch and lossless a2a (aux off)
+   read over the gradient bound. 10c: the MoE (8 experts, top-2, 1
+   layer) over 2 ranks: dense dispatch and lossless a2a (aux off)
    against the one-rank steps, every gradient in fp32 (B 2 x T 512) and
    the loss in bf16 (B 2 x T 2048); the (token, expert) pairs dropped at
    capacity factor 2.0 and two a2a optimizer steps there, the loss
@@ -155,7 +174,7 @@ Phases, each fatal on failure:
    a2a`` at 2 ranks drained and resumed, against uninterrupted runs.
 
 11. The elastic trainer (``train/harness.py``, ``elastic=True``) at
-   Llama-3-8B width, 2 layers, bf16, remat, B 4 x T 2048, on the one
+   Llama-3-8B width, 1 layer, bf16, remat, B 4 x T 2048, on the one
    card over gloo as phase 9. 11a: FSDP at 4 ranks for steps 1-2; a
    reclaim whose survivors exclude rank 0 (the checkpoint writer and the
    ledger move to the new rank 0); steps 3-4 at 2 ranks; a grow back to
@@ -165,7 +184,7 @@ Phases, each fatal on failure:
    ranks ended cleanly, one ledger run with a 4 -> 2 ``degraded``
    record, two drain saves and two restores and no unavailability
    window, each rank at most 1/n of the state + 1% after each restore,
-   2 launches of A-K1-3 per rank and step on ``wgmma``. Then, in the
+   1 launch of A-K1-3 per rank and step on ``wgmma``. Then, in the
    grown group, a cold start from the grow's checkpoint (step 4) takes
    steps 5-6: its losses and every parameter must be within the
    reference's bounds (rel 1e-5, atol 1e-6) of the elastic run's, and a
@@ -189,10 +208,10 @@ Phases, each fatal on failure:
    pods' env (``LOCAL_RANK`` 0 and 1 each, the coordinator at localhost)
    join one gloo group through ``cluster_env``: ranks 0-3, world 4, each
    named ``<pod>.<service>/cuda:<local rank>``. They take FSDP at
-   Llama-3-8B width, 2 layers, bf16, remat, B 4 x T 2048: one step's
+   Llama-3-8B width, 1 layer, bf16, remat, B 4 x T 2048: one step's
    loss and every gradient against the one-rank step within phase 9's
-   bounds, then 2 optimizer steps, the same loss on every rank, 2
-   launches of A-K1-3 per rank and step on ``wgmma``; ms per step per
+   bounds, then 2 optimizer steps, the same loss on every rank, 1
+   launch of A-K1-3 per rank and step on ``wgmma``; ms per step per
    rank. 12b: ``make_tp_generate`` over 2 tensor ranks at Llama-3-8B,
    all 32 layers, bf16 (each rank half of every block's heads and FFN
    columns, the embedding and lm_head whole), phase 3's prompts, 32
@@ -531,19 +550,21 @@ def phase_kernels(torch):
 # ------------------------------------------------------------ flash kernels
 
 # phase 9's shapes: its ranks share the one card (see phase_multiprocess).
-# 9b and 10a-10b are cut from Llama-3-8B's 32 layers to 2 (4 before phase
-# 12 joined): a step's gloo-staged bytes, and with them its time, grow
-# with the layers, and what these phases check (the collectives, their
-# transposes, each rank's shards) is the same at any depth
+# 9a and 10a-10b are cut from Llama-3-8B's 32 layers to 2 (4 before phase
+# 12 joined; 10a-10b's two stages need two), and 9b, 10c, 11 and 12a to 1
+# (2 before phase 3d joined): a step's gloo-staged bytes, and with them
+# its time, grow with the layers, and what these phases check (the
+# collectives, their transposes, each rank's shards) is the same at any
+# depth
 MP_RANKS = 2
 SP_LAYERS, SP_B, SP_T = 2, 1, 8192          # 9a, bf16
 SP32_B, SP32_T = 2, 1024                    # 9a, fp32 against plain
-FSDP_LAYERS, FSDP_B, FSDP_T = 2, 2, 2048    # 9b
+FSDP_LAYERS, FSDP_B, FSDP_T = 1, 2, 2048    # 9b
 # phase 10's (see phase_pp_tp_ep): pipeline (stages, microbatches), 3-D
 # (stage 2 x tensor 2, microbatches), experts (MoE 8 experts, top-2)
 PP_LAYERS, PP_S, PP_M, PP_B, PP_T = 2, 2, 4, 4, 2048         # 10a
 TD_LAYERS, TD_S, TD_TP, TD_M, TD_B, TD_T = 2, 2, 2, 2, 2, 2048  # 10b
-EP_LAYERS, EP_RANKS, EP_B, EP_T, EP_CF = 2, 2, 2, 2048, 2.0   # 10c
+EP_LAYERS, EP_RANKS, EP_B, EP_T, EP_CF = 1, 2, 2, 2048, 2.0   # 10c
 # 10c holds every gradient leaf in fp32: in bf16 a rank's experts' partial
 # outputs are rounded before their psum (as the reference's are), and a
 # one-ulp change in a layer's output flips near-tied top-k choices in the
@@ -999,7 +1020,10 @@ def phase_serve(torch):
     plain_tokens = [body["tokens"] for _, body in results]
     stats.update(phase_spec_serve(torch, params, cfg, prompts, plain_tokens))
     stats.update(phase_migrate(torch, params, cfg))
+    stats.update(timed("phase 3d", phase_fleet, torch, params, cfg, prompts,
+                       plain_tokens))
     del params
+    stats.update(timed("phase 3d fp32", phase_fleet_fp32, torch))
     return stats
 
 
@@ -1141,22 +1165,10 @@ def phase_spec_serve(torch, params, cfg, prompts, plain_tokens):
         check(r.events[-1] == {"done": True, "tokens": got},
               f"speculative stream {i}: done tokens differ from the stream")
         gaps = top2_gaps(torch, params, cfg, plain, len(p))
-        small = next((j for j, g in enumerate(gaps) if g < SPEC_GAP_EPS),
-                     MAX_NEW)
-        i_diff = first_mismatch(got[len(p):], plain[len(p):])
-        if i_diff is not None and (i_diff < small
-                                   or gaps[i_diff] >= SPEC_GAP_EPS):
-            check(False, f"speculative request {i}: token {i_diff} differs "
-                         f"from phase 3's where the top-2 logit gap is "
-                         f"{gaps[i_diff]:.4f} (first gap under "
-                         f"{SPEC_GAP_EPS} at token {small})")
-        gaps_log.append(f"prompt {len(p)}: "
-                        + ("identical" if i_diff is None else
-                           f"first differs at token {i_diff} (gap there "
-                           f"{gaps[i_diff]:.4f})")
-                        + f", first gap < {SPEC_GAP_EPS} at token "
-                        + (str(small) if small < MAX_NEW else "none")
-                        + f", min gap {min(gaps):.4f}")
+        ok, what, _ = near_tie_verdict(got, plain, gaps, len(p))
+        check(ok, f"speculative request {i} against phase 3's: {what}")
+        gaps_log.append(f"prompt {len(p)}: {what}, min gap "
+                        f"{min(gaps):.4f}")
     check(rounds > 0 and plain_steps == 0,
           f"{rounds} speculative rounds and {plain_steps} plain decode "
           f"steps ran")
@@ -1318,6 +1330,419 @@ def phase_migrate(torch, params, cfg):
     return {"migrate_export_ms": 1e3 * (t_adopt - t_exp),
             "migrate_adopt_ms": 1e3 * (t_done - t_adopt),
             "migrate_kv_bytes": kv_bytes}
+
+
+# phase 3d: the serving tier. Node names; tokens streamed per replica
+# before node A's drain; the requests sent to the respawned replica on A
+# (new prompts of FLEET_NEW_LEN tokens, so no shared-prefix affinity
+# pins them to B or C); the fp32 twin's layers
+FLEET_NODES = ("fleet-a", "fleet-b", "fleet-c")
+FLEET_DRAIN_AFTER, FLEET_NEW_LEN, FLEET32_LAYERS = 4, 64, 2
+FLEET_MAX_TICKS = 2000
+
+
+class FleetCluster:
+    """The nodes phase 3d's replicas stand on: the client surface the
+    port's pool and router take (``direct``, ``get_node``, ``list_nodes``,
+    ``patch_node_metadata``). Nodes are Ready and schedulable; the
+    phase plays the operator by writing the upgrade-state label."""
+
+    def __init__(self, names):
+        import types
+        self.nodes = {n: types.SimpleNamespace(
+            metadata=types.SimpleNamespace(name=n, labels={},
+                                           annotations={}),
+            spec=types.SimpleNamespace(unschedulable=False, taints=[]),
+            is_ready=lambda: True) for n in names}
+
+    def direct(self):
+        return self
+
+    def get_node(self, name):
+        return self.nodes[name]
+
+    def list_nodes(self):
+        return list(self.nodes.values())
+
+    def patch_node_metadata(self, name, labels=None, annotations=None):
+        meta = self.nodes[name].metadata
+        for have, patch in ((meta.labels, labels),
+                            (meta.annotations, annotations)):
+            for k, v in (patch or {}).items():
+                if v is None:
+                    have.pop(k, None)
+                else:
+                    have[k] = v
+        return self.nodes[name]
+
+
+def near_tie_verdict(got, want, gaps, n_prompt):
+    """The rule for two bf16 decodes of one prompt (3b, 3d, 12b): the
+    tokens agree up to the first position whose plain top-2 logit gap
+    (``gaps``, one per generated token of ``want``) is under
+    SPEC_GAP_EPS, and where they first differ that gap is under it too.
+    Returns (ok, what to log, index of the first differing token)."""
+    small = next((j for j, g in enumerate(gaps) if g < SPEC_GAP_EPS),
+                 len(gaps))
+    i_diff = first_mismatch(got[n_prompt:], want[n_prompt:])
+    ok = (len(got) == len(want) and (
+        i_diff is None or (i_diff >= small and gaps[i_diff] < SPEC_GAP_EPS)))
+    what = ("identical" if i_diff is None else
+            f"first differs at token {i_diff} (gap there "
+            f"{gaps[i_diff]:.4f})") + (
+        f", first gap < {SPEC_GAP_EPS} at token "
+        f"{small if small < len(gaps) else 'none'}")
+    return ok, what, i_diff
+
+
+def fleet_runtime_class(records):
+    """The port's ``BatcherRuntime`` with each export and adoption timed
+    (host wall around the call, the card synchronized) and its KV bytes
+    recorded in ``records``. A subclass, not a wrapper: a bound method
+    kept on the instance would hold it in a reference cycle, and phase 5
+    checks that the serving phases leave nothing on the card."""
+    import torch
+
+    from k8s_operator_libs_tpu_torch.models.paged import kv_payload_nbytes
+    from k8s_operator_libs_tpu_torch.serving import BatcherRuntime
+
+    class TimedRuntime(BatcherRuntime):
+        def export_slot(self, rid):
+            t0 = time.monotonic()
+            payload = super().export_slot(rid)
+            torch.cuda.synchronize()
+            records.append({"op": "export", "ms": 1e3 * (time.monotonic()
+                                                         - t0),
+                            "kv_bytes": kv_payload_nbytes(payload["kv"]),
+                            "tokens": len(payload["generated"])})
+            return payload
+
+        def adopt_slot(self, payload):
+            t0 = time.monotonic()
+            rid = super().adopt_slot(payload)
+            torch.cuda.synchronize()
+            records.append({"op": "adopt", "ms": 1e3 * (time.monotonic()
+                                                        - t0),
+                            "kv_bytes": kv_payload_nbytes(payload["kv"])})
+            return rid
+
+    return TimedRuntime
+
+
+class Fleet:
+    """Port replicas on ``FleetCluster`` nodes under the port's pool and
+    router. ``tick()`` is one iteration of the serving loop: the router's
+    tick (timed), its invariants against the nodes, then one step of
+    every live replica (the router does not step them)."""
+
+    def __init__(self, params, cfg, nodes, records):
+        from k8s_operator_libs_tpu_torch.obs.metrics import MetricsHub
+        from k8s_operator_libs_tpu_torch.serving import (ReplicaPool,
+                                                         RequestRouter)
+        self.params, self.cfg = params, cfg
+        self.cluster = FleetCluster(nodes)
+        self.pool = ReplicaPool(client=self.cluster, component="libtpu")
+        self.hub = MetricsHub()
+        self.router = RequestRouter(self.pool, metrics=self.hub)
+        self.runtime_class = fleet_runtime_class(records)
+        self.batchers = []          # every replica's batcher, in order
+        self.generation = {}
+        self.tick_ms = []
+        self.assigned = []          # (tick, rid, replica id, node)
+        self._logged = 0            # of the router's assignments list
+        self.submitted_t, self.first_t = {}, {}
+        self.ticks = 0
+        for node in nodes:
+            self.spawn(node)
+
+    def spawn(self, node):
+        from k8s_operator_libs_tpu_torch.serving import Replica
+        g = self.generation[node] = self.generation.get(node, 0) + 1
+        runtime = self.runtime_class(self.params, self.cfg, max_slots=SLOTS,
+                                     capacity_per_slot=CAPACITY,
+                                     block_size=BS)
+        self.batchers.append(runtime.srv)
+        return self.pool.register(Replica(f"{node}-g{g}", node, runtime))
+
+    def submit(self, prompt, lane):
+        rid = self.router.submit(prompt, MAX_NEW, lane=lane)
+        self.submitted_t[rid] = time.monotonic()
+        self._log_assignments()
+        return rid
+
+    def _log_assignments(self):
+        """Log the placements the router made since the last call (its
+        list restarts at each tick and also takes submits' placements)."""
+        made = self.router.assignments_this_tick
+        self.assigned.extend((self.ticks,) + a for a in made[self._logged:])
+        self._logged = len(made)
+
+    def set_state(self, node, state):
+        self.cluster.patch_node_metadata(
+            node, labels={self.pool.keys.state_label: state})
+
+    def streamed_by(self, replica_id):
+        return sum(1 for req in self.router.requests.values()
+                   for _seq, rep in req.stream_log if rep == replica_id)
+
+    def tick(self):
+        self.ticks += 1
+        self._logged = 0
+        t0 = time.monotonic()
+        self.router.tick()
+        self.tick_ms.append(1e3 * (time.monotonic() - t0))
+        self._log_assignments()
+        bad = self.router.check_invariants(self.cluster.nodes)
+        check(not bad, f"router invariants at tick {self.ticks}: {bad}")
+        now = time.monotonic()
+        for rid, req in self.router.requests.items():
+            if req.stream and rid not in self.first_t:
+                self.first_t[rid] = now
+        for replica in list(self.pool.replicas.values()):
+            if not replica.failed:
+                replica.runtime.step()
+        check(self.ticks < FLEET_MAX_TICKS,
+              f"the fleet did not finish in {FLEET_MAX_TICKS} ticks")
+
+    def decode_steps(self):
+        return sum(b.decode_steps for b in self.batchers)
+
+    def check_delivery(self, tag):
+        """Every request completed exactly once; every stream gapless and
+        equal to its delivered tokens; no failed replica."""
+        r = self.router
+        check(r.outstanding == 0, f"{tag}: {r.outstanding} outstanding")
+        check(sorted(r.completed_counts) == sorted(r.requests)
+              and all(c == 1 for c in r.completed_counts.values()),
+              f"{tag}: deliveries {r.completed_counts}")
+        check(not r.stream_violations, f"{tag}: {r.stream_violations}")
+        for rid, req in r.requests.items():
+            check([s for s, _ in req.stream_log] == list(range(MAX_NEW))
+                  and req.tokens[len(req.prompt):] == req.stream,
+                  f"{tag}: request {rid}'s stream is not gapless or differs "
+                  f"from its tokens")
+        check(not any(rep.failed for rep in self.pool.replicas.values()),
+              f"{tag}: a replica failed")
+
+
+def phase_fleet(torch, params, cfg, prompts, plain_tokens):
+    """Phase 3d: three port replicas under the port's router; node A's
+    upgrade-state label turns cordon-required mid-stream, the router
+    drains A (in-flight streams live-migrate, queued requests are placed
+    again), a fresh replica takes A back and serves new traffic."""
+    import numpy as np
+
+    from k8s_operator_libs_tpu_torch.models.generate import generate
+    from k8s_operator_libs_tpu_torch.ops import paged_attention as attn
+    from k8s_operator_libs_tpu_torch.serving import LANES
+    from k8s_operator_libs_tpu_torch.upgrade import UpgradeState
+
+    t_phase = time.monotonic()
+    records = []
+    attn.reset_launch_counts()
+    fleet = Fleet(params, cfg, FLEET_NODES, records)
+    router = fleet.router
+    node_a = FLEET_NODES[0]
+    old_a = fleet.pool.replicas[f"{node_a}-g1"]
+    which = {}                               # rid -> (lane, prompt index)
+    for k, p in enumerate(prompts):
+        which[fleet.submit(p, LANES[0])] = (LANES[0], k)
+    # the first lane streams on every replica; then the other two lanes
+    # arrive and node A enters the upgrade pipeline before A steps again:
+    # A holds two streams in flight and four requests never admitted
+    while min(fleet.streamed_by(r.id) for r in fleet.pool.replicas.values()
+              ) < FLEET_DRAIN_AFTER:
+        fleet.tick()
+    for lane in LANES[1:]:
+        for k, p in enumerate(prompts):
+            which[fleet.submit(p, lane)] = (lane, k)
+    a_load = sum(1 for t, rid, rep, node in fleet.assigned
+                 if rep == old_a.id)
+    fleet.set_state(node_a, UpgradeState.CORDON_REQUIRED)
+    drain_tick = fleet.ticks + 1
+    fleet.tick()
+    check(old_a.draining and old_a.drain_reason == "upgrade:cordon-required",
+          f"A did not drain on the label (reason {old_a.drain_reason})")
+    check(old_a.drained, "A still runs requests after its drain")
+    # the node's upgrade is done: a fresh replica takes node A back (the
+    # router sees the node admit again at its next tick), then new traffic
+    fleet.set_state(node_a, UpgradeState.DONE)
+    fleet.pool.deregister(old_a.id)
+    new_a = fleet.spawn(node_a)
+    fleet.tick()
+    gen = np.random.default_rng(4)
+    fresh = [gen.integers(0, cfg.vocab_size, size=FLEET_NEW_LEN).tolist()
+             for _ in range(len(prompts))]
+    for k, p in enumerate(fresh):
+        which[fleet.submit(p, LANES[k % len(LANES)])] = ("new", k)
+    while router.outstanding:
+        fleet.tick()
+    fleet.tick()
+    wall = time.monotonic() - t_phase
+    launches = attn.LAUNCHES["paged_decode"]
+    steps = fleet.decode_steps()
+
+    fleet.check_delivery("phase 3d")
+    after = [(t, rid, rep) for t, rid, rep, node in fleet.assigned
+             if t >= drain_tick and rep == old_a.id]
+    check(not after, f"admissions on the drained A: {after}")
+    on_new_a = [rid for t, rid, rep, node in fleet.assigned
+                if rep == new_a.id]
+    check(on_new_a, "no request landed on the respawned replica on A")
+    check(router.migration_successes >= 1 and router.migration_fallbacks == 0,
+          f"{router.migration_successes} live migrations, "
+          f"{router.migration_fallbacks} re-prefill fallbacks")
+    check(launches == cfg.n_layers * steps > 0,
+          f"A-K4 launched {launches} times over {steps} decode steps of "
+          f"{cfg.n_layers} layers (all replicas)")
+
+    # tokens: phase 3's for its prompts, generate's for the new ones, by
+    # phase 3b's near-tie rule
+    with torch.no_grad():
+        want_new = generate(params, torch.as_tensor(fresh, device="cuda"),
+                            cfg, max_new_tokens=MAX_NEW).cpu().tolist()
+    gaps = {("old", k): top2_gaps(torch, params, cfg, t, len(prompts[k]))
+            for k, t in enumerate(plain_tokens)}
+    gaps.update({("new", k): top2_gaps(torch, params, cfg, t, FLEET_NEW_LEN)
+                 for k, t in enumerate(want_new)})
+    verdicts = []
+    for rid, (lane, k) in sorted(which.items()):
+        key = ("new", k) if lane == "new" else ("old", k)
+        want = want_new[k] if lane == "new" else plain_tokens[k]
+        got = router.result(rid)
+        ok, what, _ = near_tie_verdict(got, want, gaps[key],
+                                       len(router.requests[rid].prompt))
+        check(ok, f"phase 3d request {rid} ({lane}, prompt {k}): {what}")
+        verdicts.append(f"{lane} prompt {len(router.requests[rid].prompt)}"
+                        f": {what}")
+
+    ttft = {}
+    for rid, (lane, _k) in which.items():
+        ttft.setdefault(lane, []).append(fleet.first_t[rid]
+                                         - fleet.submitted_t[rid])
+    per_replica = {}
+    for srv, rep in zip(fleet.batchers, [f"{n}-g1" for n in FLEET_NODES]
+                        + [new_a.id]):
+        per_replica[rep] = (1e3 * srv.decode_seconds / srv.decode_steps
+                            if srv.decode_steps else None,
+                            srv.decode_steps)
+    ticks = sorted(fleet.tick_ms)
+    migrated = [r for r in router.requests.values() if r.migrations]
+    log(f"phase 3d: 3 port replicas (Llama-3-8B, all {cfg.n_layers} layers, "
+        f"one set of weights) under the port's router and pool; "
+        f"{len(which)} streamed requests (prompts {PROMPT_LENS} in lanes "
+        f"{', '.join(LANES)}, then {len(fresh)} new of {FLEET_NEW_LEN}), "
+        f"max_new {MAX_NEW}; node A held {a_load} requests when its label "
+        f"turned cordon-required at tick {drain_tick}; "
+        f"{router.migration_successes} live migrations "
+        f"({router.migration_attempts} attempts), "
+        f"{router.migration_fallbacks} fallbacks, {router._rerouted} "
+        f"re-placed; {len(on_new_a)} requests on the respawned A; all "
+        f"delivered once, gapless, invariants empty at all "
+        f"{fleet.ticks} ticks")
+    log(f"phase 3d: A-K4 launches {launches} = {cfg.n_layers} x {steps} "
+        f"decode steps over {len(fleet.batchers)} batchers")
+    log(f"phase 3d: ms per router tick median {ticks[len(ticks) // 2]:.3f}, "
+        f"mean {sum(ticks) / len(ticks):.3f}, max {ticks[-1]:.3f} (host "
+        f"wall: refresh, scrape, drain watch, collection, placement; the "
+        f"drain's tick holds the exports and adoptions)")
+    log("phase 3d: TTFT per lane, host wall from submit to the tick that "
+        "saw the first token (the loop's granularity: a tick and one step "
+        "of each replica): " + ", ".join(
+            f"{lane} {1e3 * sum(v) / len(v):.1f} ms (n {len(v)})"
+            for lane, v in ttft.items()))
+    log("phase 3d: ms per decode step per replica (4 slots): " + ", ".join(
+        f"{rep} {'-' if ms is None else f'{ms:.2f}'} ({n} steps)"
+        for rep, (ms, n) in per_replica.items()))
+    for rec in records:
+        log(f"phase 3d: migration {rec['op']} {rec['ms']:.2f} ms, "
+            f"{rec['kv_bytes']} KV bytes"
+            + (f" ({rec['tokens']} tokens generated)" if "tokens" in rec
+               else ""))
+    for line in verdicts:
+        log(f"phase 3d: tokens: {line}")
+    log(f"phase 3d: serving loop and its checks {wall:.1f} s (before the "
+        f"reference tokens)")
+    exports = [r for r in records if r["op"] == "export"]
+    adopts = [r for r in records if r["op"] == "adopt"]
+    stats = {"fleet_launches": launches, "fleet_decode_steps": steps,
+             "fleet_ticks": fleet.ticks,
+             "fleet_tick_ms_median": ticks[len(ticks) // 2],
+             "fleet_migrations": router.migration_successes,
+             "fleet_fallbacks": router.migration_fallbacks,
+             "fleet_export_ms": [r["ms"] for r in exports],
+             "fleet_adopt_ms": [r["ms"] for r in adopts],
+             "fleet_kv_bytes": [r["kv_bytes"] for r in exports],
+             "fleet_ttft_ms": {lane: 1e3 * sum(v) / len(v)
+                               for lane, v in ttft.items()},
+             "fleet_ms_per_decode_step": {rep: ms for rep, (ms, _) in
+                                          per_replica.items()},
+             "fleet_migrated": len(migrated), "fleet_wall_s": wall}
+    del fleet, router, old_a, new_a
+    return stats
+
+
+def phase_fleet_fp32(torch):
+    """Phase 3d's fp32 twin: Llama-3-8B width at FLEET32_LAYERS layers, two
+    port replicas, one drain mid-stream; every request's tokens equal the
+    contiguous ``generate``'s."""
+    import numpy as np
+
+    from k8s_operator_libs_tpu_torch.models.generate import generate
+    from k8s_operator_libs_tpu_torch.models.llama import (LlamaConfig,
+                                                          init_params)
+    from k8s_operator_libs_tpu_torch.ops import paged_attention as attn
+    from k8s_operator_libs_tpu_torch.upgrade import UpgradeState
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = LlamaConfig.llama3_8b(n_layers=FLEET32_LAYERS, dtype=torch.float32)
+    params = init_params(cfg, seed=2, device="cuda")
+    gen = np.random.default_rng(2)
+    prompts = [gen.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in PROMPT_LENS]
+    records = []
+    attn.reset_launch_counts()
+    fleet = Fleet(params, cfg, FLEET_NODES[:2], records)
+    router = fleet.router
+    donor = fleet.pool.replicas[f"{FLEET_NODES[0]}-g1"]
+    rids = [fleet.submit(p, "interactive") for p in prompts]
+    while min(fleet.streamed_by(r.id) for r in fleet.pool.replicas.values()
+              ) < FLEET_DRAIN_AFTER:
+        fleet.tick()
+    fleet.set_state(FLEET_NODES[0], UpgradeState.CORDON_REQUIRED)
+    while router.outstanding:
+        fleet.tick()
+    fleet.tick()
+    launches = attn.LAUNCHES["paged_decode"]
+    steps = fleet.decode_steps()
+    fleet.check_delivery("phase 3d fp32")
+    check(donor.drained and router.migration_successes >= 1
+          and router.migration_fallbacks == 0,
+          f"fp32 twin: drained {donor.drained}, "
+          f"{router.migration_successes} migrations, "
+          f"{router.migration_fallbacks} fallbacks")
+    check(launches == cfg.n_layers * steps > 0,
+          f"fp32 twin: A-K4 launched {launches} times over {steps} steps")
+    with torch.no_grad():
+        for rid, p in zip(rids, prompts):
+            want = generate(params, torch.as_tensor([p], device="cuda"),
+                            cfg, max_new_tokens=MAX_NEW)[0].tolist()
+            got = router.result(rid)
+            i = first_mismatch(got, want)
+            check(i is None and len(got) == len(want),
+                  f"fp32 twin prompt {len(p)}: token "
+                  f"{None if i is None else i - len(p)} differs from the "
+                  f"contiguous generate")
+    log(f"phase 3d fp32: 2 port replicas (Llama-3-8B width, "
+        f"{FLEET32_LAYERS} layers, fp32), A drained mid-stream: "
+        f"{router.migration_successes} live migrations, 0 fallbacks; all "
+        f"{len(rids)} requests token-identical to the contiguous generate; "
+        f"A-K4 launches {launches} = {cfg.n_layers} x {steps}")
+    stats = {"fleet32_migrations": router.migration_successes,
+             "fleet32_launches": launches}
+    del fleet, router, donor, params
+    return stats
 
 
 def profile_kernels(torch, fn):
@@ -3340,7 +3765,7 @@ def phase_pp_tp_ep(torch):
 # ranks sharing the card over gloo (GLOO_LABEL, MP_TIMEOUT): steps 1-2 at
 # 4 ranks, a reclaim whose survivors exclude rank 0, steps 3-4 at 2, a
 # grow with 2 joiners, steps 5-6 at 4; each rank B/n x T 2048
-EL_LAYERS, EL_B, EL_T, EL_STEPS = 2, 4, 2048, 6
+EL_LAYERS, EL_B, EL_T, EL_STEPS = 1, 4, 2048, 6
 EL_SHRINK_AT, EL_GROW_AT, EL_SEED = 2, 4, 23
 EL_NCCL_B = 2                   # 11b: one rank, phase 5's B 2 x T 2048
 # the cold start from the grow's checkpoint runs the same kernels on the
@@ -3349,7 +3774,7 @@ EL_NCCL_B = 2                   # 11b: one rank, phase 5's B 2 x T 2048
 # (tests/test_elastic.py: rel 1e-5, atol 1e-6), which the moment-reset
 # fault must exceed
 EL_RTOL, EL_ATOL = 1e-5, 1e-6
-EL_DISK_BYTES = 40e9            # 11a's 2 checkpoints of 8.92 GB, mirrored
+EL_DISK_BYTES = 40e9            # 11a's 2 checkpoints of 7.61 GB, mirrored
 
 
 def _el_cfg(**kw):
@@ -3862,9 +4287,9 @@ def phase_elastic(torch):
 # phase 12a: the port's GPU scheduler places a workload on PL_NODES
 # in-script nodes of PL_GPUS GPUs (GFD's labels, the card's own product),
 # and the processes the placed pods start, one per GPU, train FSDP at
-# phase 11a's 4-rank shape: Llama-3-8B width, 2 layers, B 4 x T 2048
+# phase 11a's 4-rank shape: Llama-3-8B width, 1 layer, B 4 x T 2048
 PL_NODES, PL_GPUS = 2, 2
-PL_LAYERS, PL_B, PL_T, PL_STEPS = 2, 4, 2048, 2
+PL_LAYERS, PL_B, PL_T, PL_STEPS = 1, 4, 2048, 2
 # phase 12b: tensor-parallel decoding on TPD_RANKS ranks at Llama-3-8B's
 # full depth in bf16 (phase 3's prompts, MAX_NEW greedy tokens), then its
 # fp32 twin at TPD32_LAYERS layers; ms per decode step by two points (a
@@ -4220,21 +4645,10 @@ def phase_tp_decode(torch):
     for i, (p, got, want, gaps) in enumerate(zip(
             prompts, results[0]["bf16"]["tokens"], ref["bf16"]["tokens"],
             ref["bf16"]["gaps"])):
-        small = next((j for j, g in enumerate(gaps) if g < SPEC_GAP_EPS),
-                     MAX_NEW)
-        i_diff = first_mismatch(got[len(p):], want[len(p):])
-        check(i_diff is None or (i_diff >= small
-                                 and gaps[i_diff] < SPEC_GAP_EPS),
-              f"phase 12b: bf16 prompt {len(p)}: token {i_diff} differs "
-              f"from the one-rank generate's where the top-2 logit gap is "
-              f"{gaps[i_diff] if i_diff is not None else None} (first gap "
-              f"under {SPEC_GAP_EPS} at token {small})")
-        notes.append(f"prompt {len(p)}: "
-                     + ("identical" if i_diff is None else
-                        f"first differs at token {i_diff} (gap there "
-                        f"{gaps[i_diff]:.4f})")
-                     + f", first gap < {SPEC_GAP_EPS} at token "
-                     + (str(small) if small < MAX_NEW else "none"))
+        ok, what, i_diff = near_tie_verdict(got, want, gaps, len(p))
+        check(ok, f"phase 12b: bf16 prompt {len(p)} against the one-rank "
+                  f"generate's: {what}")
+        notes.append(f"prompt {len(p)}: {what}")
         stats[f"bf16_first_diff_prompt{len(p)}"] = i_diff
     log(f"phase 12b: bf16, {LlamaConfig.llama3_8b().n_layers} layers, "
         f"against the one-rank generate up to "
@@ -4304,7 +4718,7 @@ def main():
         timed("phase 1", phase_build)
         kernels = timed("phase 2 (paged decode)", phase_kernels, torch)
         kernels.update(timed("phase 2 (flash)", phase_flash, torch))
-        serve = timed("phase 3 (3b, 3c)", phase_serve, torch)
+        serve = timed("phase 3 (3b, 3c, 3d)", phase_serve, torch)
         parity = timed("phase 4", phase_parity, torch)
         moe_serve = timed("phase 7", phase_moe_serve, torch)
         moe_serve.update(timed("phase 7b", phase_moe_parity, torch))
@@ -4330,6 +4744,8 @@ def main():
              parity["launches_int8"]),
             ("paged_decode_speculative", "paged_decode", f"{jax_attn}:734",
              serve["spec_launches"]),
+            ("paged_decode_serving_tier", "paged_decode", f"{jax_attn}:734",
+             serve["fleet_launches"]),
             ("paged_decode_full_batch", "paged_decode", f"{jax_attn}:734",
              serve["launches"]),
             ("paged_decode_int8_full_batch", "paged_decode",
@@ -4355,13 +4771,15 @@ def main():
               for kname, line in (("flash_forward", 236),
                                   ("flash_bwd_dq", 439),
                                   ("flash_bwd_dkv", 519)))):
-        # the speculative path's draft steps and the MoE paths run their
-        # kernels at phase 2's shapes (A-K4 at the serving shape, A-K1-3 at
+        # the speculative path's draft steps, the serving tier's replicas
+        # and the MoE paths run their kernels at phase 2's shapes (A-K4 at
+        # the serving shape, A-K1-3 at
         # H 32, KV 8, Dh 128, B 2, T 2048), so their rows carry phase 2's
         # measurements; phase 9's rows carry those of phase 2's cases at
         # the ranks' own shapes (FLASH_CASES), their launches summed over
         # the ranks
-        k = kernels[{"paged_decode_speculative": "paged_decode"}.get(
+        k = kernels[{"paged_decode_speculative": "paged_decode",
+                     "paged_decode_serving_tier": "paged_decode"}.get(
             name, name.split("_moe")[0])]
         rows.append({"name": name, "route": "cuda",
                      "source": CSRC.format(source), "replaces": replaces,

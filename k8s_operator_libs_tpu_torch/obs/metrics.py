@@ -1,7 +1,7 @@
 """Prometheus text exposition for the serving and training workloads.
 
-A copy, cut to what the batcher, the server's ``/metrics`` and the
-trainer's goodput ledger call, of
+A copy, cut to what the batcher, the server's ``/metrics``, the
+trainer's goodput ledger and the router tier (``serving/``) call, of
 ``_Histogram``/``MetricsHub`` from the JAX package's ``obs/metrics.py``
 and of the gauge renderer ``render_prometheus_multi`` from
 the JAX package's ``upgrade/metrics.py``. Metric names, HELP texts and
@@ -102,7 +102,79 @@ HELP_TEXTS: Dict[str, str] = {
     "tpu_workload_stream_backlog_tokens":
         "Generated-but-not-yet-streamed tokens across running requests "
         "at the last poll_stream (stream consumer staleness)",
+    # the router tier (serving/): pool, router and autoscaler families
+    "tpu_router_replicas":
+        "Serving replicas currently registered with the router tier",
+    "tpu_router_replicas_admitting":
+        "Registered replicas accepting new requests (alive, not "
+        "draining, node schedulable/unquarantined)",
+    "tpu_router_replicas_draining":
+        "Replicas finishing in-flight work with admission stopped "
+        "(upgrade, quarantine, reclaim, or scale-down)",
+    "tpu_router_replicas_failed":
+        "Replicas whose runtime crashed or became unreachable",
+    "tpu_router_queue_depth":
+        "Requests held at the router waiting for a replica with "
+        "headroom",
+    "tpu_router_outstanding_requests":
+        "Accepted requests not yet completed (router queue + in flight "
+        "on replicas)",
+    "tpu_router_requests_routed":
+        "Requests placed on a replica at least once since router start",
+    "tpu_router_requests_completed":
+        "Requests delivered exactly once since router start",
+    "tpu_router_requests_rerouted":
+        "Request re-placements after a drain handoff or replica "
+        "failure (each re-placement counts once)",
+    "tpu_router_scale_target":
+        "The autoscaler's current desired replica count",
+    "tpu_router_scale_ups":
+        "Autoscaler scale-up decisions since router start",
+    "tpu_router_scale_downs":
+        "Autoscaler scale-down decisions since router start",
+    "tpu_router_handoff_requests":
+        "Queued-but-never-admitted requests migrated to peers per drain "
+        "handoff",
+    "tpu_router_replica_queue_depth":
+        "Scraped per-replica admission queue depth, sampled once per "
+        "router scrape cycle",
+    "tpu_router_migration_attempts":
+        "KV payload transfer attempts for in-flight live migrations "
+        "since router start (every retry counts once)",
+    "tpu_router_migration_success":
+        "In-flight requests successfully live-migrated to a peer "
+        "(adopted, stream resumed from the last acked sequence number)",
+    "tpu_router_migration_fallbacks":
+        "Migrations that exhausted the transfer budget or were rejected "
+        "by every peer and fell back to re-prefill-from-prompt at "
+        "degraded priority (slower, never lost)",
+    "tpu_router_migration_transfer_seconds":
+        "Seconds one successful KV payload transfer + adoption took "
+        "(per-request migration downtime contribution)",
+    "tpu_router_migration_transfer_bytes":
+        "Serialized KV payload bytes per successful migration transfer",
+    "tpu_router_lane_queue_depth":
+        "Requests queued at the router by QoS lane (interactive / "
+        "batch / best-effort)",
+    "tpu_router_lane_shed":
+        "Requests dropped by overload shedding since router start, by "
+        "lane (best-effort sheds first; interactive never sheds)",
+    "tpu_router_lane_completed":
+        "Requests delivered since router start, by QoS lane",
+    "tpu_router_lane_queue_wait_seconds":
+        "Seconds a request waited at the router before its first "
+        "placement, by QoS lane (the per-tenant queueing SLI)",
 }
+
+# migration KV payload sizes: a tiny test config exports a few KiB, a
+# production 70B-class slot is hundreds of MiB
+TRANSFER_BYTES_BUCKETS: Tuple[float, ...] = (
+    1e3, 1e4, 1e5, 1e6, 1e7, 1e8, 1e9, 4e9)
+
+# router-tier depth histograms (requests per drain handoff, scraped
+# per-replica queue depths), from 0 so an always-empty queue shows
+QUEUE_DEPTH_BUCKETS: Tuple[float, ...] = (
+    0, 1, 2, 4, 8, 16, 32, 64, 128, 256)
 
 
 def help_for(metric: str, default: Optional[str] = None) -> str:
