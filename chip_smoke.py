@@ -86,6 +86,33 @@ Phases, each fatal on failure:
    each migration's export and adopt ms and KV bytes. Its fp32 twin:
    two replicas at Llama-3-8B width, 2 layers, one drain, every
    request's tokens equal to the contiguous ``generate``'s.
+   3e. The router binary and the capacity market: the port's
+   ``router.main`` (``python -m k8s_operator_libs_tpu_torch.router``)
+   with ``--kubeconfig`` to an in-script apiserver (nodes A, B and C as
+   the port's objects, read and patched through the port's
+   ``LiveClient``) in front of two replicas over phase 3's weights.
+   Phase 3's prompts stream through its ``/generate`` in the three lanes;
+   A freezes, node A's upgrade-state label turns ``cordon-required``, and
+   the binary's ticker must drain A (``/healthz`` 503, the drain intent
+   on the node) while its relay splices A's streams onto B by
+   ``/export``, ``/adopt`` and ``/stream``: >= 1 live migration and no
+   fallback, every stream gapless, tokens by 3b's near-tie rule. Then a
+   burst of requests kept in flight on B makes the port's
+   ``CapacityArbiter`` (demand: ``HTTPLaneDemand`` over the binary's
+   ``/lanes``; goodput: a constant stand-in, no trainer runs here)
+   preempt the slice on node C: its grant starts a third replica there
+   and registers it by ``POST /register``, and at least one request
+   completes on it; when the burst ends the arbiter returns the slice,
+   C drained through the router. The market's decisions must be
+   preempt, grant, return, returned, node C's owner label, lease and
+   decision annotations the wire contract's, every request delivered
+   once (burst tokens against a batched ``generate`` by the near-tie
+   rule), no router tick failed, the ticker joined at shutdown, and A-K4
+   launches 32 x the decode steps of the three replicas. Prints ms per
+   router tick, ``tpu_router_proxy_overhead_seconds`` p50/p99, TTFT per
+   lane through the router, export and adopt ms and KV bytes over HTTP,
+   ms per decode step per replica and the arbiter's decisions with their
+   exchange rates.
 4. Token parity in fp32 at Llama-3-8B width, 2 layers: the batcher's
    greedy tokens (through A-K4) against the contiguous ``generate``
    (plain), and ``paged_generate(kv_int8=True)`` through A-K5 against the
@@ -235,6 +262,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -1022,6 +1050,8 @@ def phase_serve(torch):
     stats.update(phase_migrate(torch, params, cfg))
     stats.update(timed("phase 3d", phase_fleet, torch, params, cfg, prompts,
                        plain_tokens))
+    stats.update(timed("phase 3e", phase_router, torch, params, cfg, prompts,
+                       plain_tokens))
     del params
     stats.update(timed("phase 3d fp32", phase_fleet_fp32, torch))
     return stats
@@ -1063,6 +1093,19 @@ class SSEReader(threading.Thread):
 def get(url, timeout=120):
     with urllib.request.urlopen(url, timeout=timeout) as resp:
         return resp.status, json.loads(resp.read())
+
+
+def get_text(url, timeout=120):
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        return resp.status, resp.read().decode()
+
+
+def get_code(url, timeout=120):
+    """(status, body text) of a GET that may answer with an error."""
+    try:
+        return get_text(url, timeout)
+    except urllib.error.HTTPError as err:
+        return err.code, err.read().decode()
 
 
 def serve_http(rt):
@@ -1743,6 +1786,616 @@ def phase_fleet_fp32(torch):
              "fleet32_launches": launches}
     del fleet, router, donor, params
     return stats
+
+
+# phase 3e: the router binary. Nodes; A's streams' tokens before A
+# freezes; the router's tick; the market burst: requests kept in flight,
+# their prompt length and new tokens; the arbiter's tick and its
+# goodput stand-in (no trainer runs in this phase)
+ROUTER_NODES = ("node-a", "node-b", "node-c")
+ROUTER_DRAIN_AFTER, ROUTER_TICK = 2, 0.1
+BURST_INFLIGHT, BURST_LEN, BURST_NEW = 8, 32, 8
+MARKET_TICK, GOODPUT_STANDIN = 0.1, 1.0
+ROUTER_TIMEOUT = 300.0
+
+
+class ApiServer:
+    """The apiserver phase 3e's router and arbiter reach through the
+    port's ``LiveClient``: three Ready nodes held as the port's objects
+    and written as JSON with the port's ``core/serde.py``. It serves the
+    verbs they call: list and get nodes, a merge PATCH of labels,
+    annotations and ``unschedulable`` (a null deletes), and POST of
+    events."""
+
+    def __init__(self, names):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        from k8s_operator_libs_tpu_torch.core.objects import Node, ObjectMeta
+        self.nodes = {n: Node(metadata=ObjectMeta(name=n, namespace=""))
+                      for n in names}
+        self.events = []
+        self.lock = threading.Lock()
+        self.rv = 0
+        api = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def _send(self, code, body):
+                data = json.dumps(body).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def _body(self):
+                n = int(self.headers.get("Content-Length", 0))
+                return json.loads(self.rfile.read(n)) if n else {}
+
+            def _node_or_404(self):
+                name = self.path.split("?")[0].rsplit("/", 1)[-1]
+                if name not in api.nodes:
+                    self._send(404, {"kind": "Status", "code": 404,
+                                     "reason": "NotFound",
+                                     "message": f"node {name} not found"})
+                    return None
+                return name
+
+            def do_GET(self):
+                from k8s_operator_libs_tpu_torch.core import serde
+                path = self.path.split("?")[0]
+                with api.lock:
+                    if path == "/api/v1/nodes":
+                        self._send(200, {
+                            "kind": "NodeList", "apiVersion": "v1",
+                            "metadata": {"resourceVersion": str(api.rv)},
+                            "items": [serde.node_to_json(n)
+                                      for n in api.nodes.values()]})
+                    elif path.startswith("/api/v1/nodes/"):
+                        name = self._node_or_404()
+                        if name is not None:
+                            self._send(200,
+                                       serde.node_to_json(api.nodes[name]))
+                    else:
+                        self._send(404, {"kind": "Status", "code": 404})
+
+            def do_PATCH(self):
+                from k8s_operator_libs_tpu_torch.core import serde
+                body = self._body()
+                with api.lock:
+                    name = self._node_or_404()
+                    if name is None:
+                        return
+                    api.patch(name, body)
+                    self._send(200, serde.node_to_json(api.nodes[name]))
+
+            def do_POST(self):
+                body = self._body()
+                if "/events" not in self.path:
+                    self._send(405, {"kind": "Status", "code": 405})
+                    return
+                with api.lock:
+                    api.events.append(body)
+                self._send(201, body)
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def patch(self, name, body):
+        """A strategic-merge patch of one node (the caller holds the
+        lock)."""
+        node = self.nodes[name]
+        meta = body.get("metadata") or {}
+        for have, patch in ((node.metadata.labels, meta.get("labels")),
+                            (node.metadata.annotations,
+                             meta.get("annotations"))):
+            for k, v in (patch or {}).items():
+                if v is None:
+                    have.pop(k, None)
+                else:
+                    have[k] = v
+        spec = body.get("spec") or {}
+        if "unschedulable" in spec:
+            node.spec.unschedulable = bool(spec["unschedulable"])
+        self.rv += 1
+        node.metadata.resource_version = str(self.rv)
+
+    def metadata(self, name):
+        with self.lock:
+            meta = self.nodes[name].metadata
+            return dict(meta.labels), dict(meta.annotations)
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(timeout=30)
+
+
+def histogram_quantiles(text, family, qs):
+    """Upper bucket bounds holding the quantiles ``qs`` of a histogram
+    family in Prometheus text, its series summed; (bounds, count)."""
+    cum = {}
+    for m in re.finditer(rf'^{family}_bucket{{.*le="([^"]+)"}} (\S+)$',
+                         text, re.M):
+        le = float("inf") if m.group(1) == "+Inf" else float(m.group(1))
+        cum[le] = cum.get(le, 0.0) + float(m.group(2))
+    if not cum:
+        return [None] * len(qs), 0
+    total = cum[float("inf")]
+    bounds = [next(le for le in sorted(cum) if cum[le] >= q * total)
+              for q in qs]
+    return bounds, int(total)
+
+
+def phase_router(torch, params, cfg, prompts, plain_tokens):
+    """Phase 3e: the port's router binary (``router.py``, started through
+    its ``main`` with ``--kubeconfig`` to an in-script apiserver) in front
+    of two port replicas; node A's label drains A and the relay splices
+    A's streams onto B; then a burst makes the port's capacity arbiter
+    trade the training slice on node C to serving and back."""
+    import logging
+
+    import numpy as np
+
+    from k8s_operator_libs_tpu_torch import router as router_bin
+    from k8s_operator_libs_tpu_torch.core.client import ClientEventRecorder
+    from k8s_operator_libs_tpu_torch.core.liveclient import (KubeConfig,
+                                                             KubeHTTP,
+                                                             LiveClient)
+    from k8s_operator_libs_tpu_torch.market import (CapacityArbiter,
+                                                    HTTPLaneDemand,
+                                                    ManagedSlice,
+                                                    MarketConfig)
+    from k8s_operator_libs_tpu_torch.models.generate import generate
+    from k8s_operator_libs_tpu_torch.ops import paged_attention as attn
+    from k8s_operator_libs_tpu_torch.serving import LANES
+    from k8s_operator_libs_tpu_torch.serving.pool import parse_gauges
+    from k8s_operator_libs_tpu_torch.server import ServingRuntime
+    from k8s_operator_libs_tpu_torch.upgrade import KeyFactory, UpgradeState
+    from k8s_operator_libs_tpu_torch.utils import threads
+    from k8s_operator_libs_tpu_torch.wire import (DRAIN_INTENT_ANNOTATION,
+                                                  MARKET_DECISION_ANNOTATION,
+                                                  MARKET_LEASE_ANNOTATION,
+                                                  MARKET_OWNER_LABEL)
+
+    t_phase = time.monotonic()
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_router"
+    work.mkdir(parents=True, exist_ok=True)
+    api = ApiServer(ROUTER_NODES)
+    kubeconfig = work / "kubeconfig.json"
+    kubeconfig.write_text(json.dumps({
+        "current-context": "smoke",
+        "contexts": [{"name": "smoke", "context": {"cluster": "smoke",
+                                                   "user": "smoke"}}],
+        "clusters": [{"name": "smoke", "cluster": {"server": api.url}}],
+        "users": [{"name": "smoke", "user": {}}]}))
+    attn.reset_launch_counts()
+    reps = {}                       # node -> (runtime, httpd, thread, url)
+
+    def start_replica(node):
+        rt = ServingRuntime(params, cfg, max_slots=SLOTS, capacity=CAPACITY,
+                            block_size=BS, chunk=1, drain_hold_s=60.0)
+        reps[node] = (rt,) + serve_http(rt)
+        return reps[node]
+
+    rt_a, *_, base_a = start_replica("node-a")
+    rt_b, *_, base_b = start_replica("node-b")
+    gate = rt_a.srv = GatedBatcher(rt_a.srv, None)
+
+    # instruments around the binary's own code: its tick and its
+    # export/adopt hops (the relay's default transport), restored after
+    tick_ms, hops = [], []
+    real_tick, real_post = router_bin.RouterFront.tick, \
+        router_bin.http_post_json
+
+    def timed_tick(front):
+        t0 = time.monotonic()
+        real_tick(front)
+        tick_ms.append(1e3 * (time.monotonic() - t0))
+
+    def timed_post(url, payload, timeout):
+        t0 = time.monotonic()
+        out = real_post(url, payload, timeout)
+        ms = 1e3 * (time.monotonic() - t0)
+        op = url.rsplit("/", 1)[-1]
+        if op in ("export", "adopt"):
+            kv = (out["data"] if op == "export" else payload)["kv"]
+            hops.append({"op": op, "ms": ms, "kv_bytes": sum(
+                len(kv[k]["b64"]) * 3 // 4 for k in ("k", "v"))})
+        return out
+
+    class TickFailures(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.ERROR)
+            self.failed = []
+
+        def emit(self, record):
+            if "router tick failed" in record.getMessage():
+                self.failed.append(record.getMessage())
+
+    failures = TickFailures()
+    router_log = logging.getLogger("tpu-router")
+    root = logging.getLogger()
+    root_state = (root.level, list(root.handlers))
+    router_log.addHandler(failures)
+    router_bin.RouterFront.tick = timed_tick
+    router_bin.http_post_json = timed_post
+    box, ready = {}, threading.Event()
+
+    def on_ready(httpd):
+        box["httpd"] = httpd
+        ready.set()
+
+    def run_binary():
+        try:
+            box["rc"] = router_bin.main(
+                ["--port", "0", "--kubeconfig", str(kubeconfig), "--tick",
+                 str(ROUTER_TICK), "--replica", f"a={base_a}@node-a",
+                 "--replica", f"b={base_b}@node-b"], on_ready=on_ready)
+        except Exception as exc:   # reported below as a failed phase
+            box["error"] = repr(exc)
+            ready.set()
+
+    binary = threading.Thread(target=run_binary, daemon=True)
+    binary.start()
+    market_stop, burst_stop = threading.Event(), threading.Event()
+    market_thread = None
+    try:
+        check(ready.wait(60) and "httpd" in box,
+              f"the router binary did not start ({box.get('error')})")
+        base = f"http://127.0.0.1:{box['httpd'].server_address[1]}"
+        deadline = time.monotonic() + 60
+        while get(base + "/replicas")[1]["data"]["summary"][
+                "admitting"] != 2:
+            check(time.monotonic() < deadline, "the router never admitted "
+                  "both replicas")
+            time.sleep(0.05)
+
+        # --- phase 3's prompts stream through the router, in the lanes
+        lanes = [LANES[k % len(LANES)] for k in range(len(prompts))]
+        t_sent = time.monotonic()
+        streams = [SSEReader(base + "/generate",
+                             {"tokens": p, "max_new": MAX_NEW,
+                              "stream": True, "lane": lane})
+                   for p, lane in zip(prompts, lanes)]
+        first_token_t = [None] * len(streams)
+
+        def watch_first():
+            for i, s in enumerate(streams):
+                if first_token_t[i] is None and s.tokens():
+                    first_token_t[i] = time.monotonic()
+
+        while min(len(s.tokens()) for s in streams) < ROUTER_DRAIN_AFTER:
+            watch_first()
+            check(all(s.is_alive() or s.events for s in streams)
+                  and time.monotonic() - t_sent < ROUTER_TIMEOUT,
+                  f"a stream stopped early: {[s.error for s in streams]}")
+            time.sleep(0.005)
+        watch_first()
+        # A freezes after at most one more step (its stepper then idles
+        # with the lock free), so its streams are in flight when its
+        # node's label flips; the step that froze it ends before the lock
+        # is ours
+        gate.left = 1
+        while gate.left != 0:
+            check(time.monotonic() - t_sent < ROUTER_TIMEOUT,
+                  "replica A never froze")
+            time.sleep(0.005)
+        with rt_a.lock:
+            on_a = rt_a.srv.decode_steps
+        state_label = KeyFactory("libtpu").state_label
+        with api.lock:
+            api.patch("node-a", {"metadata": {"labels": {
+                state_label: UpgradeState.CORDON_REQUIRED}}})
+        t_flip = time.monotonic()
+        for s in streams:
+            s.finish("phase 3e stream")
+        streams_done = time.monotonic()
+        code_a, _ = get_code(base_a + "/healthz")
+        _, intent_a = api.metadata("node-a")
+
+        # --- the market: a burst on one admitting replica preempts the
+        # slice on node C, served by a third replica, and returns it
+        routes = {"grant_ms": None}
+        client = LiveClient(KubeHTTP(KubeConfig.from_kubeconfig(
+            str(kubeconfig))))
+
+        def grant(ms):
+            # the arbiter logs a raising hook and carries on: keep the
+            # error for the phase to fail on
+            try:
+                t0 = time.monotonic()
+                rt_c, *_, base_c = start_replica(ms.anchor)
+                code, body = post(base + "/register", {
+                    "id": "c", "url": base_c, "node": ms.anchor})
+                check(code == 200, f"/register returned {code}: {body}")
+                routes["grant_ms"] = 1e3 * (time.monotonic() - t0)
+                routes["c"] = (rt_c, base_c)
+            except Exception as exc:   # reported below as a failed phase
+                routes["error"] = repr(exc)
+
+        def c_gauges():
+            _, text = get_text(routes["c"][1] + "/metrics")
+            return parse_gauges(text)
+
+        def revoke(ms):
+            # serving leaves the slice: C stops admitting, the router's
+            # drain watch reads it off C's metrics and drains it (no
+            # admission, the drain intent stamped), and C runs dry
+            try:
+                if not routes.get("drain_posted"):
+                    code, _ = post(routes["c"][1] + "/drain", {})
+                    check(code == 200, f"C /drain returned {code}")
+                    routes["drain_posted"] = time.monotonic()
+                view = {r["id"]: r for r in get(base + "/replicas")[1][
+                    "data"]["replicas"]}
+                g = c_gauges()
+                return (view["c"]["draining"]
+                        and g.get("tpu_workload_serve_slots_busy", 1) == 0
+                        and g.get("tpu_workload_serve_queue_depth", 1) == 0)
+            except Exception as exc:   # reported below as a failed phase
+                routes["error"] = repr(exc)
+                return False
+
+        arb = CapacityArbiter(
+            [ManagedSlice("train-c", ["node-c"])], client=client,
+            demand=HTTPLaneDemand(base),
+            goodput_fn=lambda: GOODPUT_STANDIN, grant=grant, revoke=revoke,
+            recorder=ClientEventRecorder(client),
+            config=MarketConfig(preempt_rate=1.0, return_rate=0.25,
+                                sustain_ticks=2, cooldown_seconds=1.0,
+                                queue_high=1.0))
+        market_log = []
+
+        def market_loop():
+            try:
+                while not market_stop.is_set():
+                    decision = arb.tick()
+                    if decision is not None:
+                        market_log.append(decision)
+                    market_stop.wait(MARKET_TICK)
+            except Exception as exc:   # reported below as a failed phase
+                market_log.append({"error": repr(exc)})
+
+        market_thread = threading.Thread(target=market_loop, daemon=True)
+        market_thread.start()
+        gen = np.random.default_rng(5)
+        burst, burst_lock = [], threading.Lock()
+
+        def burst_client():
+            while not burst_stop.is_set():
+                with burst_lock:
+                    prompt = gen.integers(0, cfg.vocab_size,
+                                          size=BURST_LEN).tolist()
+                try:
+                    code, body = post(base + "/generate", {
+                        "tokens": prompt, "max_new": BURST_NEW,
+                        "lane": "interactive"})
+                except Exception as exc:   # reported below
+                    code, body = None, {"error": repr(exc)}
+                with burst_lock:
+                    burst.append((prompt, code, body))
+
+        t_burst = time.monotonic()
+        burst_threads = [threading.Thread(target=burst_client, daemon=True)
+                         for _ in range(BURST_INFLIGHT)]
+        for t in burst_threads:
+            t.start()
+        while True:
+            served_c = ("c" in routes
+                        and routes["c"][0].reqtrace.closed > 0)
+            if served_c:
+                break
+            check(time.monotonic() - t_burst < ROUTER_TIMEOUT
+                  and "error" not in routes
+                  and not any("error" in d for d in market_log),
+                  f"no request completed on a replica of node C "
+                  f"(decisions {market_log}, {routes.get('error')})")
+            time.sleep(0.02)
+        burst_stop.set()
+        for t in burst_threads:
+            t.join(timeout=ROUTER_TIMEOUT)
+        t_burst_end = time.monotonic()
+        while arb.supply[0].phase != "training" or arb.returns < 1:
+            check(time.monotonic() - t_burst_end < ROUTER_TIMEOUT
+                  and "error" not in routes
+                  and not any("error" in d for d in market_log),
+                  f"the slice never came back (decisions {market_log}, "
+                  f"{routes.get('error')})")
+            time.sleep(0.02)
+        market_stop.set()
+        market_thread.join(timeout=30)
+        t_returned = time.monotonic()
+        labels_c, annotations_c = api.metadata("node-c")
+        # the gauges refresh on the ticker: wait for the one that counts
+        # the last completion
+        want_done = len(streams) + len(burst)
+        while True:
+            _, metrics_text = get_text(base + "/metrics")
+            if parse_gauges(metrics_text).get(
+                    "tpu_router_requests_completed") == want_done or \
+                    time.monotonic() - t_returned > 30:
+                break
+            time.sleep(ROUTER_TICK)
+        _, lanes_view = get(base + "/lanes")
+    finally:
+        burst_stop.set()
+        market_stop.set()
+        if market_thread is not None:
+            market_thread.join(timeout=30)
+        if "httpd" in box:
+            box["httpd"].shutdown()
+        binary.join(timeout=30)
+        router_bin.RouterFront.tick = real_tick
+        router_bin.http_post_json = real_post
+        router_log.removeHandler(failures)
+        root.setLevel(root_state[0])
+        root.handlers[:] = root_state[1]
+        for rt, httpd, thread, _ in reps.values():
+            close_http(httpd, thread, rt)
+        api.close()
+    check(not binary.is_alive() and box.get("rc") == 0
+          and not threads.live_threads("router-ticker"),
+          "the router binary's ticker did not stop and join")
+    check(not failures.failed, f"router ticks failed: {failures.failed}")
+    wall = time.monotonic() - t_phase
+    gauges = parse_gauges(metrics_text)
+    launches = attn.LAUNCHES["paged_decode"]
+    batchers = {node: rep[0].srv for node, rep in reps.items()}
+    steps = {node: b.decode_steps for node, b in batchers.items()}
+
+    # --- the drain and the splice
+    check(code_a == 503, f"A's /healthz read {code_a} after the drain")
+    check(intent_a.get(DRAIN_INTENT_ANNOTATION, "").startswith(
+        "upgrade:cordon-required@"),
+        f"no drain intent on node-a: {intent_a}")
+    check(steps["node-a"] == on_a, "A decoded after its freeze")
+    migrations = gauges.get("tpu_router_migration_success", 0)
+    fallbacks = gauges.get("tpu_router_migration_fallbacks", -1)
+    check(migrations >= 1 and fallbacks == 0,
+          f"{migrations} live migrations, {fallbacks} fallbacks")
+    verdicts = []
+    for k, s in enumerate(streams):
+        toks = s.tokens()
+        check([e["seq"] for e in toks] == list(range(MAX_NEW))
+              and s.events[-1].get("done")
+              and s.events[-1]["tokens"] == prompts[k]
+              + [e["token"] for e in toks],
+              f"phase 3e stream {k}: not gapless or its tokens differ "
+              f"from its done event")
+        got = s.events[-1]["tokens"]
+        gaps = top2_gaps(torch, params, cfg, plain_tokens[k],
+                         len(prompts[k]))
+        ok, what, _ = near_tie_verdict(got, plain_tokens[k], gaps,
+                                       len(prompts[k]))
+        check(ok, f"phase 3e stream {k} ({lanes[k]}): {what}")
+        verdicts.append(f"{lanes[k]} prompt {len(prompts[k])}: {what}")
+
+    # --- the market and the burst
+    actions = [d.get("action") for d in market_log]
+    check(actions == ["preempt", "grant", "return", "returned"],
+          f"market decisions {market_log}")
+    check(labels_c.get(MARKET_OWNER_LABEL) == "training"
+          and annotations_c.get(MARKET_LEASE_ANNOTATION, "").startswith(
+              f"training:{market_log[-1]['id']}@")
+          and json.loads(annotations_c.get(MARKET_DECISION_ANNOTATION,
+                                           "{}")).get("action") == "returned",
+          f"node-c's market keys: {labels_c} {annotations_c}")
+    reasons = [e.get("reason") for e in api.events]
+    check(reasons.count("MarketTrade") == 1
+          and reasons.count("MarketReturn") == 1,
+          f"market events on the apiserver: {reasons}")
+    check(all(code == 200 and len(body["tokens"]) == BURST_LEN + BURST_NEW
+              and body["tokens"][:BURST_LEN] == prompt
+              for prompt, code, body in burst),
+          f"a burst request failed: "
+          f"{[b for _, c, b in burst if c != 200][:3]}")
+    served_on_c = reps["node-c"][0].reqtrace.closed
+    check(served_on_c >= 1, "no request completed on node C's replica")
+    completed = gauges.get("tpu_router_requests_completed")
+    check(completed == len(streams) + len(burst)
+          and gauges.get("tpu_router_requests_rerouted") == 0,
+          f"router completed {completed} of {len(streams) + len(burst)} "
+          f"requests, rerouted {gauges.get('tpu_router_requests_rerouted')}")
+    with torch.no_grad():
+        want = generate(params, torch.as_tensor([p for p, _, _ in burst],
+                                                device="cuda"),
+                        cfg, max_new_tokens=BURST_NEW).cpu().tolist()
+    differ = 0
+    for (prompt, _, body), w in zip(burst, want):
+        if body["tokens"] == w:
+            continue
+        differ += 1
+        ok, what, _ = near_tie_verdict(
+            body["tokens"], w, top2_gaps(torch, params, cfg, w, BURST_LEN),
+            BURST_LEN)
+        check(ok, f"phase 3e burst request: {what}")
+    total_steps = sum(steps.values())
+    check(launches == cfg.n_layers * total_steps > 0
+          and steps["node-c"] > 0,
+          f"A-K4 launched {launches} times over {steps} decode steps of "
+          f"{cfg.n_layers} layers")
+
+    ttft = {}
+    for k, t in enumerate(first_token_t):
+        ttft.setdefault(lanes[k], []).append(t - t_sent)
+    (p50, p99), n_over = histogram_quantiles(
+        metrics_text, "tpu_router_proxy_overhead_seconds", (0.5, 0.99))
+    per_replica = {node: (1e3 * b.decode_seconds / b.decode_steps
+                          if b.decode_steps else None, b.decode_steps)
+                   for node, b in batchers.items()}
+    ticks = sorted(tick_ms)
+    log(f"phase 3e: the port's router binary (router.main, --kubeconfig "
+        f"to an in-script apiserver, tick {ROUTER_TICK} s) in front of 2 "
+        f"port replicas (Llama-3-8B, all {cfg.n_layers} layers); phase 3's "
+        f"{len(streams)} prompts streamed in lanes {', '.join(lanes)}; "
+        f"node-a's label turned cordon-required "
+        f"{1e3 * (t_flip - t_sent):.0f} ms after the first request: A "
+        f"drained (/healthz 503, intent "
+        f"{intent_a[DRAIN_INTENT_ANNOTATION]}), {migrations:g} live "
+        f"migrations, {fallbacks:g} fallbacks, every stream gapless, done "
+        f"{1e3 * (streams_done - t_flip):.0f} ms after the flip")
+    for line in verdicts:
+        log(f"phase 3e: tokens: {line}")
+    for hop in hops:
+        log(f"phase 3e: {hop['op']} over HTTP {hop['ms']:.2f} ms, "
+            f"{hop['kv_bytes']} KV bytes")
+    log(f"phase 3e: market: goodput_fn is the constant "
+        f"{GOODPUT_STANDIN} (a stand-in: no trainer in this phase); "
+        f"{len(burst)} burst requests ({BURST_INFLIGHT} in flight, prompt "
+        f"{BURST_LEN}, {BURST_NEW} new; {differ} off the batched generate, "
+        f"each within the near-tie rule); replica on node-c up and "
+        f"registered in {routes['grant_ms']:.0f} ms, served {served_on_c} "
+        f"requests; slice back with training "
+        f"{1e3 * (t_returned - t_burst_end):.0f} ms after the burst ended")
+    for d in market_log:
+        log(f"phase 3e: market decision #{d['id']} {d['action']} "
+            f"{d['slice']}: rate {d['rate']}, pressure {d['pressure']}, "
+            f"value {d['value']} ({d['reason']})")
+    log(f"phase 3e: node-c {MARKET_OWNER_LABEL}="
+        f"{labels_c[MARKET_OWNER_LABEL]}, {MARKET_LEASE_ANNOTATION}="
+        f"{annotations_c[MARKET_LEASE_ANNOTATION]}; events "
+        f"{', '.join(reasons)}")
+    log(f"phase 3e: A-K4 launches {launches} = {cfg.n_layers} x "
+        f"{total_steps} decode steps ({', '.join(f'{n} {v}' for n, v in steps.items())})")
+    log(f"phase 3e: ms per router tick median {ticks[len(ticks) // 2]:.3f}, "
+        f"mean {sum(ticks) / len(ticks):.3f}, max {ticks[-1]:.3f} over "
+        f"{len(ticks)} ticks (host wall: node reads over HTTP, scrapes, "
+        f"drain watch)")
+    log(f"phase 3e: tpu_router_proxy_overhead_seconds over {n_over} "
+        f"requests: p50 <= {p50} s, p99 <= {p99} s (bucket bounds)")
+    log("phase 3e: TTFT per lane through the router (client wall from the "
+        "POST to the first token event seen): " + ", ".join(
+            f"{lane} {1e3 * sum(v) / len(v):.1f} ms (n {len(v)})"
+            for lane, v in ttft.items()))
+    log("phase 3e: ms per decode step per replica (4 slots): " + ", ".join(
+        f"{node} {'-' if ms is None else f'{ms:.2f}'} ({n} steps)"
+        for node, (ms, n) in per_replica.items()))
+    log(f"phase 3e: lanes at the end {json.dumps(lanes_view['data'])}")
+    log(f"phase 3e: wall {wall:.1f} s (with the reference tokens)")
+    exports = [h for h in hops if h["op"] == "export"]
+    adopts = [h for h in hops if h["op"] == "adopt"]
+    return {"router_launches": launches, "router_decode_steps": total_steps,
+            "router_migrations": migrations, "router_fallbacks": fallbacks,
+            "router_tick_ms_median": ticks[len(ticks) // 2],
+            "router_proxy_overhead_p50_s": p50,
+            "router_proxy_overhead_p99_s": p99,
+            "router_ttft_ms": {lane: 1e3 * sum(v) / len(v)
+                               for lane, v in ttft.items()},
+            "router_export_ms": [h["ms"] for h in exports],
+            "router_adopt_ms": [h["ms"] for h in adopts],
+            "router_kv_bytes": [h["kv_bytes"] for h in exports],
+            "router_ms_per_decode_step": {n: ms for n, (ms, _) in
+                                          per_replica.items()},
+            "router_burst_requests": len(burst),
+            "router_served_on_c": served_on_c,
+            "router_market_rates": [d["rate"] for d in market_log],
+            "router_wall_s": wall}
 
 
 def profile_kernels(torch, fn):
@@ -4718,7 +5371,7 @@ def main():
         timed("phase 1", phase_build)
         kernels = timed("phase 2 (paged decode)", phase_kernels, torch)
         kernels.update(timed("phase 2 (flash)", phase_flash, torch))
-        serve = timed("phase 3 (3b, 3c, 3d)", phase_serve, torch)
+        serve = timed("phase 3 (3b, 3c, 3d, 3e)", phase_serve, torch)
         parity = timed("phase 4", phase_parity, torch)
         moe_serve = timed("phase 7", phase_moe_serve, torch)
         moe_serve.update(timed("phase 7b", phase_moe_parity, torch))
@@ -4746,6 +5399,8 @@ def main():
              serve["spec_launches"]),
             ("paged_decode_serving_tier", "paged_decode", f"{jax_attn}:734",
              serve["fleet_launches"]),
+            ("paged_decode_router", "paged_decode", f"{jax_attn}:734",
+             serve["router_launches"]),
             ("paged_decode_full_batch", "paged_decode", f"{jax_attn}:734",
              serve["launches"]),
             ("paged_decode_int8_full_batch", "paged_decode",
@@ -4771,15 +5426,16 @@ def main():
               for kname, line in (("flash_forward", 236),
                                   ("flash_bwd_dq", 439),
                                   ("flash_bwd_dkv", 519)))):
-        # the speculative path's draft steps, the serving tier's replicas
-        # and the MoE paths run their kernels at phase 2's shapes (A-K4 at
+        # the speculative path's draft steps, the serving tier's replicas,
+        # the replicas behind the router binary and the MoE paths run their kernels at phase 2's shapes (A-K4 at
         # the serving shape, A-K1-3 at
         # H 32, KV 8, Dh 128, B 2, T 2048), so their rows carry phase 2's
         # measurements; phase 9's rows carry those of phase 2's cases at
         # the ranks' own shapes (FLASH_CASES), their launches summed over
         # the ranks
         k = kernels[{"paged_decode_speculative": "paged_decode",
-                     "paged_decode_serving_tier": "paged_decode"}.get(
+                     "paged_decode_serving_tier": "paged_decode",
+                     "paged_decode_router": "paged_decode"}.get(
             name, name.split("_moe")[0])]
         rows.append({"name": name, "route": "cuda",
                      "source": CSRC.format(source), "replaces": replaces,

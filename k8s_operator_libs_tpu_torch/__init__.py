@@ -19,7 +19,12 @@ over a process group's ranks: FSDP (ZeRO-3) and sequence parallelism
 Slice 11 adds ``gpu/``, the GPU twins of the JAX package's ``tpu/`` (node
 facts from GPU Feature Discovery, the upgrade grouper and deletion
 filter, a scheduler that places one rank per GPU), and tensor-parallel
-decoding (``models/generate.py:make_tp_generate``).
+decoding (``models/generate.py:make_tp_generate``). Slice 13 adds the
+serving tier (``serving/``: the replica pool, the request router, the
+autoscaler); slice 14 the router binary in front of replicas
+(``router.py``) with its apiserver client (``core/liveclient.py``) and
+the capacity market that trades a training slice to serving and back
+(``market/``).
 
 The package imports ``torch``, ``numpy`` and the standard library only.
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU,

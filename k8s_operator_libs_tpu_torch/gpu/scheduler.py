@@ -29,20 +29,19 @@ drives every chip, here every GPU is a rank.
 
 Nodes and pods are read by attribute, and the client is duck-typed
 (``direct()``, ``list_nodes``, ``list_pods``, ``create_pod``,
-``create_service``, ``delete_pod``): the port imports
-nothing of the JAX package, so it keeps its own copies of the few object
-types it creates, with the same fields. Placement ignores cliques: a
-slice is any eligible nodes, in name order.
+``create_service``, ``delete_pod``); the pods and the Service it creates
+are the port's object model (``core/objects.py``). Placement ignores
+cliques: a slice is any eligible nodes, in name order.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
-import time
-import uuid
 from typing import Dict, List, Optional
 
+from ..core.objects import (ObjectMeta, Pod, PodSpec, Service, ServicePort,
+                            ServiceSpec)
 from .device_plugin import GPU_RESOURCE, pod_requests_gpu
 from .topology import gpu_info_for_node
 
@@ -53,89 +52,6 @@ logger = logging.getLogger(__name__)
 WORKLOAD_LABEL = "tpu.dev/workload"
 COORDINATOR_PORT = 8476
 MEGASCALE_PORT = 8080
-
-
-# ------------------------------------------------ the objects it creates
-
-@dataclasses.dataclass
-class ObjectMeta:
-    name: str = ""
-    namespace: str = "default"
-    labels: Dict[str, str] = dataclasses.field(default_factory=dict)
-    annotations: Dict[str, str] = dataclasses.field(default_factory=dict)
-    uid: str = dataclasses.field(default_factory=lambda: str(uuid.uuid4()))
-    resource_version: str = "0"
-    owner_references: list = dataclasses.field(default_factory=list)
-    creation_timestamp: float = dataclasses.field(default_factory=time.time)
-    deletion_timestamp: Optional[float] = None
-    generation: int = 1
-
-
-@dataclasses.dataclass
-class PodSpec:
-    node_name: str = ""
-    volumes: list = dataclasses.field(default_factory=list)
-    termination_grace_period_seconds: Optional[int] = None
-    resource_requests: Dict[str, int] = dataclasses.field(
-        default_factory=dict)
-    env: Dict[str, str] = dataclasses.field(default_factory=dict)
-    # <hostname>.<subdomain> resolves through the headless Service
-    hostname: str = ""
-    subdomain: str = ""
-
-
-@dataclasses.dataclass
-class PodStatus:
-    phase: str = "Running"
-    container_statuses: list = dataclasses.field(default_factory=list)
-    init_container_statuses: list = dataclasses.field(default_factory=list)
-    conditions: list = dataclasses.field(default_factory=list)
-
-
-@dataclasses.dataclass
-class Pod:
-    metadata: ObjectMeta = dataclasses.field(default_factory=ObjectMeta)
-    spec: PodSpec = dataclasses.field(default_factory=PodSpec)
-    status: PodStatus = dataclasses.field(default_factory=PodStatus)
-
-    kind: str = "Pod"
-
-    @property
-    def name(self) -> str:
-        return self.metadata.name
-
-    def controller_owner(self):
-        return next((ref for ref in self.metadata.owner_references
-                     if ref.controller), None)
-
-    def is_ready(self) -> bool:
-        return any(c.type == "Ready" and c.status == "True"
-                   for c in self.status.conditions)
-
-
-@dataclasses.dataclass
-class ServicePort:
-    name: str = ""
-    port: int = 0
-
-
-@dataclasses.dataclass
-class ServiceSpec:
-    cluster_ip: str = ""          # "None": headless
-    selector: Dict[str, str] = dataclasses.field(default_factory=dict)
-    ports: List[ServicePort] = dataclasses.field(default_factory=list)
-
-
-@dataclasses.dataclass
-class Service:
-    metadata: ObjectMeta = dataclasses.field(default_factory=ObjectMeta)
-    spec: ServiceSpec = dataclasses.field(default_factory=ServiceSpec)
-
-    kind: str = "Service"
-
-    @property
-    def name(self) -> str:
-        return self.metadata.name
 
 
 def _is_conflict(exc: Exception) -> bool:

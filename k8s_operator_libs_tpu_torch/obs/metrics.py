@@ -1,7 +1,8 @@
 """Prometheus text exposition for the serving and training workloads.
 
 A copy, cut to what the batcher, the server's ``/metrics``, the
-trainer's goodput ledger and the router tier (``serving/``) call, of
+trainer's goodput ledger, the router tier (``serving/``), the router
+binary (``router.py``) and the capacity market (``market/``) call, of
 ``_Histogram``/``MetricsHub`` from the JAX package's ``obs/metrics.py``
 and of the gauge renderer ``render_prometheus_multi`` from
 the JAX package's ``upgrade/metrics.py``. Metric names, HELP texts and
@@ -164,6 +165,52 @@ HELP_TEXTS: Dict[str, str] = {
     "tpu_router_lane_queue_wait_seconds":
         "Seconds a request waited at the router before its first "
         "placement, by QoS lane (the per-tenant queueing SLI)",
+    # the request flight recorder of the router binary (obs/reqtrace.py)
+    "tpu_router_request_stage_seconds":
+        "Seconds one request dwelt in one lifecycle stage (admitted / "
+        "queued / prefill / streaming / drain / splice / ...), by stage "
+        "and QoS lane; per request the stage dwells partition the "
+        "measured latency exactly (docs/observability.md \"Request "
+        "tracing & servebench\")",
+    "tpu_router_proxy_overhead_seconds":
+        "REAL router self-time per completed request — the accept / "
+        "route / relay / reseq / splice segments measured on a "
+        "performance counter, by QoS lane (the servebench "
+        "proxy_overhead_p99_ms headline; SERVE_r01 budget-gated)",
+    "tpu_router_traces_open":
+        "Request trace timelines currently open in the flight "
+        "recorder's bounded table",
+    "tpu_router_traces_closed":
+        "Request trace timelines closed (terminal stage reached) since "
+        "router start; the last ring_capacity of them serve /requests "
+        "and /trace?rid=",
+    "tpu_router_traces_dropped":
+        "Open trace timelines evicted by the fixed-memory bound before "
+        "reaching a terminal stage (cumulative migration counters stay "
+        "truthful anyway)",
+    # the capacity market (market/arbiter.py): the exchange between
+    # training and serving
+    "tpu_market_exchange_rate":
+        "Serving pressure divided by marginal training value — the "
+        "price at which the arbiter trades slices (docs/"
+        "capacity-market.md)",
+    "tpu_market_serving_pressure":
+        "Demand-side pressure: the worse of the serving SLO burn-rate "
+        "multiple and the lane-weighted router backlog",
+    "tpu_market_training_value":
+        "Supply-side marginal value: normalized goodput one training "
+        "slice contributes (from the goodput ledger)",
+    "tpu_market_trades":
+        "Training slices preempted to serving since arbiter start",
+    "tpu_market_returns":
+        "Traded slices returned to training since arbiter start",
+    "tpu_market_slices_lent":
+        "Managed slices currently owned by serving (lent or mid-trade)",
+    # the root-cause engine (obs/causes.py)
+    "tpu_operator_alert_attributed_total":
+        "Firing alerts root-caused by the cause engine, by rule and "
+        "top-ranked cause kind (kind=\"none\" when the burn window "
+        "held no candidate events)",
 }
 
 # migration KV payload sizes: a tiny test config exports a few KiB, a
@@ -273,7 +320,7 @@ class _Histogram:
 
 
 class MetricsHub:
-    """Process-local registry of histogram and gauge families.
+    """Process-local registry of histogram, gauge and counter families.
     Thread-safe: the server's stepper thread writes while handlers
     render."""
 
@@ -282,6 +329,9 @@ class MetricsHub:
         self._hists: Dict[str, _Histogram] = {}
         self._gauges: Dict[str, Dict[Tuple[Tuple[str, str], ...],
                                      float]] = {}
+        # cumulative counters (rendered TYPE counter, names *_total)
+        self._counters: Dict[str, Dict[Tuple[Tuple[str, str], ...],
+                                       float]] = {}
 
     def observe(self, name: str, value: float,
                 labels: Optional[Dict[str, str]] = None,
@@ -299,6 +349,14 @@ class MetricsHub:
             series = self._gauges.setdefault(name, {})
             series[tuple(sorted((labels or {}).items()))] = float(value)
 
+    def inc(self, name: str, by: float = 1.0,
+            labels: Optional[Dict[str, str]] = None) -> None:
+        """Increment a cumulative counter family (named ``*_total``)."""
+        key = tuple(sorted((labels or {}).items()))
+        with self._lock:
+            series = self._counters.setdefault(name, {})
+            series[key] = series.get(key, 0.0) + float(by)
+
     def gauge(self, name: str,
               labels: Optional[Dict[str, str]] = None) -> Optional[float]:
         with self._lock:
@@ -313,16 +371,19 @@ class MetricsHub:
         """Text exposition of every family, name-sorted, HELP/TYPE once
         per family."""
         with self._lock:
-            names = sorted(set(self._hists) | set(self._gauges))
+            names = sorted(set(self._hists) | set(self._gauges)
+                           | set(self._counters))
             lines: List[str] = []
             for name in names:
                 full = f"{prefix}_{name}" if prefix else name
                 if name in self._hists:
                     lines.extend(self._hists[name].render(full))
                     continue
-                series = self._gauges[name]
+                counter = name in self._counters
+                series = (self._counters if counter else self._gauges)[name]
                 lines.append(f"# HELP {full} {help_for(full)}")
-                lines.append(f"# TYPE {full} gauge")
+                lines.append(f"# TYPE {full} "
+                             f"{'counter' if counter else 'gauge'}")
                 for key in sorted(series):
                     lines.append(f"{full}{_label_str(dict(key))} "
                                  f"{_fmt_float(series[key])}")

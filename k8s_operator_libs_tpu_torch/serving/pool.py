@@ -57,6 +57,7 @@ from typing import Callable, Dict, List, Optional
 from ..core.client import ApiError
 from ..upgrade.consts import UpgradeState
 from ..upgrade.util import KeyFactory
+from ..utils import threads
 from ..utils.clock import Clock, RealClock
 from ..wire import (KV_PAYLOAD_VERSION_ANNOTATION, LANE_LABEL,
                     QUARANTINE_LABEL, RECLAIM_TAINT_KEY,
@@ -190,6 +191,7 @@ class ReplicaPool:
         self._clock = clock or RealClock()
         self._prefix = metrics_prefix
         self.replicas: Dict[str, Replica] = {}
+        self._registry_lock = threads.make_lock("replica-pool-registry")
         self.node_states: Dict[str, NodeState] = {}
         self.node_refresh_errors = 0
         self.scrape_gate: Optional[Callable[[Replica], None]] = None
@@ -204,8 +206,16 @@ class ReplicaPool:
 
     def register(self, replica: Replica) -> Replica:
         """Add (or replace — a respawned generation reuses the node, not
-        the id) a replica and mirror the registration onto its node."""
-        self.replicas[replica.id] = replica
+        the id) a replica and mirror the registration onto its node.
+
+        The registry is replaced, never changed in place (here and in
+        :meth:`deregister`): the router binary registers from an HTTP
+        handler while its ticker iterates the registry (:meth:`scrape`,
+        :meth:`refresh_nodes`, :meth:`admitting`), and a dict that
+        changes size under an iteration raises. Each reader iterates the
+        dict it read, whole; writers take the registry lock."""
+        with self._registry_lock:
+            self.replicas = {**self.replicas, replica.id: replica}
         if self._client is not None:
             annotations = {}
             if replica.url:
@@ -234,7 +244,10 @@ class ReplicaPool:
         return replica
 
     def deregister(self, replica_id: str) -> Optional[Replica]:
-        replica = self.replicas.pop(replica_id, None)
+        with self._registry_lock:
+            replicas = dict(self.replicas)
+            replica = replicas.pop(replica_id, None)
+            self.replicas = replicas
         if replica is not None and self._client is not None:
             try:
                 self._client.patch_node_metadata(

@@ -671,9 +671,8 @@ class RequestRouter:
             req = self.requests[rid]
             if req.state != QUEUED:
                 continue        # completed/assigned through another path
-            timer = getattr(self.reqtrace, "timer", None)
-            if timer is not None:
-                with timer(rid, "route"):
+            if self.reqtrace is not None:
+                with self.reqtrace.timer(rid, "route"):
                     target = self._pick(req)
             else:
                 target = self._pick(req)

@@ -203,7 +203,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "parallel/launch.py", "parallel/ring_attention.py",
         "parallel/ulysses.py", "parallel/long_context.py",
         "parallel/pipeline.py", "parallel/composed.py",
-        "train/uploader.py", "train/__init__.py")} <= names
+        "train/uploader.py", "train/__init__.py",
+        "utils/threads.py", "obs/timeline.py", "obs/causes.py",
+        "obs/reqtrace.py", "obs/metrics.py", "core/objects.py",
+        "core/serde.py", "core/client.py", "core/liveclient.py",
+        "wire.py", "router.py", "market/arbiter.py", "market/metrics.py",
+        "market/__init__.py", "market/demand.py")} <= names
     assert len(files) > 20
     banned = ("jax", "jaxlib", "ml_dtypes", "k8s_operator_libs_tpu")
     for path in files:
@@ -211,3 +216,28 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             root = name.split(".")[0]
             assert root not in banned, f"{path.relative_to(REPO)} imports " \
                                        f"{name}"
+
+
+def test_port_imports_yaml_only_inside_a_function():
+    """PyYAML is not on every machine the port runs on: the live client
+    imports it only to read a kubeconfig that is not JSON, so no port
+    module imports it when it is imported."""
+    files = sorted((REPO / "k8s_operator_libs_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+
+    def module_level(node):
+        for child in ast.iter_child_nodes(node):
+            if not isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                      ast.Lambda)):
+                yield child
+                yield from module_level(child)
+
+    for path in files:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in module_level(tree):
+            if not isinstance(node, (ast.Import, ast.ImportFrom)):
+                continue
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else [node.module or ""])
+            assert all(n.split(".")[0] != "yaml" for n in names), \
+                f"{path.relative_to(REPO)} imports yaml at module level"
