@@ -113,6 +113,34 @@ Phases, each fatal on failure:
    lane through the router, export and adopt ms and KV bytes over HTTP,
    ms per decode step per replica and the arbiter's decisions with their
    exchange rates.
+   3f. A rolling NVIDIA driver upgrade under the port's upgrade state
+   machine: three replicas over phase 3's weights on nodes gpu-a, gpu-b
+   and gpu-c of the port's ``FakeCluster`` (GFD labels: H100, 8 GPUs,
+   each node its own upgrade group), the driver DaemonSet at v1 with
+   one pod per node and one serve pod per node (``job=serve``, one
+   ``nvidia.com/gpu``). Phase 3's prompts are submitted and the
+   DaemonSet is bumped to v2; then each iteration is one reconcile pass
+   of the port's ``ClusterUpgradeStateManager`` (the GPU grouper and
+   deletion filter, max_parallel_upgrades 1, max_unavailable 1, wait
+   for ``job=serve``, drain forced, pod deletion; host wall timed), the
+   DaemonSet controller's step, the router's tick and one step of every
+   replica, with a new 64-token prompt every 4 iterations up to 16
+   requests. A drained replica's serve pod completes (the wait-for-jobs
+   gate); a node back at ``upgrade-done`` and uncordoned gets a new
+   serve pod and replica. All three nodes must reach ``upgrade-done``
+   with their driver pods at v2, each node's journey annotation in the
+   state order the JAX package's state machine gives on this schedule,
+   at most one node in progress and at least 2 admitting replicas at
+   every iteration, ``check_invariants`` empty at every tick, no
+   admission on a cordoned node, every request delivered once and
+   gapless, >= 2 live migrations and no fallback, tokens by 3b's
+   near-tie rule, and A-K4 launches 32 x the decode steps of all the
+   replicas. Prints the rollout wall seconds, seconds per node and per
+   state from the journeys, ms per reconcile pass, per router tick and
+   per decode step per replica, each migration's export and adopt ms
+   and KV bytes. Its fp32 twin: three replicas at Llama-3-8B width, 2
+   layers, the same schedule, every request's tokens equal to the
+   contiguous ``generate``'s.
 4. Token parity in fp32 at Llama-3-8B width, 2 layers: the batcher's
    greedy tokens (through A-K4) against the contiguous ``generate``
    (plain), and ``paged_generate(kv_int8=True)`` through A-K5 against the
@@ -239,8 +267,8 @@ Phases, each fatal on failure:
    loss and every gradient against the one-rank step within phase 9's
    bounds, then 2 optimizer steps, the same loss on every rank, 1
    launch of A-K1-3 per rank and step on ``wgmma``; ms per step per
-   rank. 12b: ``make_tp_generate`` over 2 tensor ranks at Llama-3-8B,
-   all 32 layers, bf16 (each rank half of every block's heads and FFN
+   rank. 12b: ``make_tp_generate`` over 2 tensor ranks at Llama-3-8B
+   width, 16 layers (32 before phase 3f), bf16 (each rank half of every block's heads and FFN
    columns, the embedding and lm_head whole), phase 3's prompts, 32
    greedy tokens each: the tokens equal the one-rank ``generate``'s (run
    first, then freed) up to the first position whose top-2 logit gap is
@@ -1052,8 +1080,11 @@ def phase_serve(torch):
                        plain_tokens))
     stats.update(timed("phase 3e", phase_router, torch, params, cfg, prompts,
                        plain_tokens))
+    stats.update(timed("phase 3f", phase_upgrade, torch, params, cfg,
+                       prompts, plain_tokens))
     del params
     stats.update(timed("phase 3d fp32", phase_fleet_fp32, torch))
+    stats.update(timed("phase 3f fp32", phase_upgrade_fp32, torch))
     return stats
 
 
@@ -1387,8 +1418,10 @@ FLEET_MAX_TICKS = 2000
 class FleetCluster:
     """The nodes phase 3d's replicas stand on: the client surface the
     port's pool and router take (``direct``, ``get_node``, ``list_nodes``,
-    ``patch_node_metadata``). Nodes are Ready and schedulable; the
-    phase plays the operator by writing the upgrade-state label."""
+    ``patch_node_metadata``). Nodes are Ready and schedulable. Phase 3d
+    writes the upgrade-state label by hand, to hold the router's drain
+    watch alone; phase 3f's labels come from the port's upgrade state
+    machine on the port's ``FakeCluster`` instead."""
 
     def __init__(self, names):
         import types
@@ -1473,22 +1506,25 @@ def fleet_runtime_class(records):
 
 
 class Fleet:
-    """Port replicas on ``FleetCluster`` nodes under the port's pool and
-    router. ``tick()`` is one iteration of the serving loop: the router's
-    tick (timed), its invariants against the nodes, then one step of
-    every live replica (the router does not step them)."""
+    """Port replicas on ``nodes`` under the port's pool and router, the
+    nodes read through ``client`` (``FleetCluster`` when none is given).
+    ``tick()`` is one iteration of the serving loop: the router's tick
+    (timed), its invariants against the nodes, then one step of every
+    live replica (the router does not step them)."""
 
-    def __init__(self, params, cfg, nodes, records):
+    def __init__(self, params, cfg, nodes, records, client=None,
+                 component="libtpu"):
         from k8s_operator_libs_tpu_torch.obs.metrics import MetricsHub
         from k8s_operator_libs_tpu_torch.serving import (ReplicaPool,
                                                          RequestRouter)
         self.params, self.cfg = params, cfg
-        self.cluster = FleetCluster(nodes)
-        self.pool = ReplicaPool(client=self.cluster, component="libtpu")
+        self.cluster = FleetCluster(nodes) if client is None else client
+        self.pool = ReplicaPool(client=self.cluster, component=component)
         self.hub = MetricsHub()
         self.router = RequestRouter(self.pool, metrics=self.hub)
         self.runtime_class = fleet_runtime_class(records)
         self.batchers = []          # every replica's batcher, in order
+        self.batcher_ids = []       # and its replica's id
         self.generation = {}
         self.tick_ms = []
         self.assigned = []          # (tick, rid, replica id, node)
@@ -1505,6 +1541,7 @@ class Fleet:
                                      capacity_per_slot=CAPACITY,
                                      block_size=BS)
         self.batchers.append(runtime.srv)
+        self.batcher_ids.append(f"{node}-g{g}")
         return self.pool.register(Replica(f"{node}-g{g}", node, runtime))
 
     def submit(self, prompt, lane):
@@ -1524,6 +1561,10 @@ class Fleet:
         self.cluster.patch_node_metadata(
             node, labels={self.pool.keys.state_label: state})
 
+    def nodes(self):
+        return {n.metadata.name: n
+                for n in self.cluster.direct().list_nodes()}
+
     def streamed_by(self, replica_id):
         return sum(1 for req in self.router.requests.values()
                    for _seq, rep in req.stream_log if rep == replica_id)
@@ -1535,7 +1576,7 @@ class Fleet:
         self.router.tick()
         self.tick_ms.append(1e3 * (time.monotonic() - t0))
         self._log_assignments()
-        bad = self.router.check_invariants(self.cluster.nodes)
+        bad = self.router.check_invariants(self.nodes())
         check(not bad, f"router invariants at tick {self.ticks}: {bad}")
         now = time.monotonic()
         for rid, req in self.router.requests.items():
@@ -1664,8 +1705,7 @@ def phase_fleet(torch, params, cfg, prompts, plain_tokens):
         ttft.setdefault(lane, []).append(fleet.first_t[rid]
                                          - fleet.submitted_t[rid])
     per_replica = {}
-    for srv, rep in zip(fleet.batchers, [f"{n}-g1" for n in FLEET_NODES]
-                        + [new_a.id]):
+    for srv, rep in zip(fleet.batchers, fleet.batcher_ids):
         per_replica[rep] = (1e3 * srv.decode_seconds / srv.decode_steps
                             if srv.decode_steps else None,
                             srv.decode_steps)
@@ -1785,6 +1825,349 @@ def phase_fleet_fp32(torch):
     stats = {"fleet32_migrations": router.migration_successes,
              "fleet32_launches": launches}
     del fleet, router, donor, params
+    return stats
+
+
+# phase 3f: a rolling driver upgrade under the port's state machine. The
+# GPU nodes (GFD labels: each an H100 HGX node of 8 GPUs, so each its own
+# upgrade group), the driver DaemonSet's namespace and name
+# (gpu/device_plugin.py's labels), the component whose keys the state
+# machine writes and the pool reads; a new UPGRADE_NEW_LEN-token prompt
+# every UPGRADE_EVERY iterations up to UPGRADE_REQUESTS requests in all;
+# the iteration bound
+UPGRADE_NODES = ("gpu-a", "gpu-b", "gpu-c")
+UPGRADE_PRODUCT, UPGRADE_GPUS = "NVIDIA-H100-80GB-HBM3", "8"
+UPGRADE_NS, UPGRADE_DS, UPGRADE_COMPONENT = ("gpu-operator",
+                                             "nvidia-driver-daemonset", "gpu")
+UPGRADE_EVERY, UPGRADE_REQUESTS, UPGRADE_NEW_LEN = 4, 16, 64
+UPGRADE_MAX_ITERS = 400
+# every node's journey on this schedule: once its replica has drained,
+# the serve pod has completed, so the deletion filter finds no pod
+# holding a GPU and the node skips the drain. The same order as the JAX
+# package's state machine on the same schedule
+# (tests/test_torch_upgrade_serving.py::ROLLING_ORDER)
+UPGRADE_ORDER = ("upgrade-required", "cordon-required",
+                 "wait-for-jobs-required", "pod-deletion-required",
+                 "pod-restart-required", "uncordon-required", "upgrade-done")
+
+
+def add_serve_pod(cluster, node):
+    """The node's serve pod, which holds one GPU and which the
+    wait-for-jobs gate watches (``job=serve``)."""
+    from k8s_operator_libs_tpu_torch.core.objects import (ContainerStatus,
+                                                          ObjectMeta, Pod,
+                                                          PodCondition)
+    from k8s_operator_libs_tpu_torch.gpu import GPU_RESOURCE
+    pod = Pod(metadata=ObjectMeta(name=f"serve-{node}", namespace="default",
+                                  labels={"job": "serve"}))
+    pod.spec.node_name = node
+    pod.spec.resource_requests = {GPU_RESOURCE: 1}
+    pod.status.phase = "Running"
+    pod.status.container_statuses = [ContainerStatus(ready=True)]
+    pod.status.conditions = [PodCondition(type="Ready", status="True")]
+    cluster.create(pod)
+    cluster.flush_cache()
+
+
+def rolling_upgrade(torch, params, cfg, prompts, records, tag):
+    """Phase 3f's schedule: replicas on the GPU nodes of a port
+    ``FakeCluster``, phase 3's prompts in flight, the driver DaemonSet
+    bumped to v2, then per iteration one reconcile pass of the port's
+    ``ClusterUpgradeStateManager`` (host wall timed), the DaemonSet
+    controller's step, the fleet's tick (router tick, invariants, one
+    step of every live replica) and the pods' lifecycle. Every hard
+    check on the upgrade and the serving runs here; the tokens are the
+    caller's."""
+    import numpy as np
+
+    from k8s_operator_libs_tpu_torch.api import (DrainSpec,
+                                                 DriverUpgradePolicySpec,
+                                                 PodDeletionSpec,
+                                                 WaitForCompletionSpec)
+    from k8s_operator_libs_tpu_torch.core import FakeCluster
+    from k8s_operator_libs_tpu_torch.gpu import (COUNT_LABEL, PRODUCT_LABEL,
+                                                 GPUNodeGrouper,
+                                                 gpu_workload_deletion_filter)
+    from k8s_operator_libs_tpu_torch.gpu.device_plugin import DRIVER_LABELS
+    from k8s_operator_libs_tpu_torch.upgrade import (
+        ClusterUpgradeStateManager, KeyFactory, UpgradeState)
+
+    cluster = FakeCluster()              # the host's clock, no cache lag
+    ds = cluster.add_daemonset(UPGRADE_DS, namespace=UPGRADE_NS,
+                               labels=DRIVER_LABELS, revision_hash="v1")
+    for node in UPGRADE_NODES:
+        cluster.add_node(node, labels={PRODUCT_LABEL: UPGRADE_PRODUCT,
+                                       COUNT_LABEL: UPGRADE_GPUS})
+        cluster.add_pod(f"{UPGRADE_DS}-{node}", node, namespace=UPGRADE_NS,
+                        owner_ds=ds, revision_hash="v1")
+        add_serve_pod(cluster, node)
+    keys = KeyFactory(UPGRADE_COMPONENT)
+    mgr = ClusterUpgradeStateManager(cluster.client, keys, cluster.recorder,
+                                     grouper=GPUNodeGrouper(),
+                                     synchronous=True)
+    mgr.with_pod_deletion_enabled(gpu_workload_deletion_filter)
+    policy = DriverUpgradePolicySpec(
+        auto_upgrade=True, max_parallel_upgrades=1, max_unavailable=1,
+        wait_for_completion=WaitForCompletionSpec(pod_selector="job=serve"),
+        pod_deletion=PodDeletionSpec(force=True, timeout_second=60),
+        drain=DrainSpec(enable=True, force=True, timeout_second=60))
+    fleet = Fleet(params, cfg, UPGRADE_NODES, records, client=cluster.client,
+                  component=UPGRADE_COMPONENT)
+    which = {fleet.submit(p, "interactive"): ("old", k)
+             for k, p in enumerate(prompts)}
+    gen = np.random.default_rng(5)
+    fresh = []
+    cluster.bump_daemonset_revision(UPGRADE_DS, UPGRADE_NS, "v2")
+    t_roll = time.monotonic()
+    rollout_s = None
+    reconcile_ms, exited = [], set()
+    min_admitting = len(UPGRADE_NODES)
+    drained_at = {}                      # node -> iteration of its drain
+    for it in range(UPGRADE_MAX_ITERS):
+        t0 = time.monotonic()
+        mgr.apply_state(mgr.build_state(UPGRADE_NS, DRIVER_LABELS), policy)
+        reconcile_ms.append(1e3 * (time.monotonic() - t0))
+        cluster.reconcile_daemonsets()
+        seen = len(fleet.assigned)
+        fleet.tick()
+        if it % UPGRADE_EVERY == UPGRADE_EVERY - 1 \
+                and len(which) < UPGRADE_REQUESTS:
+            fresh.append(gen.integers(0, cfg.vocab_size,
+                                      size=UPGRADE_NEW_LEN).tolist())
+            which[fleet.submit(fresh[-1], "interactive")] = (
+                "new", len(fresh) - 1)
+        nodes = fleet.nodes()
+        landed = [(rep, node) for _t, _rid, rep, node in fleet.assigned[seen:]
+                  if nodes[node].spec.unschedulable]
+        check(not landed, f"{tag}: admissions on cordoned nodes: {landed}")
+        busy = [n for n, node in nodes.items()
+                if node.metadata.labels.get(keys.state_label)
+                in UpgradeState.IN_PROGRESS]
+        check(len(busy) <= 1, f"{tag}: {busy} in progress at once "
+                              f"(iteration {it})")
+        for replica in list(fleet.pool.replicas.values()):
+            node = nodes[replica.node_name]
+            if (replica.draining and replica.drained
+                    and replica.id not in exited):
+                # the drained replica's server exits: its pod completes,
+                # which the wait-for-jobs gate waits for
+                cluster.set_pod_status("default",
+                                       f"serve-{replica.node_name}",
+                                       phase="Succeeded")
+                exited.add(replica.id)
+                drained_at[replica.node_name] = it
+            elif (replica.id in exited and not node.spec.unschedulable
+                  and node.metadata.labels.get(keys.state_label)
+                  == UpgradeState.DONE):
+                # the node is back: a new serve pod and replica take it
+                fleet.pool.deregister(replica.id)
+                cluster.set_pod_status("default",
+                                       f"serve-{replica.node_name}",
+                                       phase="Running")
+                fleet.spawn(replica.node_name)
+        admitting = len(fleet.pool.admitting())
+        min_admitting = min(min_admitting, admitting)
+        check(admitting >= len(UPGRADE_NODES) - 1,
+              f"{tag}: {admitting} admitting replicas at iteration {it}")
+        done = all(node.metadata.labels.get(keys.state_label)
+                   == UpgradeState.DONE and not node.spec.unschedulable
+                   for node in nodes.values())
+        if done and rollout_s is None:
+            rollout_s, rollout_iters = time.monotonic() - t_roll, it + 1
+        if done and not fleet.router.outstanding \
+                and len(which) >= UPGRADE_REQUESTS:
+            break
+    else:
+        raise SmokeFailure(f"{tag}: the upgrade and its requests did not "
+                           f"finish in {UPGRADE_MAX_ITERS} iterations")
+    fleet.tick()
+    fleet.check_delivery(tag)
+    direct = cluster.client.direct()
+    drivers = sorted((p.spec.node_name,
+                      p.metadata.labels["controller-revision-hash"])
+                     for p in direct.list_pods(namespace=UPGRADE_NS))
+    check(drivers == [(n, "v2") for n in UPGRADE_NODES],
+          f"{tag}: driver pods {drivers}")
+    journeys = {}
+    for n in UPGRADE_NODES:
+        entries = json.loads(direct.get_node(n).metadata.annotations[
+            keys.journey_annotation])
+        journeys[n] = entries
+        check(tuple(s for s, _t in entries) == UPGRADE_ORDER,
+              f"{tag}: {n}'s journey {[s for s, _t in entries]}")
+    router = fleet.router
+    check(router.migration_successes >= 2
+          and router.migration_fallbacks == 0,
+          f"{tag}: {router.migration_successes} live migrations, "
+          f"{router.migration_fallbacks} re-prefill fallbacks")
+    check({node for _r, node, _reason, _s in router.drains}
+          == set(UPGRADE_NODES)
+          and all(reason == "upgrade:cordon-required" and sched
+                  for _r, _n, reason, sched in router.drains),
+          f"{tag}: drains {router.drains}")
+    check(len(fleet.pool.admitting()) == len(UPGRADE_NODES),
+          f"{tag}: the fleet did not come back to "
+          f"{len(UPGRADE_NODES)} admitting replicas")
+    return {"fleet": fleet, "which": which, "fresh": fresh,
+            "journeys": journeys, "reconcile_ms": reconcile_ms,
+            "rollout_s": rollout_s, "rollout_iters": rollout_iters,
+            "iterations": it + 1, "min_admitting": min_admitting,
+            "drained_at": drained_at}
+
+
+def phase_upgrade(torch, params, cfg, prompts, plain_tokens):
+    """Phase 3f: a rolling NVIDIA driver upgrade across three Llama-3-8B
+    port replicas, driven by the port's ``ClusterUpgradeStateManager``
+    with the GPU grouper and deletion filter; each replica drains with
+    live migration when its node leaves ``upgrade-done``."""
+    from k8s_operator_libs_tpu_torch.models.generate import generate
+    from k8s_operator_libs_tpu_torch.ops import paged_attention as attn
+
+    t_phase = time.monotonic()
+    records = []
+    attn.reset_launch_counts()
+    out = rolling_upgrade(torch, params, cfg, prompts, records, "phase 3f")
+    fleet, which, fresh = out["fleet"], out["which"], out["fresh"]
+    router = fleet.router
+    launches = attn.LAUNCHES["paged_decode"]
+    steps = fleet.decode_steps()
+    check(launches == cfg.n_layers * steps > 0,
+          f"phase 3f: A-K4 launched {launches} times over {steps} decode "
+          f"steps of {cfg.n_layers} layers (all replicas)")
+    wall = time.monotonic() - t_phase
+
+    with torch.no_grad():
+        want_new = generate(params, torch.as_tensor(fresh, device="cuda"),
+                            cfg, max_new_tokens=MAX_NEW).cpu().tolist()
+    gaps = {("old", k): top2_gaps(torch, params, cfg, t, len(prompts[k]))
+            for k, t in enumerate(plain_tokens)}
+    gaps.update({("new", k): top2_gaps(torch, params, cfg, t,
+                                       UPGRADE_NEW_LEN)
+                 for k, t in enumerate(want_new)})
+    verdicts = []
+    for rid, key in sorted(which.items()):
+        want = want_new[key[1]] if key[0] == "new" else plain_tokens[key[1]]
+        ok, what, _ = near_tie_verdict(router.result(rid), want, gaps[key],
+                                       len(router.requests[rid].prompt))
+        check(ok, f"phase 3f request {rid} ({key[0]} prompt {key[1]}): "
+                  f"{what}")
+        verdicts.append(f"prompt {len(router.requests[rid].prompt)}: "
+                        f"{what}")
+
+    per_state, per_node = {}, {}
+    for n, entries in out["journeys"].items():
+        per_node[n] = entries[-1][1] - entries[0][1]
+        for (state, t), (_next, t_next) in zip(entries, entries[1:]):
+            per_state.setdefault(state, []).append(t_next - t)
+    rec_ms = sorted(out["reconcile_ms"])
+    ticks = sorted(fleet.tick_ms)
+    per_replica = {}
+    for srv, rep in zip(fleet.batchers, fleet.batcher_ids):
+        per_replica[rep] = (1e3 * srv.decode_seconds / srv.decode_steps
+                            if srv.decode_steps else None,
+                            srv.decode_steps)
+    log(f"phase 3f: the port's ClusterUpgradeStateManager (GPU grouper, "
+        f"GPU deletion filter, max_parallel_upgrades 1, max_unavailable 1, "
+        f"wait for job=serve, drain) rolled {UPGRADE_DS} v1 -> v2 across "
+        f"{', '.join(UPGRADE_NODES)}, each hosting a port replica "
+        f"(Llama-3-8B, all {cfg.n_layers} layers); every node's journey "
+        f"{' -> '.join(UPGRADE_ORDER)}; at most 1 node in progress, "
+        f">= {out['min_admitting']} admitting replicas, invariants empty "
+        f"at all {fleet.ticks} ticks; {len(which)} requests delivered "
+        f"once, gapless; {router.migration_successes} live migrations, "
+        f"{router.migration_fallbacks} fallbacks")
+    log(f"phase 3f: rollout wall {out['rollout_s']:.3f} s "
+        f"({out['rollout_iters']} iterations; the loop ran "
+        f"{out['iterations']} until its {len(which)} requests finished); "
+        f"drains at iterations {out['drained_at']}")
+    log("phase 3f: seconds per node, upgrade-required to upgrade-done "
+        "(journey): " + ", ".join(f"{n} {s:.3f}"
+                                  for n, s in per_node.items()))
+    log("phase 3f: seconds per state (journey; per node): " + "; ".join(
+        f"{state} " + "/".join(f"{v:.3f}" for v in vs)
+        for state, vs in per_state.items()))
+    log(f"phase 3f: ms per reconcile pass (build_state + apply_state, "
+        f"host wall) median {rec_ms[len(rec_ms) // 2]:.3f}, max "
+        f"{rec_ms[-1]:.3f} over {len(rec_ms)} passes")
+    log(f"phase 3f: ms per router tick median {ticks[len(ticks) // 2]:.3f}, "
+        f"max {ticks[-1]:.3f}")
+    log("phase 3f: ms per decode step per replica (4 slots): " + ", ".join(
+        f"{rep} {'-' if ms is None else f'{ms:.2f}'} ({n} steps)"
+        for rep, (ms, n) in per_replica.items()))
+    for rec in records:
+        log(f"phase 3f: migration {rec['op']} {rec['ms']:.2f} ms, "
+            f"{rec['kv_bytes']} KV bytes"
+            + (f" ({rec['tokens']} tokens generated)" if "tokens" in rec
+               else ""))
+    for line in verdicts:
+        log(f"phase 3f: tokens: {line}")
+    log(f"phase 3f: A-K4 launches {launches} = {cfg.n_layers} x {steps} "
+        f"decode steps over {len(fleet.batchers)} batchers; loop and checks "
+        f"{wall:.1f} s (before the reference tokens)")
+    exports = [r for r in records if r["op"] == "export"]
+    adopts = [r for r in records if r["op"] == "adopt"]
+    stats = {"upgrade_launches": launches, "upgrade_decode_steps": steps,
+             "upgrade_rollout_s": out["rollout_s"],
+             "upgrade_node_s": per_node,
+             "upgrade_reconcile_ms_median": rec_ms[len(rec_ms) // 2],
+             "upgrade_reconcile_ms_max": rec_ms[-1],
+             "upgrade_tick_ms_median": ticks[len(ticks) // 2],
+             "upgrade_migrations": router.migration_successes,
+             "upgrade_fallbacks": router.migration_fallbacks,
+             "upgrade_export_ms": [r["ms"] for r in exports],
+             "upgrade_adopt_ms": [r["ms"] for r in adopts],
+             "upgrade_kv_bytes": [r["kv_bytes"] for r in exports],
+             "upgrade_ms_per_decode_step": {rep: ms for rep, (ms, _) in
+                                            per_replica.items()}}
+    del fleet, router, out
+    return stats
+
+
+def phase_upgrade_fp32(torch):
+    """Phase 3f's fp32 twin: Llama-3-8B width at FLEET32_LAYERS layers,
+    three port replicas, the same schedule; every request's tokens equal
+    the contiguous ``generate``'s."""
+    import numpy as np
+
+    from k8s_operator_libs_tpu_torch.models.generate import generate
+    from k8s_operator_libs_tpu_torch.models.llama import (LlamaConfig,
+                                                          init_params)
+    from k8s_operator_libs_tpu_torch.ops import paged_attention as attn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = LlamaConfig.llama3_8b(n_layers=FLEET32_LAYERS, dtype=torch.float32)
+    params = init_params(cfg, seed=3, device="cuda")
+    gen = np.random.default_rng(3)
+    prompts = [gen.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in PROMPT_LENS]
+    attn.reset_launch_counts()
+    out = rolling_upgrade(torch, params, cfg, prompts, [], "phase 3f fp32")
+    router = out["fleet"].router
+    launches = attn.LAUNCHES["paged_decode"]
+    steps = out["fleet"].decode_steps()
+    check(launches == cfg.n_layers * steps > 0,
+          f"fp32 twin: A-K4 launched {launches} times over {steps} steps")
+    with torch.no_grad():
+        for rid, (kind, k) in out["which"].items():
+            p = prompts[k] if kind == "old" else out["fresh"][k]
+            want = generate(params, torch.as_tensor([p], device="cuda"),
+                            cfg, max_new_tokens=MAX_NEW)[0].tolist()
+            got = router.result(rid)
+            i = first_mismatch(got, want)
+            check(i is None and len(got) == len(want),
+                  f"phase 3f fp32 prompt {len(p)}: token "
+                  f"{None if i is None else i - len(p)} differs from the "
+                  f"contiguous generate")
+    log(f"phase 3f fp32: 3 port replicas (Llama-3-8B width, "
+        f"{FLEET32_LAYERS} layers, fp32), the same rolling upgrade: "
+        f"{router.migration_successes} live migrations, "
+        f"{router.migration_fallbacks} fallbacks; all {len(out['which'])} "
+        f"requests token-identical to the contiguous generate; A-K4 "
+        f"launches {launches} = {cfg.n_layers} x {steps}")
+    stats = {"upgrade32_migrations": router.migration_successes,
+             "upgrade32_launches": launches}
+    del out, router, params
     return stats
 
 
@@ -4944,10 +5327,12 @@ def phase_elastic(torch):
 PL_NODES, PL_GPUS = 2, 2
 PL_LAYERS, PL_B, PL_T, PL_STEPS = 1, 4, 2048, 2
 # phase 12b: tensor-parallel decoding on TPD_RANKS ranks at Llama-3-8B's
-# full depth in bf16 (phase 3's prompts, MAX_NEW greedy tokens), then its
-# fp32 twin at TPD32_LAYERS layers; ms per decode step by two points (a
-# decode of MAX_NEW tokens less one of TPD_SHORT, over the steps between)
-TPD_RANKS, TPD32_LAYERS, TPD_SHORT = 2, 2, 2
+# width and TPD_LAYERS layers in bf16 (phase 3's prompts, MAX_NEW greedy
+# tokens), then its fp32 twin at TPD32_LAYERS layers; ms per decode step
+# by two points (a decode of MAX_NEW tokens less one of TPD_SHORT, over
+# the steps between). TPD_LAYERS was 32 (full depth) before phase 3f
+# joined, and is cut to keep the smoke's phases under 1000 s
+TPD_RANKS, TPD_LAYERS, TPD32_LAYERS, TPD_SHORT = 2, 16, 2, 2
 
 
 class PlacementCluster:
@@ -5091,7 +5476,7 @@ def _two_point_decode(torch, dist, make, params, prompt):
 
 def phase12_tp_rank(prompts):
     """12b in one rank: tensor-parallel decoding of every prompt at
-    Llama-3-8B's full depth in bf16, then the fp32 twin; the tokens, the
+    Llama-3-8B's width, TPD_LAYERS layers in bf16, then the fp32 twin; the tokens, the
     rank's bytes held, peak memory, and ms and bytes per decode step."""
     import torch
     import torch.distributed as dist
@@ -5103,10 +5488,9 @@ def phase12_tp_rank(prompts):
     torch.backends.cuda.matmul.allow_tf32 = False
     mesh = make_mesh(tensor=dist.get_world_size(), fsdp=1)
     out = {"rank": dist.get_rank()}
-    for tag, dtype, layers in (("bf16", torch.bfloat16, None),
+    for tag, dtype, layers in (("bf16", torch.bfloat16, TPD_LAYERS),
                                ("fp32", torch.float32, TPD32_LAYERS)):
-        cfg = LlamaConfig.llama3_8b(dtype=dtype, **(
-            {"n_layers": layers} if layers else {}))
+        cfg = LlamaConfig.llama3_8b(dtype=dtype, n_layers=layers)
         torch.cuda.reset_peak_memory_stats()
         params = _tp_decode_params(torch, cfg, mesh)
         gen = make_tp_generate(cfg, mesh, max_new_tokens=MAX_NEW)
@@ -5229,8 +5613,9 @@ def phase_placed(torch):
 
 def phase_tp_decode(torch):
     """12b: tensor-parallel decoding over gloo against the one-rank
-    ``generate`` of the same weights: Llama-3-8B, 32 layers, bf16, to the
-    first near-tie; its fp32 twin at 2 layers, token for token."""
+    ``generate`` of the same weights: Llama-3-8B width, TPD_LAYERS layers,
+    bf16, to the first near-tie; its fp32 twin at 2 layers, token for
+    token."""
     import shutil
 
     import numpy as np
@@ -5251,10 +5636,9 @@ def phase_tp_decode(torch):
     prompts = [gen.integers(0, vocab, size=n).tolist() for n in PROMPT_LENS]
     stats, ref = {}, {}
     # the one-rank references first, each freed before the ranks start
-    for tag, dtype, layers in (("bf16", torch.bfloat16, None),
+    for tag, dtype, layers in (("bf16", torch.bfloat16, TPD_LAYERS),
                                ("fp32", torch.float32, TPD32_LAYERS)):
-        cfg = LlamaConfig.llama3_8b(dtype=dtype, **(
-            {"n_layers": layers} if layers else {}))
+        cfg = LlamaConfig.llama3_8b(dtype=dtype, n_layers=layers)
         params = init_params(cfg, seed=0, device="cuda")
         if tag == "bf16":
             whole = sum(t.numel() * t.element_size()
@@ -5303,7 +5687,7 @@ def phase_tp_decode(torch):
                   f"generate's: {what}")
         notes.append(f"prompt {len(p)}: {what}")
         stats[f"bf16_first_diff_prompt{len(p)}"] = i_diff
-    log(f"phase 12b: bf16, {LlamaConfig.llama3_8b().n_layers} layers, "
+    log(f"phase 12b: bf16, {TPD_LAYERS} layers, "
         f"against the one-rank generate up to "
         f"the first top-2 logit gap under {SPEC_GAP_EPS}: " + "; ".join(notes))
     rep = whole - embeds
@@ -5371,7 +5755,7 @@ def main():
         timed("phase 1", phase_build)
         kernels = timed("phase 2 (paged decode)", phase_kernels, torch)
         kernels.update(timed("phase 2 (flash)", phase_flash, torch))
-        serve = timed("phase 3 (3b, 3c, 3d, 3e)", phase_serve, torch)
+        serve = timed("phase 3 (3b-3f)", phase_serve, torch)
         parity = timed("phase 4", phase_parity, torch)
         moe_serve = timed("phase 7", phase_moe_serve, torch)
         moe_serve.update(timed("phase 7b", phase_moe_parity, torch))
@@ -5401,6 +5785,8 @@ def main():
              serve["fleet_launches"]),
             ("paged_decode_router", "paged_decode", f"{jax_attn}:734",
              serve["router_launches"]),
+            ("paged_decode_upgrade", "paged_decode", f"{jax_attn}:734",
+             serve["upgrade_launches"]),
             ("paged_decode_full_batch", "paged_decode", f"{jax_attn}:734",
              serve["launches"]),
             ("paged_decode_int8_full_batch", "paged_decode",
@@ -5427,15 +5813,17 @@ def main():
                                   ("flash_bwd_dq", 439),
                                   ("flash_bwd_dkv", 519)))):
         # the speculative path's draft steps, the serving tier's replicas,
-        # the replicas behind the router binary and the MoE paths run their kernels at phase 2's shapes (A-K4 at
-        # the serving shape, A-K1-3 at
+        # the replicas behind the router binary, those under the rolling
+        # upgrade and the MoE paths run their kernels at phase 2's shapes
+        # (A-K4 at the serving shape, A-K1-3 at
         # H 32, KV 8, Dh 128, B 2, T 2048), so their rows carry phase 2's
         # measurements; phase 9's rows carry those of phase 2's cases at
         # the ranks' own shapes (FLASH_CASES), their launches summed over
         # the ranks
         k = kernels[{"paged_decode_speculative": "paged_decode",
                      "paged_decode_serving_tier": "paged_decode",
-                     "paged_decode_router": "paged_decode"}.get(
+                     "paged_decode_router": "paged_decode",
+                     "paged_decode_upgrade": "paged_decode"}.get(
             name, name.split("_moe")[0])]
         rows.append({"name": name, "route": "cuda",
                      "source": CSRC.format(source), "replaces": replaces,

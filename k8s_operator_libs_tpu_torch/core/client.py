@@ -2,7 +2,8 @@
 
 A copy of the JAX package's ``core/client.py``, cut to what the port
 calls: the :class:`Client` ABC (a cached read/write view whose
-``direct()`` is the uncached one), the apiserver error family and
+``direct()`` is the uncached one), the apiserver error family, the
+:class:`EventRecorder` ABC with its :class:`NullRecorder` and
 :class:`ClientEventRecorder`. ``ApiError`` is the root of the family. The serving
 tier catches it (and ``TimeoutError``) around every cluster read and
 write, so a client handed to the tier must raise these two for an
@@ -125,9 +126,21 @@ class Client(abc.ABC):
         """The uncached view of the same cluster: reads are never stale."""
 
 
-class ClientEventRecorder:
-    """An event recorder (record.EventRecorder analog) that persists
-    Event objects through the client's ``create_event`` (or its
+class EventRecorder(abc.ABC):
+    """record.EventRecorder analog (reference util.go:141-153 wraps it with
+    nil-safe helpers; we use a NullRecorder instead of nil)."""
+
+    @abc.abstractmethod
+    def event(self, obj, event_type: str, reason: str, message: str) -> None: ...
+
+
+class NullRecorder(EventRecorder):
+    def event(self, obj, event_type: str, reason: str, message: str) -> None:
+        pass
+
+
+class ClientEventRecorder(EventRecorder):
+    """An event recorder that persists Event objects through the client's ``create_event`` (or its
     ``direct()`` view's). Failures are swallowed: an event is advisory,
     never worth failing the caller over."""
 

@@ -42,8 +42,8 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 from . import serde
-from .client import (ApiError, Client, ConflictError, ExpiredError,
-                     InvalidError, NotFoundError, ServerError,
+from .client import (ApiError, Client, ConflictError, EventRecorder,
+                     ExpiredError, InvalidError, NotFoundError, ServerError,
                      TooManyRequestsError, WatchError)
 from .objects import ControllerRevision, DaemonSet, Job, Node, Pod
 
@@ -596,7 +596,7 @@ class LiveClient(Client):
         return self
 
 
-class LiveEventRecorder:
+class LiveEventRecorder(EventRecorder):
     """record.EventRecorder analog posting real k8s Events (the reference
     emits one per state/annotation change and drain result —
     util.go:141-153). Event objects land in the object's namespace (nodes →

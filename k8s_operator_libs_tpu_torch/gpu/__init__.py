@@ -4,10 +4,10 @@ domain upgrades as one group, any other GPU node alone), NVIDIA
 DaemonSet recognition and the GPU workload deletion filter, and a thin
 scheduler that places a job on whole nodes with one rank per GPU.
 
-Nothing here imports the JAX package: the grouper and the deletion
-filter plug into its ``ClusterUpgradeStateManager`` (``grouper=``,
-``with_pod_deletion_enabled``) by duck typing, and the scheduler takes
-any client with its surface.
+The grouper and the deletion filter plug into the port's
+``upgrade.ClusterUpgradeStateManager`` (``grouper=``,
+``with_pod_deletion_enabled``); the scheduler takes any client with its
+surface.
 """
 
 from .device_plugin import (  # noqa: F401

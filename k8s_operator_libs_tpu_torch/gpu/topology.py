@@ -24,6 +24,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional
 
+from ..upgrade.groups import NodeGrouper
+
 PRODUCT_LABEL = "nvidia.com/gpu.product"
 COUNT_LABEL = "nvidia.com/gpu.count"
 CLIQUE_LABEL = "nvidia.com/gpu.clique"
@@ -78,12 +80,10 @@ def gpu_info_for_node(node) -> Optional[GPUNodeInfo]:
                        else None)
 
 
-class GPUNodeGrouper:
+class GPUNodeGrouper(NodeGrouper):
     """Groups a clique's nodes so the upgrade state machine takes each
     NVLink domain down and back as a unit; any other node is its own
-    group. The ``NodeGrouper`` surface of the JAX package's
-    ``upgrade/groups.py`` (``group_key``, ``expected_group_size``),
-    duck-typed: pass it as ``ClusterUpgradeStateManager(grouper=...)``."""
+    group. Pass it as ``ClusterUpgradeStateManager(grouper=...)``."""
 
     def group_key(self, node) -> str:
         info = gpu_info_for_node(node)

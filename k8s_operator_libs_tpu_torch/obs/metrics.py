@@ -23,6 +23,49 @@ DEFAULT_BUCKETS: Tuple[float, ...] = (
 
 # keyed by the FULL exposed name (prefix included), as in the reference
 HELP_TEXTS: Dict[str, str] = {
+    # upgrade gauges (upgrade/metrics.py collect()) and the upgrade
+    # histograms and gauges of the journey and the drain manager
+    "tpu_operator_total_managed_nodes":
+        "Nodes joined with a managed driver pod this reconcile tick",
+    "tpu_operator_upgrades_in_progress":
+        "Nodes between admission and done/failed in the upgrade pipeline",
+    "tpu_operator_upgrades_done":
+        "Nodes whose driver upgrade completed (state upgrade-done)",
+    "tpu_operator_upgrades_failed":
+        "Nodes parked in upgrade-failed awaiting recovery",
+    "tpu_operator_upgrades_pending":
+        "Nodes in upgrade-required waiting for an admission slot",
+    "tpu_operator_unavailable_nodes":
+        "Nodes currently cordoned or not Ready (maxUnavailable arithmetic)",
+    "tpu_operator_nodes_in_state_unknown":
+        "Nodes with no upgrade-state label yet",
+    "tpu_operator_nodes_in_state_upgrade_required":
+        "Nodes in state upgrade-required",
+    "tpu_operator_nodes_in_state_cordon_required":
+        "Nodes in state cordon-required",
+    "tpu_operator_nodes_in_state_wait_for_jobs_required":
+        "Nodes in state wait-for-jobs-required",
+    "tpu_operator_nodes_in_state_pod_deletion_required":
+        "Nodes in state pod-deletion-required",
+    "tpu_operator_nodes_in_state_drain_required":
+        "Nodes in state drain-required",
+    "tpu_operator_nodes_in_state_pod_restart_required":
+        "Nodes in state pod-restart-required",
+    "tpu_operator_nodes_in_state_validation_required":
+        "Nodes in state validation-required",
+    "tpu_operator_nodes_in_state_uncordon_required":
+        "Nodes in state uncordon-required",
+    "tpu_operator_nodes_in_state_upgrade_done":
+        "Nodes in state upgrade-done",
+    "tpu_operator_nodes_in_state_upgrade_failed":
+        "Nodes in state upgrade-failed",
+    "tpu_operator_phase_duration_seconds":
+        "Seconds a node spent in an upgrade-pipeline state, observed at "
+        "the transition out of it (journey choke point)",
+    "tpu_operator_drain_duration_seconds":
+        "Seconds one successful node drain took (cordon excluded)",
+    "tpu_operator_stuck_nodes":
+        "Nodes dwelling in an upgrade state beyond its stuck threshold",
     # training goodput ledger (obs/goodput.py) and its summary gauges
     "tpu_workload_step_duration_seconds":
         "Wall seconds per training step, averaged over one telemetry "

@@ -25,7 +25,8 @@ import threading
 from typing import Callable, List, Optional, Tuple
 
 __all__ = [
-    "spawn", "make_lock", "make_event", "live_threads", "held_locks",
+    "spawn", "make_lock", "make_rlock", "make_event", "live_threads",
+    "held_locks",
     "get_backend", "set_backend", "use_backend", "RealBackend",
 ]
 
@@ -98,6 +99,14 @@ class _NamedLock:
         return f"<{type(self).__name__} {self.name!r}>"
 
 
+class _NamedRLock(_NamedLock):
+    __slots__ = ()
+
+    def locked(self) -> bool:  # RLock has no .locked() before 3.12-ish
+        raw = getattr(self._raw, "locked", None)
+        return raw() if raw is not None else False
+
+
 class _NamedEvent:
     __slots__ = ("name", "_raw")
 
@@ -131,6 +140,9 @@ class RealBackend:
 
     def lock(self, name: str):
         return _NamedLock(name, threading.Lock())
+
+    def rlock(self, name: str):
+        return _NamedRLock(name, threading.RLock())
 
     def event(self, name: str):
         return _NamedEvent(name, threading.Event())
@@ -210,6 +222,10 @@ def spawn(name: str, target: Callable, *, args: tuple = (),
 
 def make_lock(name: str):
     return _backend.lock(name)
+
+
+def make_rlock(name: str):
+    return _backend.rlock(name)
 
 
 def make_event(name: str):

@@ -1,22 +1,19 @@
 """The port's GPU twins of the JAX package's ``tpu/`` layer
 (``k8s_operator_libs_tpu_torch/gpu/``): GFD node facts and the grouper,
-plugged into the JAX package's ``ClusterUpgradeStateManager`` on
-``FakeCluster`` with the GPU deletion filter; the GPU scheduler's
-placement contract; and its env turned into one rank per GPU by the
-port's ``cluster_env`` over a gloo group."""
+plugged with the GPU deletion filter into each package's
+``ClusterUpgradeStateManager`` on its own ``FakeCluster`` (the upgrade
+scenarios run once on the JAX package's state machine and once on the
+port's); the GPU scheduler's placement contract; and its env turned into
+one rank per GPU by the port's ``cluster_env`` over a gloo group."""
 
+import importlib
 import subprocess
 import sys
+import types
 
 import pytest
 
 import torch_parallel_ranks as ranks
-from k8s_operator_libs_tpu.api.v1alpha1 import (DrainSpec,
-                                                DriverUpgradePolicySpec,
-                                                PodDeletionSpec)
-from k8s_operator_libs_tpu.upgrade.consts import UpgradeState
-from k8s_operator_libs_tpu.upgrade.upgrade_state import (
-    ClusterUpgradeStateManager)
 from k8s_operator_libs_tpu_torch.gpu import (CLIQUE_LABEL, COUNT_LABEL,
                                              GPU_RESOURCE, PRODUCT_LABEL,
                                              GPUNodeGrouper, GPUScheduler,
@@ -49,14 +46,33 @@ def add_gpu_node(cluster, name, ds=None, **labels):
     return name
 
 
-def upgrade(cluster, keys, clock, policy, nodes, ticks=80, deletion=True,
-            check=None):
+@pytest.fixture(params=["reference", "port"])
+def machine(request):
+    """One package's upgrade state machine, policy API and FakeCluster:
+    the JAX package's or the port's."""
+    root = {"reference": "k8s_operator_libs_tpu",
+            "port": "k8s_operator_libs_tpu_torch"}[request.param]
+
+    def mod(name):
+        return importlib.import_module(f"{root}.{name}")
+
+    clock = mod("utils.clock").FakeClock()
+    return types.SimpleNamespace(
+        api=mod("api.v1alpha1"), S=mod("upgrade.consts").UpgradeState,
+        Manager=mod("upgrade.upgrade_state").ClusterUpgradeStateManager,
+        keys=mod("upgrade.util").KeyFactory("gpu"), clock=clock,
+        cluster=mod("core.fakecluster").FakeCluster(clock=clock,
+                                                    cache_lag=0.5))
+
+
+def upgrade(machine, policy, nodes, ticks=80, deletion=True, check=None):
     """The canonical consumer loop with the GPU grouper (and the GPU
     deletion filter) until every node is upgrade-done; ``check(states)``
     runs on every tick's {node: (state, unschedulable)}."""
-    mgr = ClusterUpgradeStateManager(cluster.client, keys, cluster.recorder,
-                                     clock, grouper=GPUNodeGrouper(),
-                                     synchronous=True)
+    cluster, keys = machine.cluster, machine.keys
+    mgr = machine.Manager(cluster.client, keys, cluster.recorder,
+                          machine.clock, grouper=GPUNodeGrouper(),
+                          synchronous=True)
     if deletion:
         mgr.with_pod_deletion_enabled(gpu_workload_deletion_filter)
     for _ in range(ticks):
@@ -69,7 +85,7 @@ def upgrade(cluster, keys, clock, policy, nodes, ticks=80, deletion=True,
                             n.spec.unschedulable)
         if check is not None:
             check(states)
-        if all(s == UpgradeState.DONE for s, _ in states.values()):
+        if all(s == machine.S.DONE for s, _ in states.values()):
             return states
     raise AssertionError(f"the fleet never converged: {states}")
 
@@ -113,13 +129,13 @@ def test_validate_clique_membership_rejects_partial_view(cluster):
 
 # ------------------------------------------------- the upgrade state machine
 
-def test_h100_nodes_upgrade_one_by_one_deleting_only_gpu_pods(cluster, keys,
-                                                               clock):
+def test_h100_nodes_upgrade_one_by_one_deleting_only_gpu_pods(machine):
     """Four H100 nodes, each its own group, with a job placed by the GPU
     scheduler on all of them and a pod without GPUs beside it: the
     driver rolls node by node within max_parallel_upgrades 1, the
     deletion filter deletes exactly the pods that request GPUs, and every
     node ends done, schedulable, at the new driver."""
+    cluster, api = machine.cluster, machine.api
     ds = cluster.add_daemonset("nvidia-driver-daemonset", namespace=NS,
                                labels=DRIVER_LABELS, revision_hash="v1")
     nodes = [add_gpu_node(cluster, f"h{i}", ds) for i in range(4)]
@@ -129,18 +145,18 @@ def test_h100_nodes_upgrade_one_by_one_deleting_only_gpu_pods(cluster, keys,
         GPUWorkload(name="train", product=H100, gpus_per_node=8,
                     num_nodes=4)) is not None
     cluster.bump_daemonset_revision("nvidia-driver-daemonset", NS, "v2")
-    policy = DriverUpgradePolicySpec(
+    policy = api.DriverUpgradePolicySpec(
         auto_upgrade=True, max_parallel_upgrades=1, max_unavailable="100%",
-        pod_deletion=PodDeletionSpec(force=True, timeout_second=60),
-        drain=DrainSpec(enable=False))
+        pod_deletion=api.PodDeletionSpec(force=True, timeout_second=60),
+        drain=api.DrainSpec(enable=False))
     most = [0]
 
     def throttle(states):
-        busy = sum(s in UpgradeState.IN_PROGRESS for s, _ in states.values())
+        busy = sum(s in machine.S.IN_PROGRESS for s, _ in states.values())
         most[0] = max(most[0], busy)
         assert busy <= 1, states
 
-    states = upgrade(cluster, keys, clock, policy, nodes, check=throttle)
+    states = upgrade(machine, policy, nodes, check=throttle)
     assert most[0] == 1
     assert not any(unsched for _, unsched in states.values())
     pods = cluster.client.direct().list_pods()
@@ -153,12 +169,13 @@ def test_h100_nodes_upgrade_one_by_one_deleting_only_gpu_pods(cluster, keys,
                   for p in drivers) == ["v2"] * 4
 
 
-def test_a_clique_upgrades_atomically_and_waits_for_its_whole_view(
-        cluster, keys, clock):
+def test_a_clique_upgrades_atomically_and_waits_for_its_whole_view(machine):
     """A GB200 NVL72 clique (18 nodes of 4 GPUs) whose last node's driver
     pod is not yet seen holds at upgrade-required; once it is, the clique
     cordons together, and no node of it is back in service while another
     is still being upgraded. An H100 node beside it upgrades alone."""
+    cluster, keys, api, S = (machine.cluster, machine.keys, machine.api,
+                             machine.S)
     ds = cluster.add_daemonset("nvidia-driver-daemonset", namespace=NS,
                                labels=DRIVER_LABELS, revision_hash="v1")
     rack = [add_gpu_node(cluster, f"t{i:02d}", ds, product=GB200, count=4,
@@ -168,31 +185,31 @@ def test_a_clique_upgrades_atomically_and_waits_for_its_whole_view(
     solo = add_gpu_node(cluster, "h0", ds)
     cluster.bump_daemonset_revision("nvidia-driver-daemonset", NS, "v2")
     # no throttle: only the clique's incomplete view may hold it
-    policy = DriverUpgradePolicySpec(
+    policy = api.DriverUpgradePolicySpec(
         auto_upgrade=True, max_parallel_upgrades=0, max_unavailable="100%",
-        drain=DrainSpec(enable=True, force=True, timeout_second=60))
-    mgr = ClusterUpgradeStateManager(cluster.client, keys, cluster.recorder,
-                                     clock, grouper=GPUNodeGrouper(),
-                                     synchronous=True)
+        drain=api.DrainSpec(enable=True, force=True, timeout_second=60))
+    mgr = machine.Manager(cluster.client, keys, cluster.recorder,
+                          machine.clock, grouper=GPUNodeGrouper(),
+                          synchronous=True)
     for _ in range(5):
         mgr.apply_state(mgr.build_state(NS, DRIVER_LABELS), policy)
         cluster.reconcile_daemonsets()
     for name in rack[:-1]:
         node = cluster.client.direct().get_node(name)
         assert node.metadata.labels.get(keys.state_label) == \
-            UpgradeState.UPGRADE_REQUIRED, name
+            S.UPGRADE_REQUIRED, name
         assert not node.spec.unschedulable
     cluster.add_pod("driver-t17", "t17", namespace=NS, owner_ds=ds,
                     revision_hash="v1")
 
     def atomic(states):
         inside = [states[n] for n in rack]
-        if any(s in (UpgradeState.DRAIN_REQUIRED,
-                     UpgradeState.POD_RESTART_REQUIRED) for s, _ in inside):
+        if any(s in (S.DRAIN_REQUIRED, S.POD_RESTART_REQUIRED)
+               for s, _ in inside):
             assert all(unsched for _, unsched in inside), inside
 
-    states = upgrade(cluster, keys, clock, policy, rack + [solo],
-                     deletion=False, check=atomic)
+    states = upgrade(machine, policy, rack + [solo], deletion=False,
+                     check=atomic)
     assert not any(unsched for _, unsched in states.values())
 
 
