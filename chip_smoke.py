@@ -113,16 +113,19 @@ Phases, each fatal on failure:
    lane through the router, export and adopt ms and KV bytes over HTTP,
    ms per decode step per replica and the arbiter's decisions with their
    exchange rates.
-   3f. A rolling NVIDIA driver upgrade under the port's upgrade state
-   machine: three replicas over phase 3's weights on nodes gpu-a, gpu-b
-   and gpu-c of the port's ``FakeCluster`` (GFD labels: H100, 8 GPUs,
-   each node its own upgrade group), the driver DaemonSet at v1 with
-   one pod per node and one serve pod per node (``job=serve``, one
+   3f. A rolling NVIDIA driver upgrade under the port's operator:
+   three replicas over phase 3's weights on nodes gpu-a, gpu-b and gpu-c
+   of the port's ``FakeCluster`` (GFD labels: H100, 8 GPUs, each node
+   its own upgrade group), the driver DaemonSet at v1 with one pod per
+   node and one serve pod per node (``job=serve``, one
    ``nvidia.com/gpu``). Phase 3's prompts are submitted and the
-   DaemonSet is bumped to v2; then each iteration is one reconcile pass
-   of the port's ``ClusterUpgradeStateManager`` (the GPU grouper and
-   deletion filter, max_parallel_upgrades 1, max_unavailable 1, wait
-   for ``job=serve``, drain forced, pod deletion; host wall timed), the
+   DaemonSet is bumped to v2; then each iteration is one
+   ``GPUOperator.reconcile()`` (its ``ClusterUpgradeStateManager`` with
+   the GPU grouper and deletion filter, max_parallel_upgrades 1,
+   max_unavailable 1, wait for ``job=serve``, drain forced, pod
+   deletion; fleet health, the stuck detectors, the usage meter and the
+   SLO stack's scrape and evaluation; host wall timed), after the
+   replicas' histograms are scraped into the operator's tsdb, then the
    DaemonSet controller's step, the router's tick and one step of every
    replica, with a new 64-token prompt every 4 iterations up to 16
    requests. A drained replica's serve pod completes (the wait-for-jobs
@@ -131,16 +134,31 @@ Phases, each fatal on failure:
    with their driver pods at v2, each node's journey annotation in the
    state order the JAX package's state machine gives on this schedule,
    at most one node in progress and at least 2 admitting replicas at
-   every iteration, ``check_invariants`` empty at every tick, no
-   admission on a cordoned node, every request delivered once and
-   gapless, >= 2 live migrations and no fallback, tokens by 3b's
-   near-tie rule, and A-K4 launches 32 x the decode steps of all the
-   replicas. Prints the rollout wall seconds, seconds per node and per
-   state from the journeys, ms per reconcile pass, per router tick and
-   per decode step per replica, each migration's export and adopt ms
-   and KV bytes. Its fp32 twin: three replicas at Llama-3-8B width, 2
-   layers, the same schedule, every request's tokens equal to the
-   contiguous ``generate``'s.
+   every iteration, every default objective evaluated at every tick with
+   no tick phase failing, health acting on nothing, the serving TTFT
+   objective reading the replicas' first tokens, ``check_invariants``
+   empty at every tick, no admission on a cordoned node, every request
+   delivered once and gapless, >= 2 live migrations and no fallback,
+   tokens by 3b's near-tie rule, and A-K4 launches 32 x the decode
+   steps of all the replicas. Prints the rollout wall seconds, seconds
+   per node and per state from the journeys, ms per operator tick, per
+   router tick and per decode step per replica, each migration's export
+   and adopt ms and KV bytes, and the TTFT objective's reading.
+   3g. Fleet health on the same rig, on the host's clock: 6 prompts in
+   flight, then gpu-b's driver pod crash-loops (not ready, 12
+   restarts). The operator must quarantine gpu-b (label, taint, cordon),
+   the router drain its replica for ``quarantined`` with >= 1 live
+   migration and no fallback, no admission land on gpu-b, the repair be
+   injected once for gpu-b's group and ride the upgrade pipeline, the
+   driver pod come back with a new uid and ready, the quarantine lift
+   with one repair attempt on record and no taint, the ``FleetHealth``
+   events say "Quarantined", "slice-atomic repair" and "Quarantine
+   lifted", and the respawned replica take a request; every request
+   delivered once, gapless, tokens by the near-tie rule, and A-K4
+   launches 32 x the decode steps. Prints when each step happened and
+   ms per operator tick. The fp32 twin of 3f and 3g: three replicas at
+   Llama-3-8B width, 2 layers, the same schedules, every request's
+   tokens equal to the contiguous ``generate``'s.
 4. Token parity in fp32 at Llama-3-8B width, 2 layers: the batcher's
    greedy tokens (through A-K4) against the contiguous ``generate``
    (plain), and ``paged_generate(kv_int8=True)`` through A-K5 against the
@@ -265,11 +283,12 @@ Phases, each fatal on failure:
    named ``<pod>.<service>/cuda:<local rank>``. They take FSDP at
    Llama-3-8B width, 1 layer, bf16, remat, B 4 x T 2048: one step's
    loss and every gradient against the one-rank step within phase 9's
-   bounds, then 2 optimizer steps, the same loss on every rank, 1
-   launch of A-K1-3 per rank and step on ``wgmma``; ms per step per
-   rank. 12b: ``make_tp_generate`` over 2 tensor ranks at Llama-3-8B
-   width, 16 layers (32 before phase 3f), bf16 (each rank half of every block's heads and FFN
-   columns, the embedding and lm_head whole), phase 3's prompts, 32
+   bounds, then 1 optimizer step (2 before phase 3g), the same loss on
+   every rank, 1 launch of A-K1-3 per rank and step on ``wgmma``; ms per
+   step per rank. 12b: ``make_tp_generate`` over 2 tensor ranks at
+   Llama-3-8B width, 8 layers (32 before phase 3f, 16 before 3g), bf16
+   (each rank half of every block's heads and FFN columns, the
+   embedding and lm_head whole), phase 3's prompts, 32
    greedy tokens each: the tokens equal the one-rank ``generate``'s (run
    first, then freed) up to the first position whose top-2 logit gap is
    under ``SPEC_GAP_EPS`` (the sums' order may flip a near-tie in bf16);
@@ -284,6 +303,7 @@ line is ``{"ok": true, "device": {...}}``.
 """
 
 import json
+import logging
 import math
 import re
 import subprocess
@@ -1080,11 +1100,14 @@ def phase_serve(torch):
                        plain_tokens))
     stats.update(timed("phase 3e", phase_router, torch, params, cfg, prompts,
                        plain_tokens))
-    stats.update(timed("phase 3f", phase_upgrade, torch, params, cfg,
-                       prompts, plain_tokens))
-    del params
+    upgrade = timed("phase 3f", phase_upgrade, torch, params, cfg, prompts,
+                    plain_tokens)
+    rig = upgrade.pop("rig")
+    stats.update(upgrade)
+    stats.update(timed("phase 3g", phase_health, torch, params, cfg, rig))
+    del params, rig
     stats.update(timed("phase 3d fp32", phase_fleet_fp32, torch))
-    stats.update(timed("phase 3f fp32", phase_upgrade_fp32, torch))
+    stats.update(timed("phase 3f-3g fp32", phase_upgrade_fp32, torch))
     return stats
 
 
@@ -1483,6 +1506,11 @@ def fleet_runtime_class(records):
     from k8s_operator_libs_tpu_torch.serving import BatcherRuntime
 
     class TimedRuntime(BatcherRuntime):
+        def __init__(self, *args, fleet_hub=None, **kw):
+            if fleet_hub is not None:
+                kw["hub"] = tee_hub_class()(fleet_hub)
+            super().__init__(*args, **kw)
+
         def export_slot(self, rid):
             t0 = time.monotonic()
             payload = super().export_slot(rid)
@@ -1505,15 +1533,35 @@ def fleet_runtime_class(records):
     return TimedRuntime
 
 
+def tee_hub_class():
+    """A replica's own ``MetricsHub`` that also records every histogram
+    sample (the batcher's TTFT among them) into the fleet's hub, as a
+    scrape summed over replicas would see them; the replica's gauges and
+    counters, which its pool reads back, stay its own."""
+    from k8s_operator_libs_tpu_torch.obs.metrics import MetricsHub
+
+    class TeeHub(MetricsHub):
+        def __init__(self, fleet_hub):
+            super().__init__()
+            self.fleet_hub = fleet_hub
+
+        def observe(self, name, value, labels=None, buckets=None):
+            super().observe(name, value, labels, buckets)
+            self.fleet_hub.observe(name, value, labels, buckets)
+
+    return TeeHub
+
+
 class Fleet:
     """Port replicas on ``nodes`` under the port's pool and router, the
     nodes read through ``client`` (``FleetCluster`` when none is given).
     ``tick()`` is one iteration of the serving loop: the router's tick
     (timed), its invariants against the nodes, then one step of every
-    live replica (the router does not step them)."""
+    live replica (the router does not step them). With ``serving_hub``,
+    every replica's histograms are also recorded there."""
 
     def __init__(self, params, cfg, nodes, records, client=None,
-                 component="libtpu"):
+                 component="libtpu", serving_hub=None):
         from k8s_operator_libs_tpu_torch.obs.metrics import MetricsHub
         from k8s_operator_libs_tpu_torch.serving import (ReplicaPool,
                                                          RequestRouter)
@@ -1531,6 +1579,7 @@ class Fleet:
         self._logged = 0            # of the router's assignments list
         self.submitted_t, self.first_t = {}, {}
         self.ticks = 0
+        self.serving_hub = serving_hub
         for node in nodes:
             self.spawn(node)
 
@@ -1539,7 +1588,8 @@ class Fleet:
         g = self.generation[node] = self.generation.get(node, 0) + 1
         runtime = self.runtime_class(self.params, self.cfg, max_slots=SLOTS,
                                      capacity_per_slot=CAPACITY,
-                                     block_size=BS)
+                                     block_size=BS,
+                                     fleet_hub=self.serving_hub)
         self.batchers.append(runtime.srv)
         self.batcher_ids.append(f"{node}-g{g}")
         return self.pool.register(Replica(f"{node}-g{g}", node, runtime))
@@ -1841,6 +1891,20 @@ UPGRADE_NS, UPGRADE_DS, UPGRADE_COMPONENT = ("gpu-operator",
                                              "nvidia-driver-daemonset", "gpu")
 UPGRADE_EVERY, UPGRADE_REQUESTS, UPGRADE_NEW_LEN = 4, 16, 64
 UPGRADE_MAX_ITERS = 400
+# phase 3g: fleet health on the same rig, on the host's clock. The
+# windows are a few of phase 3f's iterations (~0.18 s each on the H100):
+# a signal must hold HEALTH_DAMPING_S to count and HEALTH_PERSIST_S to
+# be persistent (then the repair is injected); the node must read healthy
+# for HEALTH_RECOVERY_S before the quarantine lifts; a second repair
+# would wait HEALTH_BACKOFF_S. HEALTH_NODE's driver pod crash-loops with
+# HEALTH_FIRST prompts of HEALTH_LEN tokens in flight; a new one every
+# UPGRADE_EVERY iterations while fewer than HEALTH_FIRST are in flight
+# (at most HEALTH_REQUESTS in all) until the respawned replica has taken
+# one
+HEALTH_DAMPING_S, HEALTH_PERSIST_S = 0.5, 1.0
+HEALTH_RECOVERY_S, HEALTH_BACKOFF_S = 0.5, 5.0
+HEALTH_NODE, HEALTH_FIRST, HEALTH_LEN = "gpu-b", 6, 48
+HEALTH_REQUESTS, HEALTH_MAX_ITERS = 24, 600
 # every node's journey on this schedule: once its replica has drained,
 # the serve pod has completed, so the deletion filter finds no pod
 # holding a GPU and the node skips the drain. The same order as the JAX
@@ -1869,77 +1933,136 @@ def add_serve_pod(cluster, node):
     cluster.flush_cache()
 
 
-def rolling_upgrade(torch, params, cfg, prompts, records, tag):
-    """Phase 3f's schedule: replicas on the GPU nodes of a port
-    ``FakeCluster``, phase 3's prompts in flight, the driver DaemonSet
-    bumped to v2, then per iteration one reconcile pass of the port's
-    ``ClusterUpgradeStateManager`` (host wall timed), the DaemonSet
-    controller's step, the fleet's tick (router tick, invariants, one
-    step of every live replica) and the pods' lifecycle. Every hard
-    check on the upgrade and the serving runs here; the tokens are the
-    caller's."""
-    import numpy as np
+class LogErrors(logging.Handler):
+    """Counts the records at ERROR and above that the port's operator and
+    SLO engine log (each ``logger.exception`` of a tick phase that
+    failed and was isolated)."""
 
-    from k8s_operator_libs_tpu_torch.api import (DrainSpec,
-                                                 DriverUpgradePolicySpec,
-                                                 PodDeletionSpec,
-                                                 WaitForCompletionSpec)
-    from k8s_operator_libs_tpu_torch.core import FakeCluster
-    from k8s_operator_libs_tpu_torch.gpu import (COUNT_LABEL, PRODUCT_LABEL,
-                                                 GPUNodeGrouper,
-                                                 gpu_workload_deletion_filter)
-    from k8s_operator_libs_tpu_torch.gpu.device_plugin import DRIVER_LABELS
-    from k8s_operator_libs_tpu_torch.upgrade import (
-        ClusterUpgradeStateManager, KeyFactory, UpgradeState)
+    def __init__(self, names):
+        super().__init__(logging.ERROR)
+        self.records = []
+        self.names = names
+        for name in names:
+            logging.getLogger(name).addHandler(self)
 
-    cluster = FakeCluster()              # the host's clock, no cache lag
-    ds = cluster.add_daemonset(UPGRADE_DS, namespace=UPGRADE_NS,
-                               labels=DRIVER_LABELS, revision_hash="v1")
-    for node in UPGRADE_NODES:
-        cluster.add_node(node, labels={PRODUCT_LABEL: UPGRADE_PRODUCT,
-                                       COUNT_LABEL: UPGRADE_GPUS})
-        cluster.add_pod(f"{UPGRADE_DS}-{node}", node, namespace=UPGRADE_NS,
-                        owner_ds=ds, revision_hash="v1")
-        add_serve_pod(cluster, node)
-    keys = KeyFactory(UPGRADE_COMPONENT)
-    mgr = ClusterUpgradeStateManager(cluster.client, keys, cluster.recorder,
-                                     grouper=GPUNodeGrouper(),
-                                     synchronous=True)
-    mgr.with_pod_deletion_enabled(gpu_workload_deletion_filter)
-    policy = DriverUpgradePolicySpec(
-        auto_upgrade=True, max_parallel_upgrades=1, max_unavailable=1,
-        wait_for_completion=WaitForCompletionSpec(pod_selector="job=serve"),
-        pod_deletion=PodDeletionSpec(force=True, timeout_second=60),
-        drain=DrainSpec(enable=True, force=True, timeout_second=60))
-    fleet = Fleet(params, cfg, UPGRADE_NODES, records, client=cluster.client,
-                  component=UPGRADE_COMPONENT)
-    which = {fleet.submit(p, "interactive"): ("old", k)
-             for k, p in enumerate(prompts)}
-    gen = np.random.default_rng(5)
-    fresh = []
-    cluster.bump_daemonset_revision(UPGRADE_DS, UPGRADE_NS, "v2")
-    t_roll = time.monotonic()
-    rollout_s = None
-    reconcile_ms, exited = [], set()
-    min_admitting = len(UPGRADE_NODES)
-    drained_at = {}                      # node -> iteration of its drain
-    for it in range(UPGRADE_MAX_ITERS):
+    def emit(self, record):
+        self.records.append(f"{record.name}: {record.getMessage()}")
+
+    def close(self):
+        for name in self.names:
+            logging.getLogger(name).removeHandler(self)
+        super().close()
+
+
+class OperatorRig:
+    """Phases 3f and 3g's fleet under the port's operator: replicas on the
+    GPU nodes of a port ``FakeCluster`` (the host's clock, no cache lag),
+    the driver DaemonSet with one pod per node, one serve pod per node,
+    and a ``GPUOperator`` over one managed component (the upgrade policy
+    below) with fleet health (``HEALTH_*`` windows), the SLO stack (the
+    default objectives) and the usage meter, all recording into
+    ``self.hub``. The replicas' histograms go to ``self.serving_hub``,
+    which the operator's tsdb scrapes under the ``tpu_workload`` prefix
+    before each reconcile, so the serving TTFT objective reads the
+    card's TTFT. ``iteration()`` is one turn of the loop, with the hard
+    checks every turn holds."""
+
+    def __init__(self, params, cfg, records):
+        from k8s_operator_libs_tpu_torch.api import (DrainSpec,
+                                                     DriverUpgradePolicySpec,
+                                                     PodDeletionSpec,
+                                                     WaitForCompletionSpec)
+        from k8s_operator_libs_tpu_torch.core import FakeCluster
+        from k8s_operator_libs_tpu_torch.gpu import (COUNT_LABEL, PRODUCT_LABEL,
+                                                     GPUOperator,
+                                                     ManagedComponent)
+        from k8s_operator_libs_tpu_torch.gpu.device_plugin import \
+            DRIVER_LABELS
+        from k8s_operator_libs_tpu_torch.health import (ClassifierConfig,
+                                                        HealthOptions,
+                                                        RemediationPolicy)
+        from k8s_operator_libs_tpu_torch.obs.metrics import MetricsHub
+        from k8s_operator_libs_tpu_torch.obs.slo import SLOOptions
+        from k8s_operator_libs_tpu_torch.obs.usage import UsageMeter
+        from k8s_operator_libs_tpu_torch.upgrade import KeyFactory
+
+        self.cluster = FakeCluster()     # the host's clock, no cache lag
+        ds = self.cluster.add_daemonset(UPGRADE_DS, namespace=UPGRADE_NS,
+                                        labels=DRIVER_LABELS,
+                                        revision_hash="v1")
+        for node in UPGRADE_NODES:
+            self.cluster.add_node(node, labels={PRODUCT_LABEL: UPGRADE_PRODUCT,
+                                                COUNT_LABEL: UPGRADE_GPUS})
+            self.cluster.add_pod(f"{UPGRADE_DS}-{node}", node,
+                                 namespace=UPGRADE_NS, owner_ds=ds,
+                                 revision_hash="v1")
+            add_serve_pod(self.cluster, node)
+        self.keys = KeyFactory(UPGRADE_COMPONENT)
+        self.labels = DRIVER_LABELS
+        policy = DriverUpgradePolicySpec(
+            auto_upgrade=True, max_parallel_upgrades=1, max_unavailable=1,
+            wait_for_completion=WaitForCompletionSpec(
+                pod_selector="job=serve"),
+            pod_deletion=PodDeletionSpec(force=True, timeout_second=60),
+            drain=DrainSpec(enable=True, force=True, timeout_second=60))
+        self.hub, self.serving_hub = MetricsHub(), MetricsHub()
+        self.op = GPUOperator(
+            self.cluster.client,
+            [ManagedComponent(UPGRADE_COMPONENT, UPGRADE_NS, DRIVER_LABELS,
+                              policy)],
+            recorder=self.cluster.recorder, synchronous=True,
+            health=HealthOptions(
+                component=UPGRADE_COMPONENT,
+                classifier=ClassifierConfig(
+                    damping_seconds=HEALTH_DAMPING_S,
+                    persist_seconds=HEALTH_PERSIST_S),
+                policy=RemediationPolicy(
+                    recovery_seconds=HEALTH_RECOVERY_S,
+                    backoff_base_seconds=HEALTH_BACKOFF_S)),
+            slo=SLOOptions.from_dict({}),
+            usage=UsageMeter(metrics=self.hub), metrics=self.hub)
+        self.spec_names = {spec.name for spec in self.op.slo_engine.specs}
+        self.fleet = Fleet(params, cfg, UPGRADE_NODES, records,
+                           client=self.cluster.client,
+                           component=UPGRADE_COMPONENT,
+                           serving_hub=self.serving_hub)
+        self.errors = LogErrors(["k8s_operator_libs_tpu_torch.gpu.operator",
+                                 "k8s_operator_libs_tpu_torch.obs.slo"])
+        self.tick_ms = []
+        self.slo_ticks = 0
+        self.exited = set()
+        self.drained_at = {}             # node -> iteration of its drain
+
+    def iteration(self, it, tag):
+        """One turn: the serving hub scraped into the operator's tsdb, one
+        operator reconcile (host wall timed; every objective evaluated, no
+        tick phase failed), the DaemonSet controller's step and the
+        fleet's tick; then no admission on a cordoned or quarantined
+        node, at most one node in progress, the serve pods' lifecycle
+        (a drained replica's pod completes; a node back at upgrade-done,
+        schedulable, gets a new pod and replica) and at least all but
+        one replica admitting. Returns the nodes by name."""
+        from k8s_operator_libs_tpu_torch.upgrade import UpgradeState
+        from k8s_operator_libs_tpu_torch.wire import QUARANTINE_LABEL
+        op, fleet, cluster, keys = self.op, self.fleet, self.cluster, \
+            self.keys
+        op.tsdb.scrape(hub=self.serving_hub, prefix="tpu_workload")
         t0 = time.monotonic()
-        mgr.apply_state(mgr.build_state(UPGRADE_NS, DRIVER_LABELS), policy)
-        reconcile_ms.append(1e3 * (time.monotonic() - t0))
+        op.reconcile()
+        self.tick_ms.append(1e3 * (time.monotonic() - t0))
+        check(set(op.last_slo) == self.spec_names and not self.errors.records,
+              f"{tag}: iteration {it}: objectives evaluated "
+              f"{sorted(op.last_slo)}, errors {self.errors.records}")
+        self.slo_ticks += 1
         cluster.reconcile_daemonsets()
         seen = len(fleet.assigned)
         fleet.tick()
-        if it % UPGRADE_EVERY == UPGRADE_EVERY - 1 \
-                and len(which) < UPGRADE_REQUESTS:
-            fresh.append(gen.integers(0, cfg.vocab_size,
-                                      size=UPGRADE_NEW_LEN).tolist())
-            which[fleet.submit(fresh[-1], "interactive")] = (
-                "new", len(fresh) - 1)
         nodes = fleet.nodes()
         landed = [(rep, node) for _t, _rid, rep, node in fleet.assigned[seen:]
-                  if nodes[node].spec.unschedulable]
-        check(not landed, f"{tag}: admissions on cordoned nodes: {landed}")
+                  if nodes[node].spec.unschedulable
+                  or QUARANTINE_LABEL in nodes[node].metadata.labels]
+        check(not landed, f"{tag}: admissions on cordoned or quarantined "
+                          f"nodes: {landed}")
         busy = [n for n, node in nodes.items()
                 if node.metadata.labels.get(keys.state_label)
                 in UpgradeState.IN_PROGRESS]
@@ -1948,15 +2071,16 @@ def rolling_upgrade(torch, params, cfg, prompts, records, tag):
         for replica in list(fleet.pool.replicas.values()):
             node = nodes[replica.node_name]
             if (replica.draining and replica.drained
-                    and replica.id not in exited):
+                    and replica.id not in self.exited):
                 # the drained replica's server exits: its pod completes,
                 # which the wait-for-jobs gate waits for
                 cluster.set_pod_status("default",
                                        f"serve-{replica.node_name}",
                                        phase="Succeeded")
-                exited.add(replica.id)
-                drained_at[replica.node_name] = it
-            elif (replica.id in exited and not node.spec.unschedulable
+                self.exited.add(replica.id)
+                self.drained_at[replica.node_name] = it
+            elif (replica.id in self.exited and not node.spec.unschedulable
+                  and QUARANTINE_LABEL not in node.metadata.labels
                   and node.metadata.labels.get(keys.state_label)
                   == UpgradeState.DONE):
                 # the node is back: a new serve pod and replica take it
@@ -1966,9 +2090,51 @@ def rolling_upgrade(torch, params, cfg, prompts, records, tag):
                                        phase="Running")
                 fleet.spawn(replica.node_name)
         admitting = len(fleet.pool.admitting())
-        min_admitting = min(min_admitting, admitting)
         check(admitting >= len(UPGRADE_NODES) - 1,
               f"{tag}: {admitting} admitting replicas at iteration {it}")
+        return nodes
+
+    def close(self):
+        self.errors.close()
+
+
+def rolling_upgrade(torch, params, cfg, prompts, records, tag):
+    """Phase 3f's schedule on an :class:`OperatorRig`: phase 3's prompts
+    in flight, the driver DaemonSet bumped to v2, then per iteration one
+    ``GPUOperator.reconcile()`` (upgrade pipeline, health, stuck
+    detection, placement, usage, SLO), the DaemonSet controller's step,
+    the fleet's tick and the pods' lifecycle. Every hard check on the
+    upgrade and the serving runs here; the tokens are the caller's. The
+    rig carries on into phase 3g."""
+    import numpy as np
+
+    from k8s_operator_libs_tpu_torch.upgrade import UpgradeState
+    from k8s_operator_libs_tpu_torch.wire import QUARANTINE_LABEL
+
+    rig = OperatorRig(params, cfg, records)
+    cluster, fleet, keys = rig.cluster, rig.fleet, rig.keys
+    which = {fleet.submit(p, "interactive"): ("old", k)
+             for k, p in enumerate(prompts)}
+    gen = np.random.default_rng(5)
+    fresh = []
+    cluster.bump_daemonset_revision(UPGRADE_DS, UPGRADE_NS, "v2")
+    t_roll = time.monotonic()
+    rollout_s = None
+    min_admitting = len(UPGRADE_NODES)
+    for it in range(UPGRADE_MAX_ITERS):
+        nodes = rig.iteration(it, tag)
+        if it % UPGRADE_EVERY == UPGRADE_EVERY - 1 \
+                and len(which) < UPGRADE_REQUESTS:
+            fresh.append(gen.integers(0, cfg.vocab_size,
+                                      size=UPGRADE_NEW_LEN).tolist())
+            which[fleet.submit(fresh[-1], "interactive")] = (
+                "new", len(fresh) - 1)
+        quarantined = [n for n, node in nodes.items()
+                       if QUARANTINE_LABEL in node.metadata.labels]
+        check(not quarantined and not rig.op.last_health.actions
+              .repairs_injected, f"{tag}: health acted during the "
+                                 f"rollout: {quarantined}")
+        min_admitting = min(min_admitting, len(fleet.pool.admitting()))
         done = all(node.metadata.labels.get(keys.state_label)
                    == UpgradeState.DONE and not node.spec.unschedulable
                    for node in nodes.values())
@@ -2008,18 +2174,157 @@ def rolling_upgrade(torch, params, cfg, prompts, records, tag):
     check(len(fleet.pool.admitting()) == len(UPGRADE_NODES),
           f"{tag}: the fleet did not come back to "
           f"{len(UPGRADE_NODES)} admitting replicas")
-    return {"fleet": fleet, "which": which, "fresh": fresh,
-            "journeys": journeys, "reconcile_ms": reconcile_ms,
+    ttft = rig.op.last_slo["serving-ttft-p99"]
+    check(not ttft["no_data"] and ttft["events_total"] > 0,
+          f"{tag}: the serving TTFT objective read no TTFT: {ttft}")
+    return {"rig": rig, "fleet": fleet, "which": which, "fresh": fresh,
+            "journeys": journeys, "reconcile_ms": list(rig.tick_ms),
             "rollout_s": rollout_s, "rollout_iters": rollout_iters,
             "iterations": it + 1, "min_admitting": min_admitting,
-            "drained_at": drained_at}
+            "drained_at": dict(rig.drained_at), "ttft": ttft}
+
+
+def quarantine_repair(torch, rig, cfg, tag):
+    """Phase 3g's schedule on phase 3f's rig, right after its rollout:
+    HEALTH_FIRST prompts of HEALTH_LEN tokens submitted, then gpu-b's
+    driver pod crash-loops (not ready, 12 restarts). Each iteration is
+    the rig's; a new prompt every UPGRADE_EVERY iterations while fewer
+    than HEALTH_FIRST are in flight, until the respawned replica on
+    HEALTH_NODE has taken one. The operator's
+    health must quarantine the node (label, taint, cordon), the router
+    drain its replica for ``quarantined`` with live migration, the
+    repair ride the upgrade pipeline once, the driver pod come back new
+    and ready, and the quarantine lift with one repair attempt on
+    record. Returns the requests (prompt by rid), what was seen and the
+    iterations at which each step happened."""
+    import numpy as np
+
+    from k8s_operator_libs_tpu_torch.health import consts as hconsts
+    from k8s_operator_libs_tpu_torch.upgrade import UpgradeState
+
+    fleet, cluster, op, keys = rig.fleet, rig.cluster, rig.op, rig.keys
+    router = fleet.router
+    direct = cluster.client.direct()
+    driver = next(p for p in direct.list_pods(namespace=UPGRADE_NS)
+                  if p.spec.node_name == HEALTH_NODE)
+    old_uid = driver.metadata.uid
+    gen = np.random.default_rng(7)
+    prompts = {}
+
+    def submit():
+        p = gen.integers(0, cfg.vocab_size, size=HEALTH_LEN).tolist()
+        prompts[fleet.submit(p, "interactive")] = p
+
+    for _ in range(HEALTH_FIRST):
+        submit()
+    migrations0 = router.migration_successes
+    fallbacks0 = router.migration_fallbacks
+    drains0 = len(router.drains)
+    replicas0 = set(fleet.pool.replicas)
+    steps0 = fleet.decode_steps()
+    launches0 = attn_launches()
+    cluster.set_pod_status(UPGRADE_NS, driver.metadata.name, ready=False,
+                           restart_count=12)
+    t0 = time.monotonic()
+    at, repairs, states = {}, [], set()
+    respawned = None
+    for it in range(HEALTH_MAX_ITERS):
+        nodes = rig.iteration(it, tag)
+        node = nodes[HEALTH_NODE]
+        repairs.extend(op.last_health.actions.repairs_injected)
+        if op.last_health.actions.repairs_injected:
+            at.setdefault("repair injected", (it, time.monotonic() - t0))
+        states.add(node.metadata.labels.get(keys.state_label, ""))
+        if hconsts.QUARANTINE_LABEL in node.metadata.labels:
+            at.setdefault("quarantined", (it, time.monotonic() - t0))
+            check(node.spec.unschedulable
+                  and any(t.key == hconsts.QUARANTINE_TAINT_KEY
+                          for t in node.spec.taints),
+                  f"{tag}: {HEALTH_NODE} quarantined but not cordoned and "
+                  f"tainted")
+        elif "quarantined" in at and not node.spec.unschedulable:
+            at.setdefault("lifted", (it, time.monotonic() - t0))
+        new = [r for r in fleet.pool.replicas.values()
+               if r.id not in replicas0 and r.node_name == HEALTH_NODE]
+        if new and respawned is None:
+            respawned = new[0].id
+            at["respawned"] = (it, time.monotonic() - t0)
+        took = respawned is not None and any(
+            rep == respawned for _t, _rid, rep, _n in fleet.assigned)
+        if it % UPGRADE_EVERY == UPGRADE_EVERY - 1 and not took \
+                and len(prompts) < HEALTH_REQUESTS \
+                and router.outstanding < HEALTH_FIRST:
+            # at most HEALTH_FIRST in flight: two replicas' slots then
+            # hold the quarantined replica's requests, so each migrates
+            submit()
+        if took and not router.outstanding:
+            break
+    else:
+        raise SmokeFailure(f"{tag}: quarantine and repair did not finish "
+                           f"in {HEALTH_MAX_ITERS} iterations ({at})")
+    fleet.tick()
+    fleet.check_delivery(tag)
+    check(repairs == [HEALTH_NODE],
+          f"{tag}: repairs injected {repairs}, want [{HEALTH_NODE!r}] once")
+    check(UpgradeState.DRAIN_REQUIRED in states
+          or UpgradeState.WAIT_FOR_JOBS_REQUIRED in states,
+          f"{tag}: the repair did not ride the upgrade pipeline: {states}")
+    check(direct.get_node(HEALTH_NODE).metadata.labels.get(keys.state_label)
+          == UpgradeState.DONE, f"{tag}: {HEALTH_NODE} not upgrade-done")
+    pods = [p for p in direct.list_pods(namespace=UPGRADE_NS)
+            if p.spec.node_name == HEALTH_NODE]
+    check(len(pods) == 1 and pods[0].metadata.uid != old_uid
+          and all(c.ready for c in pods[0].status.container_statuses),
+          f"{tag}: {HEALTH_NODE}'s driver pod was not recreated ready")
+    node = direct.get_node(HEALTH_NODE)
+    annos = node.metadata.annotations
+    check(hconsts.QUARANTINE_LABEL not in node.metadata.labels
+          and not node.spec.taints and not node.spec.unschedulable
+          and hconsts.REPAIR_ANNOTATION not in annos
+          and annos.get(hconsts.REPAIR_ATTEMPTS_ANNOTATION) == "1",
+          f"{tag}: quarantine not lifted cleanly: labels "
+          f"{node.metadata.labels}, taints {node.spec.taints}, "
+          f"annotations {annos}")
+    messages = [e.message for e in cluster.recorder.events
+                if e.reason == "FleetHealth"]
+    for want in ("Quarantined", "slice-atomic repair", "Quarantine lifted"):
+        check(any(want in m for m in messages),
+              f"{tag}: no FleetHealth event says {want!r}: {messages}")
+    drains = router.drains[drains0:]
+    check([(n, reason) for _r, n, reason, _s in drains]
+          == [(HEALTH_NODE, "quarantined")],
+          f"{tag}: drains {drains}")
+    migrations = router.migration_successes - migrations0
+    fallbacks = router.migration_fallbacks - fallbacks0
+    check(migrations >= 1 and fallbacks == 0,
+          f"{tag}: {migrations} live migrations, {fallbacks} fallbacks")
+    check(respawned is not None and router.requests and any(
+        rep == respawned for _t, _rid, rep, _n in fleet.assigned),
+          f"{tag}: the respawned replica took no request")
+    steps = fleet.decode_steps() - steps0
+    launches = attn_launches() - launches0
+    check(launches == cfg.n_layers * steps > 0,
+          f"{tag}: A-K4 launched {launches} times over {steps} decode steps "
+          f"of {cfg.n_layers} layers")
+    return {"prompts": prompts, "at": at, "iterations": it + 1,
+            "migrations": migrations, "fallbacks": fallbacks,
+            "launches": launches, "steps": steps, "respawned": respawned,
+            "messages": messages, "states": states}
+
+
+def attn_launches():
+    from k8s_operator_libs_tpu_torch.ops import paged_attention as attn
+    return attn.LAUNCHES["paged_decode"]
 
 
 def phase_upgrade(torch, params, cfg, prompts, plain_tokens):
     """Phase 3f: a rolling NVIDIA driver upgrade across three Llama-3-8B
-    port replicas, driven by the port's ``ClusterUpgradeStateManager``
-    with the GPU grouper and deletion filter; each replica drains with
-    live migration when its node leaves ``upgrade-done``."""
+    port replicas, driven by the port's ``GPUOperator`` (its
+    ``ClusterUpgradeStateManager`` with the GPU grouper and deletion
+    filter, fleet health, the SLO stack and the usage meter); each
+    replica drains with live migration when its node leaves
+    ``upgrade-done``. Returns the stats and, under ``"rig"``, the rig
+    phase 3g carries on with."""
     from k8s_operator_libs_tpu_torch.models.generate import generate
     from k8s_operator_libs_tpu_torch.ops import paged_attention as attn
 
@@ -2061,14 +2366,16 @@ def phase_upgrade(torch, params, cfg, prompts, plain_tokens):
             per_state.setdefault(state, []).append(t_next - t)
     rec_ms = sorted(out["reconcile_ms"])
     ticks = sorted(fleet.tick_ms)
+    ttft = out["ttft"]
     per_replica = {}
     for srv, rep in zip(fleet.batchers, fleet.batcher_ids):
         per_replica[rep] = (1e3 * srv.decode_seconds / srv.decode_steps
                             if srv.decode_steps else None,
                             srv.decode_steps)
-    log(f"phase 3f: the port's ClusterUpgradeStateManager (GPU grouper, "
-        f"GPU deletion filter, max_parallel_upgrades 1, max_unavailable 1, "
-        f"wait for job=serve, drain) rolled {UPGRADE_DS} v1 -> v2 across "
+    log(f"phase 3f: the port's GPUOperator (its upgrade state machine with "
+        f"the GPU grouper and deletion filter, max_parallel_upgrades 1, "
+        f"max_unavailable 1, wait for job=serve, drain; fleet health, the "
+        f"SLO stack, the usage meter) rolled {UPGRADE_DS} v1 -> v2 across "
         f"{', '.join(UPGRADE_NODES)}, each hosting a port replica "
         f"(Llama-3-8B, all {cfg.n_layers} layers); every node's journey "
         f"{' -> '.join(UPGRADE_ORDER)}; at most 1 node in progress, "
@@ -2086,9 +2393,19 @@ def phase_upgrade(torch, params, cfg, prompts, plain_tokens):
     log("phase 3f: seconds per state (journey; per node): " + "; ".join(
         f"{state} " + "/".join(f"{v:.3f}" for v in vs)
         for state, vs in per_state.items()))
-    log(f"phase 3f: ms per reconcile pass (build_state + apply_state, "
-        f"host wall) median {rec_ms[len(rec_ms) // 2]:.3f}, max "
-        f"{rec_ms[-1]:.3f} over {len(rec_ms)} passes")
+    log(f"phase 3f: ms per operator tick (GPUOperator.reconcile: upgrade "
+        f"pipeline, health, stuck detection, placement, usage, SLO scrape "
+        f"and evaluation; host wall) median {rec_ms[len(rec_ms) // 2]:.3f}, "
+        f"max {rec_ms[-1]:.3f} over {len(rec_ms)} ticks (the bare "
+        f"manager's build_state + apply_state pass, without health, SLO "
+        f"and usage: 1.001/1.033 ms median on an H100 80GB HBM3 host at "
+        f"700 W, PERF.md section 5); all {len(out['rig'].spec_names)} "
+        f"objectives evaluated at every tick")
+    log(f"phase 3f: the serving TTFT objective over the replicas' "
+        f"histograms: {ttft['events_total']:.0f} first tokens, p50 "
+        f"{ttft['quantiles']['p50']} s, p99 {ttft['quantiles']['p99']} s, "
+        f"bad fraction {ttft['bad_fraction']}, error budget remaining "
+        f"{ttft['error_budget_remaining']:.4f}")
     log(f"phase 3f: ms per router tick median {ticks[len(ticks) // 2]:.3f}, "
         f"max {ticks[-1]:.3f}")
     log("phase 3f: ms per decode step per replica (4 slots): " + ", ".join(
@@ -2118,15 +2435,73 @@ def phase_upgrade(torch, params, cfg, prompts, plain_tokens):
              "upgrade_adopt_ms": [r["ms"] for r in adopts],
              "upgrade_kv_bytes": [r["kv_bytes"] for r in exports],
              "upgrade_ms_per_decode_step": {rep: ms for rep, (ms, _) in
-                                            per_replica.items()}}
+                                            per_replica.items()},
+             "upgrade_ttft_p99_s": ttft["quantiles"]["p99"],
+             "rig": out["rig"]}
     del fleet, router, out
     return stats
 
 
+def phase_health(torch, params, cfg, rig):
+    """Phase 3g: fleet health through the port's operator on phase 3f's
+    rig (quarantine, the router's drain with live migration, the repair
+    through the upgrade pipeline, the lift and the replica's return);
+    every request's tokens against a batched ``generate`` by the
+    near-tie rule."""
+    from k8s_operator_libs_tpu_torch.models.generate import generate
+
+    out = quarantine_repair(torch, rig, cfg, "phase 3g")
+    router = rig.fleet.router
+    rids = sorted(out["prompts"])
+    with torch.no_grad():
+        want = generate(params, torch.as_tensor(
+            [out["prompts"][r] for r in rids], device="cuda"), cfg,
+            max_new_tokens=MAX_NEW).cpu().tolist()
+    verdicts = []
+    for rid, w in zip(rids, want):
+        gaps = top2_gaps(torch, params, cfg, w, HEALTH_LEN)
+        ok, what, _ = near_tie_verdict(router.result(rid), w, gaps,
+                                       HEALTH_LEN)
+        check(ok, f"phase 3g request {rid}: {what}")
+        verdicts.append(what)
+    ticks = sorted(rig.tick_ms[-out["iterations"]:])
+    at = out["at"]
+    log(f"phase 3g: {HEALTH_NODE}'s driver pod crash-looping (not ready, "
+        f"12 restarts) under the port's GPUOperator (damping "
+        f"{HEALTH_DAMPING_S} s, persist {HEALTH_PERSIST_S} s, recovery "
+        f"{HEALTH_RECOVERY_S} s, backoff {HEALTH_BACKOFF_S} s, host clock): "
+        + ", ".join(f"{k} at iteration {i} ({t:.3f} s)"
+                    for k, (i, t) in at.items())
+        + f"; {out['iterations']} iterations in all")
+    log(f"phase 3g: quarantine (label, taint, cordon), the router's drain "
+        f"for 'quarantined' with {out['migrations']} live migrations and "
+        f"{out['fallbacks']} fallbacks, no admission on the node, one "
+        f"repair through the upgrade pipeline (states seen "
+        f"{sorted(out['states'])}), the driver pod recreated ready, the "
+        f"lift with 1 repair attempt on record; {out['respawned']} took "
+        f"requests; {len(rids)} requests delivered once, gapless")
+    log(f"phase 3g: ms per operator tick median {ticks[len(ticks) // 2]:.3f}, "
+        f"max {ticks[-1]:.3f} over {len(ticks)} ticks")
+    for line in verdicts:
+        log(f"phase 3g: tokens: {line}")
+    log(f"phase 3g: A-K4 launches {out['launches']} = {cfg.n_layers} x "
+        f"{out['steps']} decode steps")
+    rig.close()
+    return {"health_launches": out["launches"],
+            "health_decode_steps": out["steps"],
+            "health_iterations": out["iterations"],
+            "health_at_s": {k: t for k, (_i, t) in at.items()},
+            "health_migrations": out["migrations"],
+            "health_fallbacks": out["fallbacks"],
+            "health_tick_ms_median": ticks[len(ticks) // 2],
+            "health_tick_ms_max": ticks[-1]}
+
+
 def phase_upgrade_fp32(torch):
-    """Phase 3f's fp32 twin: Llama-3-8B width at FLEET32_LAYERS layers,
-    three port replicas, the same schedule; every request's tokens equal
-    the contiguous ``generate``'s."""
+    """Phases 3f and 3g's fp32 twin: Llama-3-8B width at FLEET32_LAYERS
+    layers, three port replicas, the same schedules (the rolling upgrade,
+    then the quarantine and repair); every request's tokens equal the
+    contiguous ``generate``'s."""
     import numpy as np
 
     from k8s_operator_libs_tpu_torch.models.generate import generate
@@ -2165,9 +2540,29 @@ def phase_upgrade_fp32(torch):
         f"{router.migration_fallbacks} fallbacks; all {len(out['which'])} "
         f"requests token-identical to the contiguous generate; A-K4 "
         f"launches {launches} = {cfg.n_layers} x {steps}")
+    rig = out["rig"]
+    health = quarantine_repair(torch, rig, cfg, "phase 3g fp32")
+    with torch.no_grad():
+        for rid, p in health["prompts"].items():
+            want = generate(params, torch.as_tensor([p], device="cuda"),
+                            cfg, max_new_tokens=MAX_NEW)[0].tolist()
+            got = router.result(rid)
+            i = first_mismatch(got, want)
+            check(i is None and len(got) == len(want),
+                  f"phase 3g fp32 request {rid}: token "
+                  f"{None if i is None else i - len(p)} differs from the "
+                  f"contiguous generate")
+    log(f"phase 3g fp32: the same quarantine and repair: "
+        f"{health['migrations']} live migrations, {health['fallbacks']} "
+        f"fallbacks; all {len(health['prompts'])} requests token-identical "
+        f"to the contiguous generate; A-K4 launches {health['launches']} = "
+        f"{cfg.n_layers} x {health['steps']}")
+    rig.close()
     stats = {"upgrade32_migrations": router.migration_successes,
-             "upgrade32_launches": launches}
-    del out, router, params
+             "upgrade32_launches": launches,
+             "health32_migrations": health["migrations"],
+             "health32_launches": health["launches"]}
+    del out, router, params, rig, health
     return stats
 
 
@@ -3662,7 +4057,9 @@ def phase_moe_train_parity(torch):
 # measure no interconnect
 GLOO_LABEL = "gloo host-staged, one card, not an interconnect figure"
 NVLINK_BYTES_PER_S = 450e9      # H100 SXM NVLink 4: 900 GB/s, 450 each way
-MP_TIMED_STEPS = 2
+# timed optimizer steps after a warm-up (2 before phase 3g joined, cut to
+# keep the smoke's phases under 1000 s)
+MP_TIMED_STEPS = 1
 MP_TIMEOUT = 900.0
 # bf16 parity against the one-rank step, which runs the same kernels on
 # the whole sequence and batch (phase 2 holds the kernels against their
@@ -5323,16 +5720,19 @@ def phase_elastic(torch):
 # phase 12a: the port's GPU scheduler places a workload on PL_NODES
 # in-script nodes of PL_GPUS GPUs (GFD's labels, the card's own product),
 # and the processes the placed pods start, one per GPU, train FSDP at
-# phase 11a's 4-rank shape: Llama-3-8B width, 1 layer, B 4 x T 2048
+# phase 11a's 4-rank shape: Llama-3-8B width, 1 layer, B 4 x T 2048;
+# PL_STEPS timed steps (2 before phase 3g joined, cut to keep the
+# smoke's phases under 1000 s)
 PL_NODES, PL_GPUS = 2, 2
-PL_LAYERS, PL_B, PL_T, PL_STEPS = 1, 4, 2048, 2
+PL_LAYERS, PL_B, PL_T, PL_STEPS = 1, 4, 2048, 1
 # phase 12b: tensor-parallel decoding on TPD_RANKS ranks at Llama-3-8B's
 # width and TPD_LAYERS layers in bf16 (phase 3's prompts, MAX_NEW greedy
 # tokens), then its fp32 twin at TPD32_LAYERS layers; ms per decode step
 # by two points (a decode of MAX_NEW tokens less one of TPD_SHORT, over
 # the steps between). TPD_LAYERS was 32 (full depth) before phase 3f
-# joined, and is cut to keep the smoke's phases under 1000 s
-TPD_RANKS, TPD_LAYERS, TPD32_LAYERS, TPD_SHORT = 2, 16, 2, 2
+# joined and 16 before phase 3g did; each cut keeps the smoke's phases
+# under 1000 s
+TPD_RANKS, TPD_LAYERS, TPD32_LAYERS, TPD_SHORT = 2, 8, 2, 2
 
 
 class PlacementCluster:
@@ -5755,7 +6155,7 @@ def main():
         timed("phase 1", phase_build)
         kernels = timed("phase 2 (paged decode)", phase_kernels, torch)
         kernels.update(timed("phase 2 (flash)", phase_flash, torch))
-        serve = timed("phase 3 (3b-3f)", phase_serve, torch)
+        serve = timed("phase 3 (3b-3g)", phase_serve, torch)
         parity = timed("phase 4", phase_parity, torch)
         moe_serve = timed("phase 7", phase_moe_serve, torch)
         moe_serve.update(timed("phase 7b", phase_moe_parity, torch))
@@ -5787,6 +6187,8 @@ def main():
              serve["router_launches"]),
             ("paged_decode_upgrade", "paged_decode", f"{jax_attn}:734",
              serve["upgrade_launches"]),
+            ("paged_decode_health", "paged_decode", f"{jax_attn}:734",
+             serve["health_launches"]),
             ("paged_decode_full_batch", "paged_decode", f"{jax_attn}:734",
              serve["launches"]),
             ("paged_decode_int8_full_batch", "paged_decode",
@@ -5814,7 +6216,7 @@ def main():
                                   ("flash_bwd_dkv", 519)))):
         # the speculative path's draft steps, the serving tier's replicas,
         # the replicas behind the router binary, those under the rolling
-        # upgrade and the MoE paths run their kernels at phase 2's shapes
+        # upgrade and the quarantine-and-repair, and the MoE paths run their kernels at phase 2's shapes
         # (A-K4 at the serving shape, A-K1-3 at
         # H 32, KV 8, Dh 128, B 2, T 2048), so their rows carry phase 2's
         # measurements; phase 9's rows carry those of phase 2's cases at
@@ -5823,7 +6225,8 @@ def main():
         k = kernels[{"paged_decode_speculative": "paged_decode",
                      "paged_decode_serving_tier": "paged_decode",
                      "paged_decode_router": "paged_decode",
-                     "paged_decode_upgrade": "paged_decode"}.get(
+                     "paged_decode_upgrade": "paged_decode",
+                     "paged_decode_health": "paged_decode"}.get(
             name, name.split("_moe")[0])]
         rows.append({"name": name, "route": "cuda",
                      "source": CSRC.format(source), "replaces": replaces,

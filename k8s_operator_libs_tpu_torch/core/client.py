@@ -4,7 +4,8 @@ A copy of the JAX package's ``core/client.py``, cut to what the port
 calls: the :class:`Client` ABC (a cached read/write view whose
 ``direct()`` is the uncached one), the apiserver error family, the
 :class:`EventRecorder` ABC with its :class:`NullRecorder` and
-:class:`ClientEventRecorder`. ``ApiError`` is the root of the family. The serving
+:class:`ClientEventRecorder`, and :func:`method_verb_kind` (which
+``core/resilience.py`` classifies calls by). ``ApiError`` is the root of the family. The serving
 tier catches it (and ``TimeoutError``) around every cluster read and
 write, so a client handed to the tier must raise these two for an
 apiserver failure; every error :class:`~.liveclient.LiveClient` raises
@@ -16,7 +17,7 @@ from __future__ import annotations
 
 import abc
 import logging
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from .objects import ControllerRevision, DaemonSet, Event, Job, Node, Pod
 
@@ -170,3 +171,44 @@ def make_event(obj, event_type: str, reason: str, message: str) -> Event:
     name = getattr(getattr(obj, "metadata", None), "name", "")
     return Event(object_kind=kind, object_name=name, event_type=event_type,
                  reason=reason, message=message)
+
+
+# method prefixes that are apiserver requests; anything else on a client
+# (start/stop/set_event_hook/flush_cache) is client machinery
+API_VERBS = ("get", "list", "watch", "create", "update", "patch",
+             "delete", "evict")
+
+# method-name token after the verb -> Kubernetes kind (longest first so
+# "controller_revisions" never resolves as a bare prefix of something
+# shorter)
+_KIND_TOKENS = (
+    ("controller_revisions", "ControllerRevision"),
+    ("daemonsets", "DaemonSet"),
+    ("daemonset", "DaemonSet"),
+    ("services", "Service"),
+    ("service", "Service"),
+    ("events", "Event"),
+    ("event", "Event"),
+    ("leases", "Lease"),
+    ("lease", "Lease"),
+    ("nodes", "Node"),
+    ("node", "Node"),
+    ("pods", "Pod"),
+    ("pod", "Pod"),
+    ("jobs", "Job"),
+    ("job", "Job"),
+)
+
+
+def method_verb_kind(name: str) -> Optional[Tuple[str, str]]:
+    """Client method name → (verb, kind), or None for non-API machinery:
+    ``patch_node_metadata`` → ("patch", "Node"), ``list_pods`` →
+    ("list", "Pod"), ``evict_pod`` → ("evict", "Pod"). Unknown kinds
+    under a known verb count as kind "" rather than going dark."""
+    verb, _, rest = name.partition("_")
+    if verb not in API_VERBS:
+        return None
+    for token, kind in _KIND_TOKENS:
+        if rest == token or rest.startswith(token + "_"):
+            return verb, kind
+    return verb, ""

@@ -2,7 +2,9 @@
 node facts and the upgrade grouping they imply (a multi-node NVLink
 domain upgrades as one group, any other GPU node alone), NVIDIA
 DaemonSet recognition and the GPU workload deletion filter, and a thin
-scheduler that places a job on whole nodes with one rank per GPU.
+scheduler that places a job on whole nodes with one rank per GPU, and
+the operator (``GPUOperator``, the twin of ``tpu/operator.py``) that runs
+them with fleet health, the SLO stack and the usage meter each tick.
 
 The grouper and the deletion filter plug into the port's
 ``upgrade.ClusterUpgradeStateManager`` (``grouper=``,
@@ -15,7 +17,8 @@ from .device_plugin import (  # noqa: F401
     gpu_workload_deletion_filter,
     pod_requests_gpu,
 )
-from .scheduler import GPUScheduler, GPUWorkload  # noqa: F401
+from .operator import GPUOperator, ManagedComponent  # noqa: F401
+from .scheduler import GPUScheduler, GPUWorkload, Placement  # noqa: F401
 from .topology import (  # noqa: F401
     CLIQUE_LABEL,
     COUNT_LABEL,

@@ -11,6 +11,14 @@ with its placement contract:
   machine, are excluded) and no live pod on it requests a GPU; the busy
   nodes come from one pod LIST per pass, made only when a node survives
   the cheap filters;
+- a slice's nodes share one interconnect domain, as the reference places
+  a multi-host job inside one whole ICI slice: nodes that carry a clique
+  label (a multi-node NVLink domain, GB200 NVL72) give a slice only
+  nodes of one clique, while nodes without one (an H100 HGX node, whose
+  NVLink ends at the node) form one pool joined by the data-centre
+  network, from which a slice takes any nodes. A slice never mixes two
+  cliques, nor a clique with the pool; domains are taken in the order of
+  their first node's name, nodes in name order;
 - placement is all-or-nothing: one pod per node, requesting every GPU of
   the node (``nvidia.com/gpu``, so the upgrade library's
   ``gpu_workload_deletion_filter`` sees exactly these pods), behind a
@@ -30,8 +38,9 @@ drives every chip, here every GPU is a rank.
 Nodes and pods are read by attribute, and the client is duck-typed
 (``direct()``, ``list_nodes``, ``list_pods``, ``create_pod``,
 ``create_service``, ``delete_pod``); the pods and the Service it creates
-are the port's object model (``core/objects.py``). Placement ignores
-cliques: a slice is any eligible nodes, in name order.
+are the port's object model (``core/objects.py``). A successful bind is
+timed into the hub's ``placement_latency_seconds`` (labelled by the GPU
+product), as the reference's scheduler times it.
 """
 
 from __future__ import annotations
@@ -42,14 +51,13 @@ from typing import Dict, List, Optional
 
 from ..core.objects import (ObjectMeta, Pod, PodSpec, Service, ServicePort,
                             ServiceSpec)
+from ..utils.clock import Clock, RealClock
+from ..wire import WORKLOAD_LABEL
 from .device_plugin import GPU_RESOURCE, pod_requests_gpu
 from .topology import gpu_info_for_node
 
 logger = logging.getLogger(__name__)
 
-# the operator's workload label (the JAX package's ``wire.py``), so its
-# tooling sees these pods as it sees the TPU scheduler's
-WORKLOAD_LABEL = "tpu.dev/workload"
 COORDINATOR_PORT = 8476
 MEGASCALE_PORT = 8080
 
@@ -82,11 +90,33 @@ class Placement:
     workload: str
     node_names: List[str]
     pods: List[str]
+    # each slice's interconnect domain: ``clique/<id>``, or for a slice of
+    # nodes without a clique its node names joined by ","
+    slice_ids: List[str] = dataclasses.field(default_factory=list)
+
+    @property
+    def slice_id(self) -> str:
+        """The first slice's domain (the reference's field)."""
+        return self.slice_ids[0] if self.slice_ids else ""
+
+
+def _domain(node) -> str:
+    """A node's interconnect domain: ``clique/<id>``, or "" for a node
+    without a clique (the pool joined by the data-centre network)."""
+    info = gpu_info_for_node(node)
+    return f"clique/{info.clique}" if info and info.multi_node else ""
+
+
+def _slice_id(nodes) -> str:
+    return _domain(nodes[0]) or ",".join(n.metadata.name for n in nodes)
 
 
 class GPUScheduler:
-    def __init__(self, client):
+    def __init__(self, client, metrics=None,
+                 clock: Optional[Clock] = None):
         self._client = client
+        self._metrics = metrics  # MetricsHub for placement_latency_seconds
+        self._clock = clock or RealClock()
 
     # -- inventory ----------------------------------------------------------
 
@@ -119,9 +149,40 @@ class GPUScheduler:
 
     # -- placement ----------------------------------------------------------
 
+    def _choose(self, workload: GPUWorkload, nodes: List) -> Optional[List]:
+        """The nodes of each slice, in slice order, from ``nodes`` (the
+        eligible ones, by name): each slice takes the first domain that
+        still has ``num_nodes`` free nodes. None when a slice finds no
+        such domain."""
+        domains: Dict[str, List] = {}
+        for node in nodes:
+            domains.setdefault(_domain(node), []).append(node)
+        free = list(domains.values())
+        chosen = []
+        for _ in range(workload.num_slices):
+            home = next((d for d in free if len(d) >= workload.num_nodes),
+                        None)
+            if home is None:
+                return None
+            chosen.append(home[:workload.num_nodes])
+            del home[:workload.num_nodes]
+        return chosen
+
     def place(self, workload: GPUWorkload) -> Optional[Placement]:
         """Bind the workload to its nodes, all or nothing; None when not
         enough nodes are free (the caller requeues)."""
+        t0 = self._clock.now()
+        placement = self._place(workload)
+        if placement is not None and self._metrics is not None:
+            # latency of a successful bind (inventory LISTs + pod
+            # creates); a pass that finds no room is not latency
+            self._metrics.observe(
+                "placement_latency_seconds",
+                max(0.0, self._clock.now() - t0),
+                labels={"accelerator": workload.product})
+        return placement
+
+    def _place(self, workload: GPUWorkload) -> Optional[Placement]:
         if workload.num_slices < 1 or workload.num_nodes < 1:
             raise ValueError(f"workload {workload.name}: num_slices and "
                              f"num_nodes must be >= 1")
@@ -144,13 +205,17 @@ class GPUScheduler:
             self._delete_pods(existing, "cleanup")
             return None
         nodes = self.eligible_nodes(workload.product, workload.gpus_per_node)
-        if len(nodes) < expected:
-            logger.info("need %d free %s nodes with %d GPUs for workload "
-                        "%s, have %d", expected, workload.product,
+        slices = (self._choose(workload, nodes) if len(nodes) >= expected
+                  else None)
+        if slices is None:
+            logger.info("need %d x %d free %s nodes with %d GPUs, each "
+                        "slice in one interconnect domain, for workload "
+                        "%s; have %d", workload.num_slices,
+                        workload.num_nodes, workload.product,
                         workload.gpus_per_node, workload.name, len(nodes))
             return None
         self._ensure_headless_service(workload)
-        pods = self._pods(workload, nodes[:expected])
+        pods = self._pods(workload, [n for s in slices for n in s])
         created = []
         try:
             for p in pods:
@@ -165,7 +230,8 @@ class GPUScheduler:
             return None
         return Placement(workload=workload.name,
                          node_names=[p.spec.node_name for p in created],
-                         pods=[p.metadata.name for p in created])
+                         pods=[p.metadata.name for p in created],
+                         slice_ids=[_slice_id(s) for s in slices])
 
     def _pods(self, workload: GPUWorkload, nodes) -> List[Pod]:
         """One pod per node: slice s's are ``<name>-<s>-<worker>`` over
@@ -214,9 +280,17 @@ class GPUScheduler:
             return tuple(int(x) for x in p.metadata.name.rsplit("-", 2)[1:]
                          if x.isdigit())
         pods = sorted(existing, key=lambda p: (order(p), p.metadata.name))
+        by_name = {n.metadata.name: n
+                   for n in self._client.direct().list_nodes()}
+        nodes = [by_name.get(p.spec.node_name) for p in pods]
+        per = max(1, workload.num_nodes)
+        slice_ids = [_slice_id(chunk) for chunk in
+                     (nodes[i:i + per] for i in range(0, len(nodes), per))
+                     if None not in chunk]
         return Placement(workload=workload.name,
                          node_names=[p.spec.node_name for p in pods],
-                         pods=[p.metadata.name for p in pods])
+                         pods=[p.metadata.name for p in pods],
+                         slice_ids=slice_ids)
 
     def _ensure_headless_service(self, workload: GPUWorkload) -> None:
         """Create (idempotently) the headless Service named after the

@@ -145,9 +145,9 @@ class CapacityArbiter:
     Signals (all optional — absent signals price as zero pressure /
     unit value):
 
-    - ``slo_engine`` — an SLO engine (the port has none yet: None); its
-      ``last`` evaluation of ``config.slo_name`` supplies the burn-rate
-      multiple;
+    - ``slo_engine`` — an SLO engine (``obs/slo.py:SLOEngine``, the
+      operator's); its ``last`` evaluation of ``config.slo_name``
+      supplies the burn-rate multiple;
     - ``demand`` — anything with ``lane_depths()`` and
       ``admitting_count()`` (a :class:`~..serving.router.RequestRouter`,
       or :class:`~.demand.HTTPLaneDemand` over the router binary's

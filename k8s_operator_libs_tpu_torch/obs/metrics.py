@@ -2,8 +2,10 @@
 
 A copy, cut to what the batcher, the server's ``/metrics``, the
 trainer's goodput ledger, the router tier (``serving/``), the router
-binary (``router.py``) and the capacity market (``market/``) call, of
-``_Histogram``/``MetricsHub`` from the JAX package's ``obs/metrics.py``
+binary (``router.py``), the capacity market (``market/``) and the
+operator with its health, SLO stack and usage meter (``gpu/operator.py``,
+``health/``, ``obs/tsdb.py`` reading :meth:`MetricsHub.snapshot`) call,
+of ``_Histogram``/``MetricsHub`` from the JAX package's ``obs/metrics.py``
 and of the gauge renderer ``render_prometheus_multi`` from
 the JAX package's ``upgrade/metrics.py``. Metric names, HELP texts and
 the text format are the same, so a scrape of the port reads like a scrape
@@ -254,7 +256,123 @@ HELP_TEXTS: Dict[str, str] = {
         "Firing alerts root-caused by the cause engine, by rule and "
         "top-ranked cause kind (kind=\"none\" when the burn window "
         "held no candidate events)",
+    # the operator's own families (gpu/operator.py), fleet health
+    # (health/), the resilient client (core/resilience.py), the SLO
+    # stack (obs/tsdb.py, obs/slo.py, obs/alerts.py), the usage meter
+    # (obs/usage.py) and the scheduler's placement latency
+    "tpu_operator_health_monitored_nodes":
+        "Nodes in scope of the fleet-health monitor this tick",
+    "tpu_operator_health_monitored_slices":
+        "Slices (failure domains) rolled up by the health "
+        "classifier",
+    "tpu_operator_health_quarantined_nodes":
+        "Nodes currently under the health-quarantine label",
+    "tpu_operator_health_quarantined_slices":
+        "Slices currently quarantined",
+    "tpu_operator_health_repairs_in_flight":
+        "Slices with a repair riding the upgrade pipeline right now",
+    "tpu_operator_health_repairs_injected":
+        "Slice repairs injected into the upgrade pipeline this tick",
+    "tpu_operator_health_driver_pods_restarted":
+        "Failing driver pods deleted at the quiesced restart "
+        "barrier this tick",
+    "tpu_operator_health_quarantines_deferred":
+        "Quarantines deferred this tick to honor the availability "
+        "budget",
+    "tpu_operator_health_probe_errors":
+        "Probes that raised this tick (isolated, not fatal)",
+    "tpu_operator_health_masked":
+        "1 while the health report is a degraded-mode re-"
+        "publication of stale verdicts (control plane unreachable; "
+        "remediation suspended)",
+    "tpu_operator_health_nodes_verdict_healthy":
+        "Nodes with verdict healthy",
+    "tpu_operator_health_nodes_verdict_degraded":
+        "Nodes with verdict degraded (signal inside the damping "
+        "window)",
+    "tpu_operator_health_nodes_verdict_unhealthy_transient":
+        "Nodes with verdict unhealthy-transient (quarantined, may "
+        "recover)",
+    "tpu_operator_health_nodes_verdict_unhealthy_persistent":
+        "Nodes with verdict unhealthy-persistent (handed to repair)",
+    "tpu_operator_health_slices_verdict_healthy":
+        "Slices with rolled-up verdict healthy",
+    "tpu_operator_health_slices_verdict_degraded":
+        "Slices with rolled-up verdict degraded",
+    "tpu_operator_health_slices_verdict_unhealthy_transient":
+        "Slices with rolled-up verdict unhealthy-transient",
+    "tpu_operator_health_slices_verdict_unhealthy_persistent":
+        "Slices with rolled-up verdict unhealthy-persistent",
+    "tpu_operator_reconcile_tick_duration_seconds":
+        "Wall seconds one full TPUOperator reconcile tick took",
+    "tpu_operator_placement_latency_seconds":
+        "Seconds SliceScheduler.place() took to bind a workload to "
+        "its slices",
+    "tpu_operator_health_reaction_seconds":
+        "Seconds from a slice first leaving healthy to its "
+        "quarantine",
+    "tpu_operator_tsdb_series":
+        "In-process tsdb series by state: active (retained rings) "
+        "and evicted (writes refused at the series cap)",
+    "tpu_operator_obs_scrape_duration_seconds":
+        "Seconds the per-tick tsdb scrape of the hub snapshot and "
+        "gauge collectors took — observability overhead, itself "
+        "observable",
+    "tpu_operator_apiserver_breaker_state":
+        "Apiserver circuit breaker state: 0 closed, 1 half-open "
+        "(probing), 2 open (calls shed)",
+    "tpu_operator_apiserver_retries_total":
+        "Idempotent reads transparently retried after a 5xx/timeout"
+        " at the resilient client boundary, by verb",
+    "tpu_operator_apiserver_shed_total":
+        "Calls shed instantly by the open circuit breaker instead "
+        "of touching the dead apiserver, by verb",
+    "tpu_operator_apiserver_rate_limited_total":
+        "429 Retry-After responses that engaged the adaptive rate "
+        "limiter (apiserver priority & fairness; PDB eviction 429s "
+        "excluded)",
+    "tpu_operator_degraded":
+        "1 while the operator is in fail-static DEGRADED mode "
+        "(breaker open: state-advancing writes suspended, reads "
+        "stale, health masked)",
+    "tpu_operator_degraded_staleness_seconds":
+        "Age of the stale cache the degraded operator is serving "
+        "reads from (seconds since the last fresh tick)",
+    "tpu_operator_degraded_safety_retries_total":
+        "In-flight safety writes (uncordon, quarantine-lift "
+        "completion) retried during degraded mode; their outcomes "
+        "double as breaker probes",
+    "tpu_operator_slo_error_budget_remaining":
+        "Fraction of the SLO's rolling-window error budget still "
+        "unspent (1 = untouched, 0 = exhausted, negative = "
+        "overspent)",
+    "tpu_operator_slo_burn_rate":
+        "Error-budget burn rate over the fastest long window (1 = "
+        "spending exactly the budget over the SLO window)",
+    "tpu_operator_alert_firing":
+        "1 while the burn-rate alert rule is firing (past its for: "
+        "duration), else 0",
+    "tpu_operator_usage_seconds_total":
+        "Capacity seconds attributed per usage kind and serving "
+        "lane; per tick the attributed seconds sum EXACTLY to nodes"
+        " x tick seconds (the conservation law, "
+        "docs/observability.md \"Utilization & cost accounting\")",
+    "tpu_operator_usage_efficiency":
+        "Cumulative productive fraction of fleet capacity: serving "
+        "+ training seconds over all attributed seconds",
+    "tpu_operator_usage_capacity_nodes":
+        "Nodes whose capacity the usage meter attributed last tick",
+    "tpu_operator_usage_fleet_goodput_fraction":
+        "Fleet goodput headline: serving seconds plus training "
+        "seconds discounted by the trainer's goodput fraction, over"
+        " capacity seconds",
 }
+
+# apiserver-call latencies: a fake apiserver answers in microseconds, a
+# live one in milliseconds to seconds
+API_LATENCY_BUCKETS: Tuple[float, ...] = (
+    0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
+    5.0, 10.0, 30.0)
 
 # migration KV payload sizes: a tiny test config exports a few KiB, a
 # production 70B-class slot is hundreds of MiB
@@ -399,6 +517,39 @@ class MetricsHub:
         with self._lock:
             series = self._counters.setdefault(name, {})
             series[key] = series.get(key, 0.0) + float(by)
+
+    def histogram_families(self) -> List[str]:
+        with self._lock:
+            return sorted(self._hists)
+
+    def snapshot(self) -> Dict[str, object]:
+        """Point-in-time copy for the tsdb scraper (names unprefixed, as
+        stored): ``{"gauges": {name: [(labels, value), ...]},
+        "counters": same shape (cumulative values), "histograms": {name:
+        [(labels, [(le, cumulative_count), ... (+Inf, total)], sum,
+        count), ...]}}``."""
+        with self._lock:
+            gauges = {name: [(dict(key), value)
+                             for key, value in series.items()]
+                      for name, series in self._gauges.items()}
+            counters = {name: [(dict(key), value)
+                               for key, value in series.items()]
+                        for name, series in self._counters.items()}
+            hists: Dict[str, list] = {}
+            for name, hist in self._hists.items():
+                fam = []
+                for key, (counts, total) in hist.series.items():
+                    cumulative = 0
+                    cum = []
+                    for bound, c in zip(hist.buckets, counts):
+                        cumulative += c
+                        cum.append((bound, cumulative))
+                    cumulative += counts[-1]
+                    cum.append((float("inf"), cumulative))
+                    fam.append((dict(key), cum, total, cumulative))
+                hists[name] = fam
+        return {"gauges": gauges, "counters": counters,
+                "histograms": hists}
 
     def gauge(self, name: str,
               labels: Optional[Dict[str, str]] = None) -> Optional[float]:

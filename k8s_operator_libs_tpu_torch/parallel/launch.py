@@ -25,6 +25,7 @@ from __future__ import annotations
 import multiprocessing as mp
 import os
 import queue as queue_mod
+import random
 import shutil
 import socket
 import tempfile
@@ -78,10 +79,44 @@ def _entry(index: int, member: Membership, fn: Callable, args: tuple,
         raise
 
 
-def _free_port() -> int:
+# the generations of a TCP job whose store ports (the job's + g) are
+# checked free when the job starts
+TCP_GENERATIONS = 16
+
+
+def _ephemeral_low() -> int:
+    """The lowest port this host hands out to outgoing connections."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            return int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        return 32768
+
+
+def _bindable(port: int) -> bool:
     with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+        try:
+            s.bind(("localhost", port))
+        except OSError:
+            return False
+    return True
+
+
+def _free_port(span: int = 1) -> int:
+    """A port p such that p .. p + span - 1 are all free on localhost,
+    drawn at random below the range the host hands out to outgoing
+    connections. A port the kernel picked (a bind to port 0) lies in
+    that range, where the client sockets of other processes (a
+    concurrent job's gloo connections among them) take ports at any
+    time, so a generation's store at p + g could find its port held;
+    below it, only a process that binds that very port can."""
+    low = _ephemeral_low()
+    draw = random.SystemRandom()
+    for _ in range(256):
+        base = draw.randrange(10000, max(10001, low - span))
+        if all(_bindable(base + i) for i in range(span)):
+            return base
+    raise RuntimeError(f"no {span} consecutive free ports on localhost")
 
 
 class Job:
@@ -89,7 +124,9 @@ class Job:
     of its process group, with one time limit for all of them
     (``timeout`` seconds from the job's start). ``rendezvous`` is
     ``"file"`` (a path under ``workdir``) or ``"tcp"`` (a store on
-    localhost; generation g's at the job's port + g). Use it as a
+    localhost; generation g's at the job's port + g, the ports of the
+    first ``TCP_GENERATIONS`` generations free when the job starts and
+    outside the host's range for outgoing connections). Use it as a
     context manager: leaving it kills every process still running."""
 
     def __init__(self, backend: str = "gloo", timeout: float = 120.0,
@@ -101,7 +138,8 @@ class Job:
         if rendezvous == "file":
             self.rendezvous = f"file://{os.path.join(self._tmp, 'store')}"
         elif rendezvous == "tcp":
-            self.rendezvous = f"tcp://localhost:{_free_port()}"
+            self.rendezvous = (f"tcp://localhost:"
+                               f"{_free_port(TCP_GENERATIONS)}")
         else:
             raise ValueError(f"rendezvous {rendezvous!r}: file or tcp")
         self._results = self._ctx.Queue()

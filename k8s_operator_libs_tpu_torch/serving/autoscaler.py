@@ -15,8 +15,8 @@ Hysteresis: one decision per ``cooldown_seconds``, and the idle timer
 resets on any activity, so a bursty workload cannot flap the fleet.
 
 Every collaborator is duck-typed and optional. ``slo_engine`` has a
-``last`` dict of objective statuses (the JAX package's ``obs/slo.py``
-``SLOEngine``; this package has no SLO engine yet), ``scheduler`` a
+``last`` dict of objective statuses (``obs/slo.py:SLOEngine``, the
+operator's), ``scheduler`` a
 ``place(workload, prefer=)`` (the JAX package's slice scheduler's
 surface; this package's ``gpu/scheduler.py`` takes no ``prefer`` yet),
 ``market`` a ``leased_slice_ids()``.

@@ -50,3 +50,6 @@ class FakeClock(Clock):
     def sleep(self, seconds: float) -> None:
         with self._lock:
             self._now += max(0.0, seconds)
+
+    def advance(self, seconds: float) -> None:
+        self.sleep(seconds)

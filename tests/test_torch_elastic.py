@@ -440,6 +440,29 @@ def test_a_taken_rendezvous_port_fails_the_join_and_the_reform(tmp_path):
         assert res["left"] and "generation 1's rendezvous port" in \
             res["raised"], res
 
+def test_a_tcp_jobs_store_ports_lie_below_the_outgoing_range(tmp_path):
+    """A TCP job's base port and the next TCP_GENERATIONS - 1 are free
+    when it starts and lie below the host's range for outgoing
+    connections, where another process's client sockets (a concurrent
+    job's gloo connections) never land; a kernel-picked port (bind to 0)
+    lies inside it."""
+    import socket
+    low = launch._ephemeral_low()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        assert s.getsockname()[1] >= low
+    for _ in range(8):
+        with launch.Job("gloo", 10.0, str(tmp_path),
+                        rendezvous="tcp") as job:
+            port = int(job.rendezvous.rsplit(":", 1)[1])
+        assert 10000 <= port and port + launch.TCP_GENERATIONS <= low
+    with socket.socket() as squatter:
+        base = launch._free_port(4)
+        squatter.bind(("localhost", base + 2))
+        assert not launch._bindable(base + 2)
+        assert launch._bindable(base + 1)
+
+
 def _jax_elastic(data, tmp_path):
     """The JAX elastic trainer on 4 -> 2 -> 4 virtual CPU devices: the
     initial parameters and the losses by step."""

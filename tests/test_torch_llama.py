@@ -217,7 +217,11 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "upgrade/validation_manager.py",
         "upgrade/safe_driver_load_manager.py", "upgrade/groups.py",
         "upgrade/sharding.py", "upgrade/upgrade_state.py",
-        "upgrade/metrics.py", "upgrade/mocks.py")} <= names
+        "upgrade/metrics.py", "upgrade/mocks.py", "core/resilience.py",
+        "obs/tsdb.py", "obs/alerts.py", "obs/slo.py", "obs/usage.py",
+        "health/__init__.py", "health/consts.py", "health/probes.py",
+        "health/classifier.py", "health/remediation.py",
+        "health/monitor.py", "health/metrics.py", "gpu/operator.py")} <= names
     assert len(files) > 20
     banned = ("jax", "jaxlib", "ml_dtypes", "k8s_operator_libs_tpu")
     for path in files:

@@ -40,6 +40,7 @@ from k8s_operator_libs_tpu_torch.core.liveclient import (KubeConfig,
                                                          KubeHTTP,
                                                          LiveClient)
 from k8s_operator_libs_tpu_torch.obs.metrics import HELP_TEXTS as THELP
+from torch_twin import ServingSLO
 
 
 def _pkg(name):
@@ -323,14 +324,45 @@ def scenario_failed_stamp(pkg, route):
         world.close()
 
 
+def scenario_slo_burn(pkg, route):
+    """The burn signal from the package's real SLO engine (its tsdb fed
+    slow, then fast first tokens) with no backlog at all: the exchange
+    rate it prices, and the trade it drives and returns."""
+    clock = pkg.FakeClock(1000.0)
+    demand = Demand()
+    engine = ServingSLO("k8s_operator_libs_tpu" if pkg.name == "jax"
+                        else "k8s_operator_libs_tpu_torch")
+    seen = []
+    arb = _arbiter(pkg, None, demand, clock, vacated=lambda ms: True,
+                   grant=lambda ms: seen.append("grant"),
+                   revoke=lambda ms: True,
+                   returned=lambda ms: seen.append("returned"),
+                   recorder=Recorder(),
+                   config=dict(preempt_rate=1.5, return_rate=0.4,
+                               sustain_ticks=2, cooldown_seconds=60.0))
+    arb.slo_engine = engine
+    rates = [arb.exchange_rate()]
+    engine.burn()
+    trace = []
+    for step in range(10):
+        if step == 4:
+            engine.cool()
+        clock.sleep(45.0)
+        arb.tick()
+        trace.append((arb.supply[0].phase, arb.last_rate))
+    return {"rates": rates, "trace": trace, "hooks": seen,
+            "events": arb._recorder.events, **_state(arb)}
+
+
 SCENARIOS = {f.__name__[len("scenario_"):]: f for f in (
     scenario_hysteresis, scenario_pricing, scenario_wire_and_resume,
-    scenario_dirty_and_budget, scenario_failed_stamp)}
+    scenario_dirty_and_budget, scenario_failed_stamp, scenario_slo_burn)}
 
 
 # the scenarios without a cluster run once; the others over both routes
 CASES = [(name, route) for name in sorted(SCENARIOS)
-         for route in (("none",) if name in ("hysteresis", "pricing")
+         for route in (("none",) if name in ("hysteresis", "pricing",
+                                             "slo_burn")
                        else ("wrapped", "live"))]
 
 
@@ -362,6 +394,11 @@ def test_scenarios_trade_as_the_reference_tests_say():
     d = scenario_dirty_and_budget(pkg, "live")
     assert d["phases"] == ["training", "preempting", "serving", "serving",
                            "serving", "serving"]
+    b = scenario_slo_burn(pkg, "none")
+    assert b["rates"] == [0.0] and b["trace"][0][1] > 1.5
+    assert [d["action"] for d in b["decisions"]] == [
+        "preempt", "grant", "return", "returned"]
+    assert b["hooks"] == ["grant", "returned"]
     f = scenario_failed_stamp(pkg, "live")
     # both injected failures land in the first tick (the decision's
     # stamp and its retry); the second tick's stamp lands

@@ -63,6 +63,7 @@ from k8s_operator_libs_tpu_torch.serving import router as trouter
 from k8s_operator_libs_tpu_torch.serving import sim as tsim
 from k8s_operator_libs_tpu_torch.upgrade.consts import UpgradeState as TState
 from k8s_operator_libs_tpu_torch.upgrade.util import KeyFactory as TKeys
+from torch_twin import ServingSLO
 
 JCFG = JConfig.tiny(dtype=jnp.float32)
 TCFG = TConfig.tiny(dtype=torch.float32)
@@ -493,9 +494,14 @@ class _Burning:
              "factor": 14.4}]}}
 
 
-def _autoscale(pkg, engine):
+def _forget(engine):
+    engine.last = {}
+
+
+def _autoscale(pkg, engine, cool=_forget):
     """Queue-depth (or burn) scale-up, then sustained idle scale-down to
-    the floor, on sims: every decision, event and gauge."""
+    the floor, on sims: every decision, event and gauge. ``cool(engine)``
+    ends the burn."""
     clock = FakeClock(5_000.0)
     pool = pkg.ReplicaPool(component="libtpu", clock=clock)
     a = pool.register(pkg.Replica("a", "node-a",
@@ -521,7 +527,7 @@ def _autoscale(pkg, engine):
     pool.scrape()
     decisions = [scaler.tick(), scaler.tick()]
     if engine is not None:
-        engine.last = {}        # the burn is over
+        cool(engine)            # the burn is over
     for _ in range(20):
         a.runtime.step()
     a.runtime.poll()
@@ -555,6 +561,23 @@ def test_autoscaler_decides_as_the_reference(signal):
     assert port[2] == [("serve-1", True)]     # placed, market preferred
     assert port[3] == [port[0][4]["replica"]] and len(port[4]) == 1
     assert "tpu_router_scale_ups 1" in port[5]
+
+
+def test_autoscaler_reads_the_ports_slo_engine_as_the_reference_its_own():
+    """The burn signal from a real SLO engine: the port's autoscaler over
+    the port's ``SLOEngine`` (its tsdb fed slow, then fast first tokens)
+    decides, records and places as the reference's autoscaler over the
+    reference's engine fed the same; the stub test above stays."""
+    ref = _autoscale(jserving, ServingSLO("k8s_operator_libs_tpu").burn(),
+                     ServingSLO.cool)
+    port = _autoscale(tserving,
+                      ServingSLO("k8s_operator_libs_tpu_torch").burn(),
+                      ServingSLO.cool)
+    assert port == ref
+    decisions = [d and d["action"] for d in port[0]]
+    assert decisions == ["scale-up", None, None, None, "scale-down", None,
+                         None, None]
+    assert "slo serving-ttft-p99 burning" in port[0][0]["reason"]
 
 
 # ------------------------------- a rolling upgrade over port replicas

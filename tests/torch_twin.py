@@ -1,0 +1,96 @@
+"""The JAX package's own unit tests, bound to the port.
+
+``reference_tests(path, ...)`` reads a reference test file, points its
+imports of ``k8s_operator_libs_tpu`` at ``k8s_operator_libs_tpu_torch``
+(plus the renames a test file names, such as the TPU operator's GPU
+twin) and executes it into a fresh namespace. A ``tests/test_torch_*.py``
+file adds that namespace to its globals, so pytest collects every
+reference test body there and runs it on the port, with the fixtures
+(``cluster``, ``clock``, ``keys``) the port's test file defines.
+
+Imports of modules the port does not have yet stay pointed at the
+reference (``keep``); the tests that use them are left out (``exclude``,
+each with the reason) and never collected.
+
+:class:`ServingSLO` is one package's real SLO engine over the serving
+TTFT objective, for the tests that hold the autoscaler and the market
+arbiter against the reference's. Nothing here imports JAX.
+"""
+
+import importlib
+import re
+from pathlib import Path
+
+REFERENCE = "k8s_operator_libs_tpu"
+PORT = "k8s_operator_libs_tpu_torch"
+TESTS = Path(__file__).resolve().parent
+
+
+def reference_tests(name, renames=(), keep=(), exclude=None):
+    """The namespace of ``tests/<name>`` executed against the port.
+
+    ``renames``: (old, new) text replacements applied after the package
+    swap; ``keep``: dotted module paths under the package whose imports
+    stay the reference's; ``exclude``: {test name: why it is not
+    twinned}. Raises if a renamed or excluded name is not found, so a
+    changed reference file cannot silently drop a twin."""
+    src = (TESTS / name).read_text()
+    src = re.sub(rf"\b{REFERENCE}\b", PORT, src)
+    for module in keep:
+        src = src.replace(f"{PORT}.{module}", f"{REFERENCE}.{module}")
+    for old, new in renames:
+        if old not in src:
+            raise AssertionError(f"{name}: {old!r} not found")
+        src = src.replace(old, new)
+    namespace = {"__name__": f"reference_{name[:-3]}",
+                 "__file__": str(TESTS / name)}
+    exec(compile(src, str(TESTS / name), "exec"), namespace)
+    for test in exclude or {}:
+        if test not in namespace:
+            raise AssertionError(f"{name}: no test {test}")
+        del namespace[test]
+    return {k: v for k, v in namespace.items()
+            if not k.startswith("__") and k not in ("pytest",)}
+
+
+class ServingSLO:
+    """One package's ``SLOEngine`` over the default objectives and its
+    own ``TimeSeriesStore``, fed a serving hub's TTFT histogram under the
+    workload prefix (as the operator's tsdb scrapes a serving hub).
+    ``burn()`` records slow first tokens (every one past the 2.5 s
+    objective) and evaluates; ``cool()`` records fast ones two hours
+    later and evaluates. ``last`` is the engine's last evaluation, the
+    attribute the autoscaler and the arbiter read."""
+
+    def __init__(self, root):
+        def mod(name):
+            return importlib.import_module(f"{root}.{name}")
+        self.clock = mod("utils.clock").FakeClock(50_000.0)
+        self.hub = mod("obs.metrics").MetricsHub()
+        self.tsdb = mod("obs.tsdb").TimeSeriesStore(clock=self.clock)
+        slo = mod("obs.slo")
+        self.engine = slo.SLOEngine(
+            self.tsdb, slo.SLOOptions.from_dict({}).specs, clock=self.clock)
+
+    @property
+    def last(self):
+        return self.engine.last
+
+    def _feed(self, ttft, n):
+        for _ in range(n):
+            self.hub.observe("serve_ttft_seconds", ttft)
+        self.tsdb.scrape(hub=self.hub, prefix="tpu_workload")
+        self.engine.evaluate()
+
+    def burn(self):
+        self._feed(0.2, 1)
+        self.clock.advance(60.0)
+        self._feed(9.0, 40)
+        return self
+
+    def cool(self):
+        self.clock.advance(7200.0)
+        self._feed(0.2, 1)
+        self.clock.advance(60.0)
+        self._feed(0.2, 400)
+        return self
