@@ -88,9 +88,10 @@ Phases, each fatal on failure:
    request's tokens equal to the contiguous ``generate``'s.
    3e. The router binary and the capacity market: the port's
    ``router.main`` (``python -m k8s_operator_libs_tpu_torch.router``)
-   with ``--kubeconfig`` to an in-script apiserver (nodes A, B and C as
-   the port's objects, read and patched through the port's
-   ``LiveClient``) in front of two replicas over phase 3's weights.
+   with ``--kubeconfig`` to the port's ``FakeAPIServer`` over a port
+   ``FakeCluster`` (nodes A, B and C, read and patched through the
+   port's ``LiveClient``) in front of two replicas over phase 3's
+   weights.
    Phase 3's prompts stream through its ``/generate`` in the three lanes;
    A freezes, node A's upgrade-state label turns ``cordon-required``, and
    the binary's ticker must drain A (``/healthz`` 503, the drain intent
@@ -156,7 +157,34 @@ Phases, each fatal on failure:
    lifted", and the respawned replica take a request; every request
    delivered once, gapless, tokens by the near-tie rule, and A-K4
    launches 32 x the decode steps. Prints when each step happened and
-   ms per operator tick. The fp32 twin of 3f and 3g: three replicas at
+   ms per operator tick.
+   3h. The operator binary's leader handover on the same rig: its
+   ``FakeCluster`` behind the port's ``FakeAPIServer``; the in-process
+   operator is no longer called. Two ``operator.main`` instances in
+   threads (``python -m k8s_operator_libs_tpu_torch.operator`` with
+   ``--watch --leader-elect --profile --ensure-crds crds --interval
+   0.1``, identities op-a and op-b, one component: the driver DaemonSet
+   under 3f's policy) reach it over HTTP through the informer cache and
+   the resilient client. op-a leads, op-b stands by (``/healthz`` 200,
+   ``tpu_operator_leader 0``); the driver is bumped to v3 with new
+   prompts in flight; each iteration is 3f's serving turn without the
+   in-process reconcile. Once one node is upgrade-done at v3 and a
+   second has left upgrade-done past admission (in progress), op-a's
+   stop event is set: it finishes its tick and releases the lease, op-b
+   takes over mid-journey and finishes. All
+   three nodes must reach upgrade-done with drivers at v3, each node's
+   new journey in 3f's order, at most one node in progress and at least
+   2 admitting replicas at every iteration, the lease's holder changing
+   once, op-a's and op-b's reconciles never overlapping, the new
+   leader's ``/metrics`` at ``tpu_operator_leader 1``, its ``/profile``
+   reporting apiserver calls by verb and kind, the breaker never open,
+   the CRDs bootstrapped, no error logged, every request once and
+   gapless with >= 2 live migrations and no fallback, tokens by the
+   near-tie rule and A-K4 launches 32 x the decode steps. Prints the
+   handover seconds (op-a's stop to op-b's first reconcile), the
+   rollout wall, seconds per node and per state, each instance's ms per
+   tick and apiserver calls per tick, and ms per decode step per
+   replica. The fp32 twin of 3f, 3g and 3h: three replicas at
    Llama-3-8B width, 2 layers, the same schedules, every request's
    tokens equal to the contiguous ``generate``'s.
 4. Token parity in fp32 at Llama-3-8B width, 2 layers: the batcher's
@@ -1105,9 +1133,10 @@ def phase_serve(torch):
     rig = upgrade.pop("rig")
     stats.update(upgrade)
     stats.update(timed("phase 3g", phase_health, torch, params, cfg, rig))
+    stats.update(timed("phase 3h", phase_handover, torch, params, cfg, rig))
     del params, rig
     stats.update(timed("phase 3d fp32", phase_fleet_fp32, torch))
-    stats.update(timed("phase 3f-3g fp32", phase_upgrade_fp32, torch))
+    stats.update(timed("phase 3f-3h fp32", phase_upgrade_fp32, torch))
     return stats
 
 
@@ -1891,6 +1920,14 @@ UPGRADE_NS, UPGRADE_DS, UPGRADE_COMPONENT = ("gpu-operator",
                                              "nvidia-driver-daemonset", "gpu")
 UPGRADE_EVERY, UPGRADE_REQUESTS, UPGRADE_NEW_LEN = 4, 16, 64
 UPGRADE_MAX_ITERS = 400
+# the driver component's upgrade policy, as the operator binary's config
+# spells it (phase 3h writes it there): one node at a time, wait for the
+# serve pods (job=serve), delete the GPU pods, drain
+UPGRADE_POLICY = {
+    "autoUpgrade": True, "maxParallelUpgrades": 1, "maxUnavailable": 1,
+    "waitForCompletion": {"podSelector": "job=serve"},
+    "podDeletion": {"force": True, "timeoutSecond": 60},
+    "drain": {"enable": True, "force": True, "timeoutSecond": 60}}
 # phase 3g: fleet health on the same rig, on the host's clock. The
 # windows are a few of phase 3f's iterations (~0.18 s each on the H100):
 # a signal must hold HEALTH_DAMPING_S to count and HEALTH_PERSIST_S to
@@ -1946,7 +1983,10 @@ class LogErrors(logging.Handler):
             logging.getLogger(name).addHandler(self)
 
     def emit(self, record):
-        self.records.append(f"{record.name}: {record.getMessage()}")
+        exc = record.exc_info[1] if record.exc_info else None
+        self.records.append(
+            f"{record.name} [{record.threadName}]: {record.getMessage()}"
+            + ("" if exc is None else f" ({type(exc).__name__}: {exc})"))
 
     def close(self):
         for name in self.names:
@@ -1968,10 +2008,7 @@ class OperatorRig:
     checks every turn holds."""
 
     def __init__(self, params, cfg, records):
-        from k8s_operator_libs_tpu_torch.api import (DrainSpec,
-                                                     DriverUpgradePolicySpec,
-                                                     PodDeletionSpec,
-                                                     WaitForCompletionSpec)
+        from k8s_operator_libs_tpu_torch.api import DriverUpgradePolicySpec
         from k8s_operator_libs_tpu_torch.core import FakeCluster
         from k8s_operator_libs_tpu_torch.gpu import (COUNT_LABEL, PRODUCT_LABEL,
                                                      GPUOperator,
@@ -1999,12 +2036,7 @@ class OperatorRig:
             add_serve_pod(self.cluster, node)
         self.keys = KeyFactory(UPGRADE_COMPONENT)
         self.labels = DRIVER_LABELS
-        policy = DriverUpgradePolicySpec(
-            auto_upgrade=True, max_parallel_upgrades=1, max_unavailable=1,
-            wait_for_completion=WaitForCompletionSpec(
-                pod_selector="job=serve"),
-            pod_deletion=PodDeletionSpec(force=True, timeout_second=60),
-            drain=DrainSpec(enable=True, force=True, timeout_second=60))
+        policy = DriverUpgradePolicySpec.from_dict(UPGRADE_POLICY)
         self.hub, self.serving_hub = MetricsHub(), MetricsHub()
         self.op = GPUOperator(
             self.cluster.client,
@@ -2041,11 +2073,9 @@ class OperatorRig:
         node, at most one node in progress, the serve pods' lifecycle
         (a drained replica's pod completes; a node back at upgrade-done,
         schedulable, gets a new pod and replica) and at least all but
-        one replica admitting. Returns the nodes by name."""
-        from k8s_operator_libs_tpu_torch.upgrade import UpgradeState
-        from k8s_operator_libs_tpu_torch.wire import QUARANTINE_LABEL
-        op, fleet, cluster, keys = self.op, self.fleet, self.cluster, \
-            self.keys
+        one replica admitting (:meth:`serve_step`). Returns the nodes by
+        name."""
+        op = self.op
         op.tsdb.scrape(hub=self.serving_hub, prefix="tpu_workload")
         t0 = time.monotonic()
         op.reconcile()
@@ -2054,6 +2084,16 @@ class OperatorRig:
               f"{tag}: iteration {it}: objectives evaluated "
               f"{sorted(op.last_slo)}, errors {self.errors.records}")
         self.slo_ticks += 1
+        return self.serve_step(it, tag)
+
+    def serve_step(self, it, tag):
+        """The turn's part without the in-process operator (phase 3h's
+        operators are the binary's, in their own threads): the DaemonSet
+        controller's step, the fleet's tick and every check and pod
+        lifecycle step of :meth:`iteration`. Returns the nodes by name."""
+        from k8s_operator_libs_tpu_torch.upgrade import UpgradeState
+        from k8s_operator_libs_tpu_torch.wire import QUARANTINE_LABEL
+        fleet, cluster, keys = self.fleet, self.cluster, self.keys
         cluster.reconcile_daemonsets()
         seen = len(fleet.assigned)
         fleet.tick()
@@ -2497,11 +2537,433 @@ def phase_health(torch, params, cfg, rig):
             "health_tick_ms_max": ticks[-1]}
 
 
+# phase 3h: the operator binary's leader handover on phase 3g's rig. The
+# driver's next revision; the lease (the binary's default name, in the
+# component's namespace) and the two instances' identities; the
+# binary's resync interval; new HANDOVER_LEN-token prompts, HANDOVER_FIRST
+# at the bump, then one every UPGRADE_EVERY iterations while fewer than
+# HANDOVER_FIRST are in flight, HANDOVER_REQUESTS in all; the least
+# seconds an iteration takes (a 2-layer fp32 fleet steps in a few ms: the
+# loop sleeps the rest, so it neither outruns the operators' 0.1 s ticks
+# nor holds the interpreter lock they need); the bounds on iterations
+# and on each wait for an instance
+HANDOVER_REVISION = "v3"
+HANDOVER_LEASE = "tpu-operator"
+HANDOVER_IDS = ("op-a", "op-b")
+HANDOVER_INTERVAL = 0.1
+HANDOVER_FIRST, HANDOVER_LEN, HANDOVER_REQUESTS = 4, 64, 12
+HANDOVER_MIN_ITER_S = 0.02
+HANDOVER_MAX_ITERS, HANDOVER_WAIT_S = 1000, 60.0
+
+
+class OperatorInstance:
+    """One operator binary (``operator.main``) in a thread named after
+    its ``--leader-elect-identity``; ``stop`` is the event its SIGTERM
+    would set, ``server`` its metrics server once it serves."""
+
+    def __init__(self, identity, argv):
+        self.identity = identity
+        self.argv = argv
+        self.stop = threading.Event()
+        self.server = None
+        self.ready = threading.Event()
+        self.box = {}
+        self.thread = threading.Thread(target=self._run, name=identity,
+                                       daemon=True)
+
+    def _run(self):
+        from k8s_operator_libs_tpu_torch import operator as op_bin
+
+        def on_ready(server):
+            self.server = server
+            self.ready.set()
+        try:
+            self.box["rc"] = op_bin.main(self.argv, stop=self.stop,
+                                         on_ready=on_ready)
+        except BaseException as exc:   # reported by the caller's check
+            self.box["error"] = repr(exc)
+            self.ready.set()
+
+    def start(self, tag):
+        self.thread.start()
+        check(self.ready.wait(HANDOVER_WAIT_S) and self.server is not None,
+              f"{tag}: {self.identity} did not start: {self.box}")
+
+    def get(self, path):
+        return get_code(f"http://127.0.0.1:{self.server.port}{path}")
+
+    def wait_for(self, cond, what, tag):
+        deadline = time.monotonic() + HANDOVER_WAIT_S
+        while not cond():
+            check(time.monotonic() < deadline and self.thread.is_alive(),
+                  f"{tag}: {self.identity}: {what} ({self.box})")
+            time.sleep(0.01)
+
+    def join(self, tag):
+        self.thread.join(HANDOVER_WAIT_S)
+        check(not self.thread.is_alive() and self.box.get("rc") == 0,
+              f"{tag}: {self.identity} did not exit cleanly: {self.box}")
+
+
+def lease_holder(direct):
+    from k8s_operator_libs_tpu_torch.core.client import NotFoundError
+    try:
+        return direct.get_lease(UPGRADE_NS, HANDOVER_LEASE).spec \
+            .holder_identity or ""
+    except NotFoundError:
+        return ""
+
+
+def leader_handover(torch, rig, cfg, tag):
+    """Phase 3h's schedule on phase 3g's rig: its ``FakeCluster`` behind
+    the port's ``FakeAPIServer``, and in place of the in-process
+    ``GPUOperator`` two operator binaries (``--watch --leader-elect
+    --profile --ensure-crds``, over HTTP through the informer cache and
+    the resilient client) with one component, the driver DaemonSet under
+    3f's policy. op-a leads, op-b stands by; the driver is bumped to v3
+    with new prompts in flight; each iteration is the rig's serving turn
+    (the DaemonSet controller's step, the fleet's tick, the pods'
+    lifecycle). Once one node is upgrade-done at v3 and a second has
+    left upgrade-done past admission (in progress), op-a's stop event is
+    set: it finishes its tick and releases the lease, and op-b takes over
+    mid-journey and finishes the rollout.
+    Returns the requests (prompt by rid), the per-instance tick times and
+    bodies, and what was seen."""
+    import logging
+
+    import numpy as np
+
+    from k8s_operator_libs_tpu_torch.core.httpapi import FakeAPIServer
+    from k8s_operator_libs_tpu_torch.gpu.operator import GPUOperator
+    from k8s_operator_libs_tpu_torch.obs.journey import parse_journey
+    from k8s_operator_libs_tpu_torch.upgrade import UpgradeState
+    from k8s_operator_libs_tpu_torch.utils import threads as port_threads
+
+    fleet, cluster, keys = rig.fleet, rig.cluster, rig.keys
+    router = fleet.router
+    direct = cluster.client.direct()
+    root = Path(__file__).resolve().parent
+    work = root / "build" / "chip_smoke_operator"
+    work.mkdir(parents=True, exist_ok=True)
+
+    def journey(n):
+        return parse_journey(direct.get_node(n).metadata.annotations.get(
+            keys.journey_annotation))
+
+    base = {n: len(journey(n)) for n in UPGRADE_NODES}
+    api = FakeAPIServer(cluster).start()
+    kubeconfig = work / "kubeconfig.json"
+    kubeconfig.write_text(json.dumps({
+        "current-context": "smoke",
+        "contexts": [{"name": "smoke", "context": {"cluster": "smoke",
+                                                   "user": "smoke"}}],
+        "clusters": [{"name": "smoke",
+                      "cluster": {"server": api.base_url}}],
+        "users": [{"name": "smoke", "user": {}}]}))
+    config = work / "operator.yaml"        # JSON is YAML
+    config.write_text(json.dumps({"components": [{
+        "name": UPGRADE_COMPONENT, "namespace": UPGRADE_NS,
+        "driverLabels": dict(rig.labels), "policy": UPGRADE_POLICY}]}))
+    instances = [OperatorInstance(ident, [
+        "--config", str(config), "--kubeconfig", str(kubeconfig),
+        "--watch", "--leader-elect", "--leader-elect-identity", ident,
+        "--profile", "--ensure-crds", str(root / "crds"),
+        "--interval", str(HANDOVER_INTERVAL), "--metrics-port", "0"])
+        for ident in HANDOVER_IDS]
+    a, b = instances
+
+    # each instance's reconcile ticks, host wall, by its thread's name
+    ticks = {ident: [] for ident in HANDOVER_IDS}
+    real_reconcile = GPUOperator.reconcile
+
+    def timed_reconcile(op):
+        t0 = time.monotonic()
+        try:
+            return real_reconcile(op)
+        finally:
+            name = threading.current_thread().name
+            if name in ticks:
+                ticks[name].append((t0, time.monotonic()))
+
+    # the binary configures logging for a process of its own: keep the
+    # script's (a handler on the root makes its basicConfig a no-op) and
+    # count the errors the operators log
+    root_log = logging.getLogger()
+    root_state = (root_log.level, list(root_log.handlers))
+    root_log.handlers[:] = [logging.NullHandler()]
+    errors = LogErrors(["tpu-operator", "k8s_operator_libs_tpu_torch"])
+    GPUOperator.reconcile = timed_reconcile
+    gen = np.random.default_rng(11)
+    prompts = {}
+    migrations0 = router.migration_successes
+    fallbacks0 = router.migration_fallbacks
+    steps0 = fleet.decode_steps()
+    launches0 = attn_launches()
+    decode0 = {rep: (srv.decode_seconds, srv.decode_steps)
+               for srv, rep in zip(fleet.batchers, fleet.batcher_ids)}
+    holders, seen_states = [], {n: [] for n in UPGRADE_NODES}
+    bodies = {}
+    t_stop = stop_at = rollout_s = None
+    try:
+        a.start(tag)
+        a.wait_for(lambda: lease_holder(direct) == a.identity and ticks[
+            a.identity], "never led", tag)
+        b.start(tag)
+        b.wait_for(lambda: b.server.snapshot["healthy"],
+                   "the standby never reported healthy", tag)
+        bodies["standby healthz"] = b.get("/healthz")
+        bodies["standby metrics"] = b.get("/metrics")
+        check(bodies["standby healthz"] == (200, "ok")
+              and "tpu_operator_leader 0" in bodies["standby metrics"][1]
+              and not ticks[b.identity]
+              and lease_holder(direct) == a.identity,
+              f"{tag}: the standby's /healthz {bodies['standby healthz']}, "
+              f"leader gauge 0 missing or it reconciled")
+
+        def submit():
+            p = gen.integers(0, cfg.vocab_size, size=HANDOVER_LEN).tolist()
+            prompts[fleet.submit(p, "interactive")] = p
+
+        for _ in range(HANDOVER_FIRST):
+            submit()
+        cluster.bump_daemonset_revision(UPGRADE_DS, UPGRADE_NS,
+                                        HANDOVER_REVISION)
+        t_bump = time.monotonic()
+        for it in range(HANDOVER_MAX_ITERS):
+            t_it = time.monotonic()
+            nodes = rig.serve_step(it, f"{tag} iteration {it}")
+            holder = lease_holder(direct)
+            if holder and (not holders or holders[-1] != holder):
+                holders.append(holder)
+            states = {n: node.metadata.labels.get(keys.state_label, "")
+                      for n, node in nodes.items()}
+            for n, st in states.items():
+                if not seen_states[n] or seen_states[n][-1] != st:
+                    seen_states[n].append(st)
+            at_v3 = [n for n in UPGRADE_NODES
+                     if states[n] == UpgradeState.DONE
+                     and len(journey(n)) > base[n]]
+            if t_stop is None and at_v3 and any(
+                    st in UpgradeState.IN_PROGRESS
+                    for st in states.values()):
+                # one node upgraded, a second past admission: the leader
+                # goes mid-journey
+                a.stop.set()
+                t_stop = time.monotonic()
+                stop_at = (it, at_v3, {n: st for n, st in states.items()
+                                       if n not in at_v3})
+            if it % UPGRADE_EVERY == UPGRADE_EVERY - 1 \
+                    and len(prompts) < HANDOVER_REQUESTS \
+                    and router.outstanding < HANDOVER_FIRST:
+                submit()
+            done = len(at_v3) == len(UPGRADE_NODES) and not any(
+                node.spec.unschedulable for node in nodes.values())
+            if done and rollout_s is None:
+                rollout_s, rollout_iters = time.monotonic() - t_bump, it + 1
+                # the new leader's tick profiles while they still hold the
+                # rollout's writes (the ring keeps the last 64 ticks, and
+                # watch events keep it ticking after the rollout)
+                bodies["leader /profile"] = b.get("/profile")
+            if done and t_stop is not None and not router.outstanding \
+                    and len(prompts) >= HANDOVER_REQUESTS \
+                    and len(fleet.pool.admitting()) == len(UPGRADE_NODES):
+                break
+            time.sleep(max(0.0, HANDOVER_MIN_ITER_S
+                           - (time.monotonic() - t_it)))
+        else:
+            raise SmokeFailure(f"{tag}: the rollout and its requests did "
+                               f"not finish in {HANDOVER_MAX_ITERS} "
+                               f"iterations (stopped at {stop_at})")
+        fleet.tick()
+        fleet.check_delivery(tag)
+        a.join(tag)
+        b.wait_for(lambda: "tpu_operator_leader 1" in b.get("/metrics")[1],
+                   "the new leader's /metrics never read leader 1", tag)
+        for path in ("/metrics", "/healthz", "/resilience"):
+            bodies[f"leader {path}"] = b.get(path)
+        bodies["stopped leader"] = dict(a.server.snapshot)
+    finally:
+        for inst in instances:
+            inst.stop.set()
+        for inst in instances:
+            if inst.thread.ident is not None:
+                inst.thread.join(HANDOVER_WAIT_S)
+        GPUOperator.reconcile = real_reconcile
+        errors.close()
+        root_log.setLevel(root_state[0])
+        root_log.handlers[:] = root_state[1]
+        api.stop()
+    b.join(tag)
+    # the DaemonSet controller (this loop) runs beside the operators, not
+    # between their ticks as in 3f: a tick that reads a driver pod deleted
+    # and not yet recreated fails its build_state and the next tick
+    # retries, as on a cluster whose controller lags. Any other error
+    # fails the phase
+    lagged = [r for r in errors.records
+              if "should not have Unscheduled pods" in r]
+    others = [r for r in errors.records if r not in lagged]
+    check(not others, f"{tag}: the operators logged errors: {others[:5]}")
+    check(not port_threads.live_threads("leader-elector")
+          and not port_threads.live_threads("operator-"),
+          f"{tag}: threads left running: "
+          f"{port_threads.live_threads('leader-elector')} "
+          f"{port_threads.live_threads('operator-')}")
+
+    drivers = sorted((p.spec.node_name,
+                      p.metadata.labels["controller-revision-hash"])
+                     for p in direct.list_pods(namespace=UPGRADE_NS))
+    check(drivers == [(n, HANDOVER_REVISION) for n in UPGRADE_NODES],
+          f"{tag}: driver pods {drivers}")
+    journeys = {n: journey(n)[base[n]:] for n in UPGRADE_NODES}
+    for n, entries in journeys.items():
+        check(tuple(st for st, _t in entries) == UPGRADE_ORDER,
+              f"{tag}: {n}'s journey at {HANDOVER_REVISION} "
+              f"{[st for st, _t in entries]}")
+    check(holders == list(HANDOVER_IDS),
+          f"{tag}: lease holders {holders}, want one change "
+          f"{' -> '.join(HANDOVER_IDS)}")
+    ta, tb = ticks[a.identity], ticks[b.identity]
+    check(ta and tb and ta[-1][1] <= tb[0][0] and tb[0][0] > t_stop,
+          f"{tag}: the two instances' reconciles overlap or the standby "
+          f"reconciled before the leader stopped")
+    handover_s = tb[0][0] - t_stop
+    profile = json.loads(bodies["leader /profile"][1])["data"]
+    calls = profile["aggregate"]["api_calls"]
+    check(bodies["leader /profile"][0] == 200 and profile["ticks_profiled"]
+          and calls and all(len(k.split()) == 2 for k in calls)
+          and "patch Node" in calls,
+          f"{tag}: the new leader's /profile has no apiserver calls by "
+          f"verb and kind: {calls}")
+    resil = [json.loads(bodies["leader /resilience"][1])["data"],
+             json.loads(bodies["stopped leader"]["resilience"])["data"]]
+    check(all(r["breaker"] == "closed" and r["breaker_opened_total"] == 0
+              for r in resil), f"{tag}: the breaker opened: {resil}")
+    crds = sorted(c["metadata"]["name"] for c in cluster.list_crds())
+    check({"tpuslicepolicies.tpu.dev", "tpuworkloads.tpu.dev"} <= set(crds),
+          f"{tag}: CRDs {crds}")
+    migrations = router.migration_successes - migrations0
+    fallbacks = router.migration_fallbacks - fallbacks0
+    check(migrations >= 2 and fallbacks == 0,
+          f"{tag}: {migrations} live migrations, {fallbacks} fallbacks")
+    steps = fleet.decode_steps() - steps0
+    launches = attn_launches() - launches0
+    check(launches == cfg.n_layers * steps > 0,
+          f"{tag}: A-K4 launched {launches} times over {steps} decode steps "
+          f"of {cfg.n_layers} layers")
+    per_replica = {}
+    for srv, rep in zip(fleet.batchers, fleet.batcher_ids):
+        s0, n0 = decode0.get(rep, (0.0, 0))
+        n = srv.decode_steps - n0
+        per_replica[rep] = ((1e3 * (srv.decode_seconds - s0) / n
+                             if n else None), n)
+    a_profile = json.loads(bodies["stopped leader"]["profile"])["data"]
+    return {"prompts": prompts, "ticks": ticks, "handover_s": handover_s,
+            "stop_at": stop_at, "rollout_s": rollout_s,
+            "rollout_iters": rollout_iters, "iterations": it + 1,
+            "journeys": journeys, "holders": holders,
+            "calls_per_tick": {a.identity: a_profile["aggregate"],
+                               b.identity: profile["aggregate"]},
+            "migrations": migrations, "fallbacks": fallbacks,
+            "launches": launches, "steps": steps, "crds": crds,
+            "per_replica": per_replica, "resilience": resil,
+            "seen_states": seen_states, "lagged_ticks": len(lagged)}
+
+
+def handover_log(out, tag):
+    """Phase 3h's figures, one line each."""
+    log(f"{tag}: two operator binaries (python -m "
+        f"k8s_operator_libs_tpu_torch.operator --watch --leader-elect "
+        f"--profile --ensure-crds, interval {HANDOVER_INTERVAL} s) over the "
+        f"port's FakeAPIServer, through the informer cache and the "
+        f"resilient client, rolled {UPGRADE_DS} to {HANDOVER_REVISION}; "
+        f"lease holders {' -> '.join(out['holders'])}; the leader stopped "
+        f"at iteration {out['stop_at'][0]} (at {HANDOVER_REVISION}: "
+        f"{out['stop_at'][1]}, on the way: {out['stop_at'][2]}); CRDs "
+        f"{out['crds']}; breaker closed, never opened; "
+        f"{out['lagged_ticks']} ticks retried after reading a driver pod "
+        f"the DaemonSet controller had not yet recreated, no other error")
+    log(f"{tag}: handover {out['handover_s']:.3f} s from the leader's stop "
+        f"to the standby's first reconcile as leader; rollout wall "
+        f"{out['rollout_s']:.3f} s ({out['rollout_iters']} iterations, "
+        f"{out['iterations']} in all)")
+    per_state, per_node = {}, {}
+    for n, entries in out["journeys"].items():
+        per_node[n] = entries[-1][1] - entries[0][1]
+        for (state, t), (_next, t_next) in zip(entries, entries[1:]):
+            per_state.setdefault(state, []).append(t_next - t)
+    log(f"{tag}: seconds per node (journey): " + ", ".join(
+        f"{n} {s:.3f}" for n, s in per_node.items()))
+    log(f"{tag}: seconds per state (journey; per node): " + "; ".join(
+        f"{state} " + "/".join(f"{v:.3f}" for v in vs)
+        for state, vs in per_state.items()))
+    for ident, spans in out["ticks"].items():
+        ms = sorted(1e3 * (t1 - t0) for t0, t1 in spans)
+        agg = out["calls_per_tick"][ident]
+        per_tick = {k: round(v / agg["ticks"], 2)
+                    for k, v in sorted(agg["api_calls"].items())} \
+            if agg["ticks"] else {}
+        log(f"{tag}: {ident}: {len(ms)} binary ticks, ms per tick median "
+            f"{ms[len(ms) // 2]:.3f}, max {ms[-1]:.3f} (GPUOperator."
+            f"reconcile over HTTP, host wall); apiserver calls per tick "
+            f"(last {agg['ticks']} profiled): {per_tick}")
+    log(f"{tag}: ms per decode step per replica (4 slots): " + ", ".join(
+        f"{rep} {'-' if ms is None else f'{ms:.2f}'} ({n} steps)"
+        for rep, (ms, n) in out["per_replica"].items() if n))
+    log(f"{tag}: {len(out['prompts'])} requests delivered once, gapless; "
+        f"{out['migrations']} live migrations, {out['fallbacks']} "
+        f"fallbacks; A-K4 launches {out['launches']} = "
+        f"{out['launches'] // max(1, out['steps'])} x {out['steps']} "
+        f"decode steps")
+    return per_node, per_state
+
+
+def phase_handover(torch, params, cfg, rig):
+    """Phase 3h: the operator binary's leader handover over a rolling
+    driver upgrade on phase 3g's rig; every request's tokens against a
+    batched ``generate`` by the near-tie rule."""
+    from k8s_operator_libs_tpu_torch.models.generate import generate
+
+    out = leader_handover(torch, rig, cfg, "phase 3h")
+    router = rig.fleet.router
+    rids = sorted(out["prompts"])
+    with torch.no_grad():
+        want = generate(params, torch.as_tensor(
+            [out["prompts"][r] for r in rids], device="cuda"), cfg,
+            max_new_tokens=MAX_NEW).cpu().tolist()
+    verdicts = []
+    for rid, w in zip(rids, want):
+        gaps = top2_gaps(torch, params, cfg, w, HANDOVER_LEN)
+        ok, what, _ = near_tie_verdict(router.result(rid), w, gaps,
+                                       HANDOVER_LEN)
+        check(ok, f"phase 3h request {rid}: {what}")
+        verdicts.append(what)
+    per_node, _ = handover_log(out, "phase 3h")
+    for line in verdicts:
+        log(f"phase 3h: tokens: {line}")
+    stats = {"handover_launches": out["launches"],
+             "handover_decode_steps": out["steps"],
+             "handover_s": out["handover_s"],
+             "handover_rollout_s": out["rollout_s"],
+             "handover_node_s": per_node,
+             "handover_migrations": out["migrations"],
+             "handover_fallbacks": out["fallbacks"]}
+    for ident, spans in out["ticks"].items():
+        ms = sorted(1e3 * (t1 - t0) for t0, t1 in spans)
+        agg = out["calls_per_tick"][ident]
+        stats[f"handover_{ident}_tick_ms_median"] = ms[len(ms) // 2]
+        stats[f"handover_{ident}_tick_ms_max"] = ms[-1]
+        stats[f"handover_{ident}_calls_per_tick"] = (
+            sum(agg["api_calls"].values()) / agg["ticks"]
+            if agg["ticks"] else None)
+    return stats
+
+
 def phase_upgrade_fp32(torch):
-    """Phases 3f and 3g's fp32 twin: Llama-3-8B width at FLEET32_LAYERS
-    layers, three port replicas, the same schedules (the rolling upgrade,
-    then the quarantine and repair); every request's tokens equal the
-    contiguous ``generate``'s."""
+    """Phases 3f, 3g and 3h's fp32 twin: Llama-3-8B width at
+    FLEET32_LAYERS layers, three port replicas, the same schedules (the
+    rolling upgrade, the quarantine and repair, then the operator
+    binary's leader handover over the next rollout); every request's
+    tokens equal the contiguous ``generate``'s."""
     import numpy as np
 
     from k8s_operator_libs_tpu_torch.models.generate import generate
@@ -2557,12 +3019,29 @@ def phase_upgrade_fp32(torch):
         f"fallbacks; all {len(health['prompts'])} requests token-identical "
         f"to the contiguous generate; A-K4 launches {health['launches']} = "
         f"{cfg.n_layers} x {health['steps']}")
+    handover = leader_handover(torch, rig, cfg, "phase 3h fp32")
+    with torch.no_grad():
+        for rid, p in handover["prompts"].items():
+            want = generate(params, torch.as_tensor([p], device="cuda"),
+                            cfg, max_new_tokens=MAX_NEW)[0].tolist()
+            got = router.result(rid)
+            i = first_mismatch(got, want)
+            check(i is None and len(got) == len(want),
+                  f"phase 3h fp32 request {rid}: token "
+                  f"{None if i is None else i - len(p)} differs from the "
+                  f"contiguous generate")
+    handover_log(handover, "phase 3h fp32")
+    log(f"phase 3h fp32: all {len(handover['prompts'])} requests "
+        f"token-identical to the contiguous generate")
     rig.close()
     stats = {"upgrade32_migrations": router.migration_successes,
              "upgrade32_launches": launches,
              "health32_migrations": health["migrations"],
-             "health32_launches": health["launches"]}
-    del out, router, params, rig, health
+             "health32_launches": health["launches"],
+             "handover32_migrations": handover["migrations"],
+             "handover32_launches": handover["launches"],
+             "handover32_s": handover["handover_s"]}
+    del out, router, params, rig, health, handover
     return stats
 
 
@@ -2575,123 +3054,6 @@ ROUTER_DRAIN_AFTER, ROUTER_TICK = 2, 0.1
 BURST_INFLIGHT, BURST_LEN, BURST_NEW = 8, 32, 8
 MARKET_TICK, GOODPUT_STANDIN = 0.1, 1.0
 ROUTER_TIMEOUT = 300.0
-
-
-class ApiServer:
-    """The apiserver phase 3e's router and arbiter reach through the
-    port's ``LiveClient``: three Ready nodes held as the port's objects
-    and written as JSON with the port's ``core/serde.py``. It serves the
-    verbs they call: list and get nodes, a merge PATCH of labels,
-    annotations and ``unschedulable`` (a null deletes), and POST of
-    events."""
-
-    def __init__(self, names):
-        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-
-        from k8s_operator_libs_tpu_torch.core.objects import Node, ObjectMeta
-        self.nodes = {n: Node(metadata=ObjectMeta(name=n, namespace=""))
-                      for n in names}
-        self.events = []
-        self.lock = threading.Lock()
-        self.rv = 0
-        api = self
-
-        class Handler(BaseHTTPRequestHandler):
-            def log_message(self, *a):
-                pass
-
-            def _send(self, code, body):
-                data = json.dumps(body).encode()
-                self.send_response(code)
-                self.send_header("Content-Type", "application/json")
-                self.send_header("Content-Length", str(len(data)))
-                self.end_headers()
-                self.wfile.write(data)
-
-            def _body(self):
-                n = int(self.headers.get("Content-Length", 0))
-                return json.loads(self.rfile.read(n)) if n else {}
-
-            def _node_or_404(self):
-                name = self.path.split("?")[0].rsplit("/", 1)[-1]
-                if name not in api.nodes:
-                    self._send(404, {"kind": "Status", "code": 404,
-                                     "reason": "NotFound",
-                                     "message": f"node {name} not found"})
-                    return None
-                return name
-
-            def do_GET(self):
-                from k8s_operator_libs_tpu_torch.core import serde
-                path = self.path.split("?")[0]
-                with api.lock:
-                    if path == "/api/v1/nodes":
-                        self._send(200, {
-                            "kind": "NodeList", "apiVersion": "v1",
-                            "metadata": {"resourceVersion": str(api.rv)},
-                            "items": [serde.node_to_json(n)
-                                      for n in api.nodes.values()]})
-                    elif path.startswith("/api/v1/nodes/"):
-                        name = self._node_or_404()
-                        if name is not None:
-                            self._send(200,
-                                       serde.node_to_json(api.nodes[name]))
-                    else:
-                        self._send(404, {"kind": "Status", "code": 404})
-
-            def do_PATCH(self):
-                from k8s_operator_libs_tpu_torch.core import serde
-                body = self._body()
-                with api.lock:
-                    name = self._node_or_404()
-                    if name is None:
-                        return
-                    api.patch(name, body)
-                    self._send(200, serde.node_to_json(api.nodes[name]))
-
-            def do_POST(self):
-                body = self._body()
-                if "/events" not in self.path:
-                    self._send(405, {"kind": "Status", "code": 405})
-                    return
-                with api.lock:
-                    api.events.append(body)
-                self._send(201, body)
-
-        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
-        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
-        self.thread = threading.Thread(target=self.httpd.serve_forever,
-                                       daemon=True)
-        self.thread.start()
-
-    def patch(self, name, body):
-        """A strategic-merge patch of one node (the caller holds the
-        lock)."""
-        node = self.nodes[name]
-        meta = body.get("metadata") or {}
-        for have, patch in ((node.metadata.labels, meta.get("labels")),
-                            (node.metadata.annotations,
-                             meta.get("annotations"))):
-            for k, v in (patch or {}).items():
-                if v is None:
-                    have.pop(k, None)
-                else:
-                    have[k] = v
-        spec = body.get("spec") or {}
-        if "unschedulable" in spec:
-            node.spec.unschedulable = bool(spec["unschedulable"])
-        self.rv += 1
-        node.metadata.resource_version = str(self.rv)
-
-    def metadata(self, name):
-        with self.lock:
-            meta = self.nodes[name].metadata
-            return dict(meta.labels), dict(meta.annotations)
-
-    def close(self):
-        self.httpd.shutdown()
-        self.httpd.server_close()
-        self.thread.join(timeout=30)
 
 
 def histogram_quantiles(text, family, qs):
@@ -2712,7 +3074,7 @@ def histogram_quantiles(text, family, qs):
 
 def phase_router(torch, params, cfg, prompts, plain_tokens):
     """Phase 3e: the port's router binary (``router.py``, started through
-    its ``main`` with ``--kubeconfig`` to an in-script apiserver) in front
+    its ``main`` with ``--kubeconfig`` to the port's ``FakeAPIServer``) in front
     of two port replicas; node A's label drains A and the relay splices
     A's streams onto B; then a burst makes the port's capacity arbiter
     trade the training slice on node C to serving and back."""
@@ -2721,7 +3083,9 @@ def phase_router(torch, params, cfg, prompts, plain_tokens):
     import numpy as np
 
     from k8s_operator_libs_tpu_torch import router as router_bin
+    from k8s_operator_libs_tpu_torch.core import FakeCluster
     from k8s_operator_libs_tpu_torch.core.client import ClientEventRecorder
+    from k8s_operator_libs_tpu_torch.core.httpapi import FakeAPIServer
     from k8s_operator_libs_tpu_torch.core.liveclient import (KubeConfig,
                                                              KubeHTTP,
                                                              LiveClient)
@@ -2744,13 +3108,17 @@ def phase_router(torch, params, cfg, prompts, plain_tokens):
     t_phase = time.monotonic()
     work = Path(__file__).resolve().parent / "build" / "chip_smoke_router"
     work.mkdir(parents=True, exist_ok=True)
-    api = ApiServer(ROUTER_NODES)
+    cluster = FakeCluster()
+    for node in ROUTER_NODES:
+        cluster.add_node(node)
+    api = FakeAPIServer(cluster).start()
+    direct = cluster.client.direct()
     kubeconfig = work / "kubeconfig.json"
     kubeconfig.write_text(json.dumps({
         "current-context": "smoke",
         "contexts": [{"name": "smoke", "context": {"cluster": "smoke",
                                                    "user": "smoke"}}],
-        "clusters": [{"name": "smoke", "cluster": {"server": api.url}}],
+        "clusters": [{"name": "smoke", "cluster": {"server": api.base_url}}],
         "users": [{"name": "smoke", "user": {}}]}))
     attn.reset_launch_counts()
     reps = {}                       # node -> (runtime, httpd, thread, url)
@@ -2867,15 +3235,14 @@ def phase_router(torch, params, cfg, prompts, plain_tokens):
         with rt_a.lock:
             on_a = rt_a.srv.decode_steps
         state_label = KeyFactory("libtpu").state_label
-        with api.lock:
-            api.patch("node-a", {"metadata": {"labels": {
-                state_label: UpgradeState.CORDON_REQUIRED}}})
+        direct.patch_node_metadata(
+            "node-a", labels={state_label: UpgradeState.CORDON_REQUIRED})
         t_flip = time.monotonic()
         for s in streams:
             s.finish("phase 3e stream")
         streams_done = time.monotonic()
         code_a, _ = get_code(base_a + "/healthz")
-        _, intent_a = api.metadata("node-a")
+        intent_a = dict(direct.get_node("node-a").metadata.annotations)
 
         # --- the market: a burst on one admitting replica preempts the
         # slice on node C, served by a third replica, and returns it
@@ -2989,7 +3356,9 @@ def phase_router(torch, params, cfg, prompts, plain_tokens):
         market_stop.set()
         market_thread.join(timeout=30)
         t_returned = time.monotonic()
-        labels_c, annotations_c = api.metadata("node-c")
+        node_c = direct.get_node("node-c").metadata
+        labels_c, annotations_c = (dict(node_c.labels),
+                                   dict(node_c.annotations))
         # the gauges refresh on the ticker: wait for the one that counts
         # the last completion
         want_done = len(streams) + len(burst)
@@ -3016,7 +3385,7 @@ def phase_router(torch, params, cfg, prompts, plain_tokens):
         root.handlers[:] = root_state[1]
         for rt, httpd, thread, _ in reps.values():
             close_http(httpd, thread, rt)
-        api.close()
+        api.stop()
     check(not binary.is_alive() and box.get("rc") == 0
           and not threads.live_threads("router-ticker"),
           "the router binary's ticker did not stop and join")
@@ -3064,7 +3433,7 @@ def phase_router(torch, params, cfg, prompts, plain_tokens):
           and json.loads(annotations_c.get(MARKET_DECISION_ANNOTATION,
                                            "{}")).get("action") == "returned",
           f"node-c's market keys: {labels_c} {annotations_c}")
-    reasons = [e.get("reason") for e in api.events]
+    reasons = [e.reason for e in cluster.recorder.events]
     check(reasons.count("MarketTrade") == 1
           and reasons.count("MarketReturn") == 1,
           f"market events on the apiserver: {reasons}")
@@ -3109,7 +3478,7 @@ def phase_router(torch, params, cfg, prompts, plain_tokens):
                    for node, b in batchers.items()}
     ticks = sorted(tick_ms)
     log(f"phase 3e: the port's router binary (router.main, --kubeconfig "
-        f"to an in-script apiserver, tick {ROUTER_TICK} s) in front of 2 "
+        f"to the port's FakeAPIServer, tick {ROUTER_TICK} s) in front of 2 "
         f"port replicas (Llama-3-8B, all {cfg.n_layers} layers); phase 3's "
         f"{len(streams)} prompts streamed in lanes {', '.join(lanes)}; "
         f"node-a's label turned cordon-required "
@@ -6155,7 +6524,7 @@ def main():
         timed("phase 1", phase_build)
         kernels = timed("phase 2 (paged decode)", phase_kernels, torch)
         kernels.update(timed("phase 2 (flash)", phase_flash, torch))
-        serve = timed("phase 3 (3b-3g)", phase_serve, torch)
+        serve = timed("phase 3 (3b-3h)", phase_serve, torch)
         parity = timed("phase 4", phase_parity, torch)
         moe_serve = timed("phase 7", phase_moe_serve, torch)
         moe_serve.update(timed("phase 7b", phase_moe_parity, torch))
@@ -6189,6 +6558,8 @@ def main():
              serve["upgrade_launches"]),
             ("paged_decode_health", "paged_decode", f"{jax_attn}:734",
              serve["health_launches"]),
+            ("paged_decode_handover", "paged_decode", f"{jax_attn}:734",
+             serve["handover_launches"]),
             ("paged_decode_full_batch", "paged_decode", f"{jax_attn}:734",
              serve["launches"]),
             ("paged_decode_int8_full_batch", "paged_decode",
@@ -6216,7 +6587,8 @@ def main():
                                   ("flash_bwd_dkv", 519)))):
         # the speculative path's draft steps, the serving tier's replicas,
         # the replicas behind the router binary, those under the rolling
-        # upgrade and the quarantine-and-repair, and the MoE paths run their kernels at phase 2's shapes
+        # upgrade, the quarantine-and-repair and the operator binary's
+        # handover, and the MoE paths run their kernels at phase 2's shapes
         # (A-K4 at the serving shape, A-K1-3 at
         # H 32, KV 8, Dh 128, B 2, T 2048), so their rows carry phase 2's
         # measurements; phase 9's rows carry those of phase 2's cases at
@@ -6226,7 +6598,8 @@ def main():
                      "paged_decode_serving_tier": "paged_decode",
                      "paged_decode_router": "paged_decode",
                      "paged_decode_upgrade": "paged_decode",
-                     "paged_decode_health": "paged_decode"}.get(
+                     "paged_decode_health": "paged_decode",
+                     "paged_decode_handover": "paged_decode"}.get(
             name, name.split("_moe")[0])]
         rows.append({"name": name, "route": "cuda",
                      "source": CSRC.format(source), "replaces": replaces,

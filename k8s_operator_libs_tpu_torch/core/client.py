@@ -4,8 +4,9 @@ A copy of the JAX package's ``core/client.py``, cut to what the port
 calls: the :class:`Client` ABC (a cached read/write view whose
 ``direct()`` is the uncached one), the apiserver error family, the
 :class:`EventRecorder` ABC with its :class:`NullRecorder` and
-:class:`ClientEventRecorder`, and :func:`method_verb_kind` (which
-``core/resilience.py`` classifies calls by). ``ApiError`` is the root of the family. The serving
+:class:`ClientEventRecorder`, :func:`method_verb_kind` (which
+``core/resilience.py`` classifies calls by) and :class:`CountingClient`,
+the apiserver-call accounting the tick profiler reads. ``ApiError`` is the root of the family. The serving
 tier catches it (and ``TimeoutError``) around every cluster read and
 write, so a client handed to the tier must raise these two for an
 apiserver failure; every error :class:`~.liveclient.LiveClient` raises
@@ -19,6 +20,8 @@ import abc
 import logging
 from typing import Dict, List, Optional, Tuple
 
+from ..utils import threads
+from ..utils.clock import Clock, RealClock
 from .objects import ControllerRevision, DaemonSet, Event, Job, Node, Pod
 
 logger = logging.getLogger(__name__)
@@ -212,3 +215,82 @@ def method_verb_kind(name: str) -> Optional[Tuple[str, str]]:
         if rest == token or rest.startswith(token + "_"):
             return verb, kind
     return verb, ""
+
+
+class CountingClient:
+    """Transparent accounting wrapper at the client boundary — the same
+    ``__getattr__`` shape as chaos's ChaosClient, and composes with it
+    (wrap the ChaosClient, never the reverse, so fault decisions see the
+    exact call sequence an unwrapped operator would issue). Every API
+    call is counted per (verb, kind), timed on the injected clock, and —
+    when a tracer is wired — attributed to the span that issued it (the
+    ``api_calls`` / ``api_time_s`` span attributes the tick profiler
+    reads). Pure accounting: no call is ever delayed, reordered, or
+    failed."""
+
+    def __init__(self, inner, metrics=None, tracer=None,
+                 clock: Optional[Clock] = None,
+                 duration_buckets: Optional[Tuple[float, ...]] = None,
+                 _counts=None, _lock=None):
+        self._inner = inner
+        self._metrics = metrics
+        self._tracer = tracer
+        self._clock = clock or RealClock()
+        self._duration_buckets = duration_buckets
+        # shared across direct() views so one tally covers both paths
+        self._counts: Dict[Tuple[str, str], int] = (
+            {} if _counts is None else _counts)
+        self._counts_lock = _lock or threads.make_lock("counting-client")
+
+    def direct(self) -> "CountingClient":
+        return CountingClient(self._inner.direct(), metrics=self._metrics,
+                              tracer=self._tracer, clock=self._clock,
+                              duration_buckets=self._duration_buckets,
+                              _counts=self._counts,
+                              _lock=self._counts_lock)
+
+    def counts(self) -> Dict[Tuple[str, str], int]:
+        """Cumulative {(verb, kind): calls} since construction (shared
+        with every direct() view)."""
+        with self._counts_lock:
+            return dict(self._counts)
+
+    def total_calls(self) -> int:
+        with self._counts_lock:
+            return sum(self._counts.values())
+
+    def __getattr__(self, name):
+        attr = getattr(self._inner, name)
+        if not callable(attr):
+            return attr
+        vk = method_verb_kind(name)
+        if vk is None:
+            return attr
+        verb, kind = vk
+
+        def call(*args, **kwargs):
+            t0 = self._clock.now()
+            try:
+                return attr(*args, **kwargs)
+            finally:
+                dt = max(0.0, self._clock.now() - t0)
+                with self._counts_lock:
+                    self._counts[(verb, kind)] = \
+                        self._counts.get((verb, kind), 0) + 1
+                if self._metrics is not None:
+                    labels = {"verb": verb, "kind": kind}
+                    self._metrics.inc("apiserver_requests_total",
+                                      labels=labels)
+                    self._metrics.observe(
+                        "apiserver_request_duration_seconds", dt,
+                        labels=labels, buckets=self._duration_buckets)
+                if self._tracer is not None:
+                    span = self._tracer.current()
+                    if span is not None:
+                        calls = span.attrs.setdefault("api_calls", {})
+                        key = f"{verb} {kind}".rstrip()
+                        calls[key] = calls.get(key, 0) + 1
+                        span.attrs["api_time_s"] = \
+                            span.attrs.get("api_time_s", 0.0) + dt
+
+        return call

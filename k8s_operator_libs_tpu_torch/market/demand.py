@@ -1,11 +1,12 @@
-"""The arbiter's inputs from outside the process: the router binary's
-lane demand and the trainer's goodput.
+"""The arbiter's inputs from outside the process, and the arbiter the
+operator binary builds from its config.
 
-A copy of the two parts of the JAX package's ``cmd/operator.py`` that
-the market needs without the operator: ``HTTPLaneDemand``, the demand
-adapter over a router's ``GET /lanes``, and the goodput pricing of its
-``build_market``, which prices a training slice by the trainer's goodput
-ledger (:func:`ledger_goodput`).
+A copy of the market parts of the JAX package's ``cmd/operator.py``:
+``HTTPLaneDemand``, the demand adapter over a router's ``GET /lanes``;
+the goodput pricing of ``build_market``, which prices a training slice
+by the trainer's goodput ledger (:func:`ledger_goodput`); and
+:func:`build_market` itself, which wires a :class:`CapacityArbiter` from
+the ``market:`` section that ``operator.py:load_market`` parsed.
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ import json
 import urllib.request
 from typing import Callable
 
-from .arbiter import marginal_goodput
+from .arbiter import (CapacityArbiter, ManagedSlice, MarketConfig,
+                      marginal_goodput)
 
 
 class HTTPLaneDemand:
@@ -62,3 +64,22 @@ def ledger_goodput(ledger_path: str, slices: int) -> Callable[[], float]:
         except Exception:  # exc: allow — goodput is an advisory pricing input; a broken ledger prices as 0.0
             return 0.0
     return goodput_fn
+
+
+def build_market(section, client, slo_engine, hub, recorder, clock):
+    """``market:`` section → a wired CapacityArbiter: ``slices`` are the
+    managed supply, ``routerUrl`` the lane demand (none without it),
+    ``goodputLedger`` the slice price, ``config`` the
+    :class:`MarketConfig`."""
+    supply = [ManagedSlice(str(s["id"]), [str(n) for n in s["nodes"]])
+              for s in section["slices"]]
+    demand = (HTTPLaneDemand(section["routerUrl"])
+              if section.get("routerUrl") else None)
+    ledger_path = section.get("goodputLedger")
+    goodput_fn = (ledger_goodput(ledger_path, len(supply))
+                  if ledger_path else None)
+    return CapacityArbiter(
+        supply, client=client, demand=demand, slo_engine=slo_engine,
+        goodput_fn=goodput_fn, recorder=recorder, metrics=hub,
+        clock=clock,
+        config=MarketConfig.from_dict(section.get("config") or {}))

@@ -25,6 +25,20 @@ DEFAULT_BUCKETS: Tuple[float, ...] = (
 
 # keyed by the FULL exposed name (prefix included), as in the reference
 HELP_TEXTS: Dict[str, str] = {
+    # the operator binary's identity gauges and the client-boundary
+    # accounting (core/client.py:CountingClient)
+    "tpu_operator_build_info":
+        "Constant 1; labels carry the operator version and managed "
+        "components",
+    "tpu_operator_leader":
+        "1 on the replica holding the leader lease (or running without "
+        "leader election), 0 on hot standbys",
+    "tpu_operator_apiserver_requests_total":
+        "Apiserver requests issued through the client boundary since "
+        "process start, by verb and kind",
+    "tpu_operator_apiserver_request_duration_seconds":
+        "Seconds one apiserver request took at the client boundary "
+        "(CountingClient middleware; labels carry verb and kind)",
     # upgrade gauges (upgrade/metrics.py collect()) and the upgrade
     # histograms and gauges of the journey and the drain manager
     "tpu_operator_total_managed_nodes":

@@ -137,6 +137,10 @@ class Tracer:
     def span(self, name: str, **attrs: Any) -> "_SpanContext":
         return _SpanContext(self, name, attrs)
 
+    def current(self) -> Optional[Span]:
+        stack = self._stack()
+        return stack[-1] if stack else None
+
 
 class _SpanContext:
     def __init__(self, tracer: Tracer, name: str, attrs: Dict[str, Any]):

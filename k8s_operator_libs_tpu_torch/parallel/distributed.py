@@ -31,6 +31,7 @@ import dataclasses
 import logging
 import os
 import socket
+import time
 from typing import Optional, Sequence
 from urllib.parse import urlsplit
 
@@ -198,6 +199,35 @@ class Membership:
 
 class RendezvousPortTaken(RuntimeError):
     """A generation's TCP store cannot be served: its port is taken."""
+
+
+# the store key each rank adds one to once it has torn its group down
+LEFT_KEY = "left-process-group"
+
+
+def leave_process_group(timeout: float = 60.0) -> None:
+    """Leave the default process group with every rank together. A
+    barrier first; then each rank tears its group down and checks out on
+    the group's store, and rank 0, which serves a TCP store, returns
+    only once every rank has checked out (or ``timeout`` seconds pass).
+    A rank that tore its group down while the store's owner had already
+    exited could abort in the store's or the backend's teardown
+    ("terminate called without an active exception")."""
+    store = dist.distributed_c10d._get_default_store()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dist.barrier()
+    dist.destroy_process_group()
+    store.add(LEFT_KEY, 1)
+    if rank != 0:
+        return
+    deadline = time.monotonic() + timeout
+    while store.add(LEFT_KEY, 0) < world:
+        if time.monotonic() > deadline:
+            logger.warning("%d of %d ranks checked out of the process "
+                           "group in %.0f s; leaving anyway",
+                           store.add(LEFT_KEY, 0), world, timeout)
+            return
+        time.sleep(0.01)
 
 
 def default_backend(device: str = "cuda", environ=None) -> str:

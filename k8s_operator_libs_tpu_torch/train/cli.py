@@ -62,7 +62,8 @@ from ..parallel.composed import (composed_param_specs, init_composed_state,
                                  make_composed_train_step,
                                  make_moe_composed_train_step,
                                  moe_composed_param_specs)
-from ..parallel.distributed import default_backend, maybe_initialize_from_env
+from ..parallel.distributed import (default_backend, leave_process_group,
+                                    maybe_initialize_from_env)
 from ..parallel.expert import (ep_param_specs, init_ep_state,
                                make_ep_train_step, moe_reference_loss)
 from ..parallel.fsdp import (TrainState, default_optimizer, init_train_state,
@@ -279,12 +280,16 @@ def main(argv=None, drain_signal: Optional[Callable[[], bool]] = None
                         "to PATH at exit")
     args = p.parse_args(argv)
 
-    joined = _join_process_group(args.device)
-    try:
+    if not _join_process_group(args.device):
         return _train(args, drain_signal)
-    finally:
-        if joined:
-            dist.destroy_process_group()
+    try:
+        rc = _train(args, drain_signal)
+    except BaseException:
+        dist.destroy_process_group()
+        raise
+    # every rank leaves together; the store's owner goes last
+    leave_process_group()
+    return rc
 
 
 def _train(args, drain_signal) -> int:

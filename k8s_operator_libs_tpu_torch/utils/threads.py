@@ -25,8 +25,9 @@ import threading
 from typing import Callable, List, Optional, Tuple
 
 __all__ = [
-    "spawn", "make_lock", "make_rlock", "make_event", "live_threads",
-    "held_locks",
+    "spawn", "make_lock", "make_rlock", "make_event", "make_condition",
+    "live_threads", "join_all", "held_locks", "add_join_hook",
+    "remove_join_hook", "notify_join",
     "get_backend", "set_backend", "use_backend", "RealBackend",
 ]
 
@@ -61,6 +62,34 @@ def _pop_held(lock: object) -> None:
 def held_locks() -> Tuple[object, ...]:
     """The shim locks the CURRENT thread holds, innermost last."""
     return tuple(_held.stack)
+
+
+# ------------------------------------------------------------- join hooks
+#
+# A successful join is a happens-before edge: everything the joined
+# thread did is visible to the joiner. A lockset checker registers a hook
+# here so ownership of exclusively-accessed state can pass to the joiner.
+# Backends call :func:`notify_join` after a join observes the target
+# finished.
+
+_join_hooks: List[Callable] = []
+
+
+def add_join_hook(fn: Callable) -> None:
+    _join_hooks.append(fn)
+
+
+def remove_join_hook(fn: Callable) -> None:
+    if fn in _join_hooks:
+        _join_hooks.remove(fn)
+
+
+def notify_join(joined_os_name: str) -> None:
+    """Called by a backend on the JOINING thread once the joined thread
+    is known finished. ``joined_os_name`` is the OS-thread name the
+    joined work ran under."""
+    for fn in list(_join_hooks):
+        fn(joined_os_name)
 
 
 # ------------------------------------------------------------ real backend
@@ -147,6 +176,10 @@ class RealBackend:
     def event(self, name: str):
         return _NamedEvent(name, threading.Event())
 
+    def condition(self, name: str, lock=None):
+        raw = lock._raw if isinstance(lock, _NamedLock) else lock
+        return threading.Condition(raw)
+
 
 # --------------------------------------------------------- backend switch
 
@@ -232,6 +265,10 @@ def make_event(name: str):
     return _backend.event(name)
 
 
+def make_condition(name: str, lock=None):
+    return _backend.condition(name, lock)
+
+
 def live_threads(prefix: Optional[str] = None) -> List[object]:
     """Registered threads that are still alive — the shutdown-hygiene
     surface: after a clean component stop, ``live_threads(prefix=...)``
@@ -244,3 +281,26 @@ def live_threads(prefix: Optional[str] = None) -> List[object]:
     if prefix is not None:
         out = [h for h in out if (h.name or "").startswith(prefix)]
     return out
+
+
+def join_all(prefix: Optional[str] = None, timeout: float = 5.0,
+             clock=None) -> List[object]:
+    """Join every live registered thread (optionally filtered by name
+    prefix) under ONE shared deadline measured on ``clock`` (default:
+    stdlib monotonic), so a wedged daemon thread cannot hold a binary's
+    exit forever. Returns the threads still alive at the deadline
+    (empty = clean)."""
+    if clock is not None:
+        now = clock.now
+    else:
+        import time
+        now = time.monotonic
+    deadline = now() + timeout
+    stuck: List[object] = []
+    for handle in live_threads(prefix):
+        remaining = deadline - now()
+        if remaining > 0:
+            handle.join(remaining)
+        if handle.is_alive():
+            stuck.append(handle)
+    return stuck

@@ -253,6 +253,18 @@ def test_a_failing_rank_fails_the_call(tmp_path):
                    workdir=str(tmp_path))
 
 
+def test_ranks_leave_the_group_together_the_store_owner_last(tmp_path):
+    """The CLI's exit (``distributed.leave_process_group``): rank 0, which
+    serves the group's store, returns only after rank 1 has torn its
+    group down, however slow that teardown; a rank left tearing down
+    against a store whose owner had exited could abort."""
+    (r0, t0), (r1, t1) = launch.run(ranks.leave_in_order, 2, 1.0,
+                                    timeout=GROUP_TIMEOUT,
+                                    workdir=str(tmp_path))
+    assert (r0, r1) == (0, 1)
+    assert t0 >= t1, f"rank 0 left {t1 - t0:.3f} s before rank 1 was down"
+
+
 def test_a_deadlocked_collective_ends_at_the_time_limit(tmp_path):
     t0 = time.monotonic()
     with pytest.raises(launch.RankFailed, match="within 4 s"):

@@ -1,12 +1,14 @@
 """The port's apiserver client (``core/liveclient.py``) and its object
 model (``core/objects.py``, ``core/serde.py``) against the JAX
-package's, over the reference's ``FakeAPIServer(FakeCluster)``.
+package's, over each package's ``FakeAPIServer(FakeCluster)``.
 
 Each call runs through the reference's ``LiveClient`` and the port's on
-the same cluster; the objects they return are compared field for field
-(``dataclasses.asdict``: both models spell every field alike). The
-port's errors are its own ``ApiError`` family, so the serving tier's
-``except ApiError`` catches them; the reference's are not.
+the same cluster, behind the reference's apiserver and then behind the
+port's (``core/httpapi.py``); the objects they return are compared field
+for field (``dataclasses.asdict``: both models spell every field alike),
+so the two servers' wire bodies are held to each other too. The port's
+errors are its own ``ApiError`` family, so the serving tier's ``except
+ApiError`` catches them; the reference's are not.
 """
 
 import dataclasses
@@ -20,11 +22,15 @@ import yaml
 from k8s_operator_libs_tpu.core import serde as jserde
 from k8s_operator_libs_tpu.core.client import ApiError as JApiError
 from k8s_operator_libs_tpu.core.fakecluster import FakeCluster
-from k8s_operator_libs_tpu.core.httpapi import FakeAPIServer
+from k8s_operator_libs_tpu.core.httpapi import FakeAPIServer as JAPIServer
 from k8s_operator_libs_tpu.core.liveclient import KubeConfig as JKubeConfig
 from k8s_operator_libs_tpu.core.liveclient import KubeHTTP as JKubeHTTP
 from k8s_operator_libs_tpu.core.liveclient import LiveClient as JLiveClient
 from k8s_operator_libs_tpu_torch.core import client as tclient
+from k8s_operator_libs_tpu_torch.core.fakecluster import (
+    FakeCluster as TFakeCluster)
+from k8s_operator_libs_tpu_torch.core.httpapi import (
+    FakeAPIServer as TAPIServer)
 from k8s_operator_libs_tpu_torch.core import serde as tserde
 from k8s_operator_libs_tpu_torch.core.client import ApiError as TApiError
 from k8s_operator_libs_tpu_torch.core.liveclient import (KubeConfig,
@@ -45,12 +51,26 @@ def _seed(cluster):
     return ds
 
 
-@pytest.fixture
-def live():
-    """(cluster, the reference's client, the port's) over one apiserver."""
-    cluster = FakeCluster()
+# each package's apiserver over its own cluster
+SERVERS = {"reference": (FakeCluster, JAPIServer),
+           "port": (TFakeCluster, TAPIServer)}
+
+
+def _server(cluster, **kw):
+    """The apiserver of ``cluster``'s package."""
+    for make_cluster, make_server in SERVERS.values():
+        if type(cluster) is make_cluster:
+            return make_server(cluster, **kw)
+    raise TypeError(type(cluster))
+
+
+@pytest.fixture(params=sorted(SERVERS))
+def live(request):
+    """(cluster, the reference's client, the port's) over one apiserver,
+    the reference's or the port's."""
+    cluster = SERVERS[request.param][0]()
     _seed(cluster)
-    with FakeAPIServer(cluster) as srv:
+    with _server(cluster) as srv:
         yield (cluster,
                JLiveClient(JKubeHTTP(JKubeConfig(server=srv.base_url))),
                LiveClient(KubeHTTP(KubeConfig(server=srv.base_url))))
@@ -123,15 +143,17 @@ WRITES = {
 }
 
 
+@pytest.mark.parametrize("server", sorted(SERVERS))
 @pytest.mark.parametrize("name", sorted(WRITES))
-def test_writes_land_as_the_reference_writes(name):
-    """The same patch through each client, on a cluster of its own: the
-    returned node and the node stored on the cluster are equal."""
+def test_writes_land_as_the_reference_writes(name, server):
+    """The same patch through each client, on a cluster of its own behind
+    one package's apiserver: the returned node and the node stored on the
+    cluster are equal."""
     out, stored = [], []
     for make in (JLiveClient, LiveClient):
-        cluster = FakeCluster()
+        cluster = SERVERS[server][0]()
         _seed(cluster)
-        with FakeAPIServer(cluster) as srv:
+        with _server(cluster) as srv:
             cfg = (JKubeConfig if make is JLiveClient else KubeConfig)(
                 server=srv.base_url)
             http = (JKubeHTTP if make is JLiveClient else KubeHTTP)(cfg)
@@ -222,9 +244,9 @@ def test_errors_are_the_ports_own_classes(live, name):
     fn, cls = ERRORS[name]
     with pytest.raises(JApiError) as jerr:
         fn(jcli, cluster)
-    cluster2 = FakeCluster()
+    cluster2 = type(cluster)()
     _seed(cluster2)
-    with FakeAPIServer(cluster2) as srv:
+    with _server(cluster2) as srv:
         cli = LiveClient(KubeHTTP(KubeConfig(server=srv.base_url)))
         with pytest.raises(TApiError) as terr:
             fn(cli, cluster2)
@@ -240,10 +262,11 @@ def test_not_found_is_also_a_key_error(live):
         cli.get_node("missing")
 
 
-def test_unauthorized_and_unreachable_raise_api_errors():
-    cluster = FakeCluster()
+@pytest.mark.parametrize("server", sorted(SERVERS))
+def test_unauthorized_and_unreachable_raise_api_errors(server):
+    cluster = SERVERS[server][0]()
     cluster.add_node("n0")
-    with FakeAPIServer(cluster, token="sekrit") as srv:
+    with _server(cluster, token="sekrit") as srv:
         denied = LiveClient(KubeHTTP(KubeConfig(server=srv.base_url)))
         with pytest.raises(TApiError, match="401"):
             denied.list_nodes()

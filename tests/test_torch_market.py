@@ -4,7 +4,8 @@ Each scenario runs twice: the reference's arbiter on the reference's
 ``FakeCluster`` client, then the port's on the same kind of cluster,
 reached either through a wrapper that re-raises the reference's errors
 as the port's (``PortClient``, the port's client contract) or through
-the port's own ``LiveClient`` over the reference's ``FakeAPIServer``.
+the port's own ``LiveClient`` over the port's ``FakeAPIServer`` and
+``FakeCluster``.
 Decisions, ownership, the ``tpu.dev/market.*`` labels and annotations,
 the events, the fleet timeline and the rendered ``tpu_market_*`` text
 must be equal.
@@ -31,11 +32,13 @@ from k8s_operator_libs_tpu import wire as jwire
 from k8s_operator_libs_tpu.core.client import ApiError as JApiError
 from k8s_operator_libs_tpu.core.client import ServerError as JServerError
 from k8s_operator_libs_tpu.core.fakecluster import FakeCluster
-from k8s_operator_libs_tpu.core.httpapi import FakeAPIServer
 from k8s_operator_libs_tpu.obs.metrics import HELP_TEXTS as JHELP
 from k8s_operator_libs_tpu_torch import wire as twire
 from k8s_operator_libs_tpu_torch.core.client import ApiError as TApiError
 from k8s_operator_libs_tpu_torch.core.client import ServerError as TServerError
+from k8s_operator_libs_tpu_torch.core.fakecluster import (
+    FakeCluster as TFakeCluster)
+from k8s_operator_libs_tpu_torch.core.httpapi import FakeAPIServer
 from k8s_operator_libs_tpu_torch.core.liveclient import (KubeConfig,
                                                          KubeHTTP,
                                                          LiveClient)
@@ -140,11 +143,13 @@ class Demand:
 class World:
     """A scenario's cluster and the client its package's arbiter uses:
     the reference's client for the reference; for the port, the wrapped
-    reference client or the port's LiveClient over HTTP."""
+    reference client or the port's LiveClient over HTTP to the port's
+    apiserver and cluster."""
 
     def __init__(self, pkg, route, clock, nodes):
-        self.cluster = FakeCluster(clock=None if pkg.name != "jax"
-                                   else clock)
+        make = TFakeCluster if (pkg.name != "jax"
+                                and route == "http") else FakeCluster
+        self.cluster = make(clock=None if pkg.name != "jax" else clock)
         for name in nodes:
             self.cluster.add_node(name)
         self._api = None

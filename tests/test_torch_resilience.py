@@ -5,9 +5,8 @@ The reference's own tests (``tests/test_resilience.py``: the breaker,
 retry and 429 pacing, the exemptions, the options, the drain and the
 health monitor over the resilient client, the operator's degraded mode)
 run on the port through :mod:`torch_twin`, its operator being the port's
-``GPUOperator``. The reference's ``counting_client`` (a call counter,
-whose port comes with the operator binary) wraps the port's client where
-a test counts apiserver calls. Left out: the chaos campaign's blackout
+``GPUOperator``, and its ``counting_client`` the port's
+(``obs/profile.py``) where a test counts apiserver calls. Left out: the chaos campaign's blackout
 and crash scenarios and the crash-point explorer of ``tools/crash``,
 which drive the JAX package's operator, and ``cmd/status.py``'s view.
 Then one seeded schedule of calls (reads, writes, watches, leases,
@@ -29,7 +28,7 @@ CRASH = ("tools/crash's explorer, which drives the JAX package's "
          "operator")
 globals().update(reference_tests(
     "test_resilience.py",
-    keep=["chaos.campaign", "chaos.scenario", "obs.profile"],
+    keep=["chaos.campaign", "chaos.scenario"],
     renames=[("k8s_operator_libs_tpu_torch.tpu.operator import",
               "k8s_operator_libs_tpu_torch.gpu.operator import"),
              ("TPUOperator)\n", "GPUOperator as TPUOperator)\n")],

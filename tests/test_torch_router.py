@@ -6,7 +6,8 @@ Module parity drives the same sequence through both packages (fake
 clocks, a deterministic self clock) and compares every output with
 ``==``. The binary runs in-process through ``router.main(argv,
 on_ready)`` in front of tiny fp32 replicas on the CPU, with
-``--kubeconfig`` to the reference's ``FakeAPIServer(FakeCluster)``:
+``--kubeconfig`` to the port's ``FakeAPIServer(FakeCluster)``
+(``core/httpapi.py``):
 
 - a node's upgrade-state label turning ``cordon-required`` drains its
   replica (the drain intent stamped on the node) and the router splices
@@ -15,7 +16,8 @@ on_ready)`` in front of tiny fp32 replicas on the CPU, with
   no fallback; for port and JAX replicas alike;
 - one scenario of traffic through the reference binary
   (``cmd/router.py``) and through the port's, each over fresh port
-  replicas: every endpoint body is equal, timings aside (floats and the
+  replicas, behind the reference's apiserver and then behind the
+  port's: every endpoint body is equal, timings aside (floats and the
   timing histograms' buckets and sums are masked; the replicas' URLs
   are named by role).
 """
@@ -41,8 +43,8 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from k8s_operator_libs_tpu.core.fakecluster import FakeCluster
-from k8s_operator_libs_tpu.core.httpapi import FakeAPIServer
+from k8s_operator_libs_tpu.core.fakecluster import FakeCluster as JCluster
+from k8s_operator_libs_tpu.core.httpapi import FakeAPIServer as JAPIServer
 from k8s_operator_libs_tpu.models.llama import LlamaConfig as JConfig
 from k8s_operator_libs_tpu.models.llama import init_params
 from k8s_operator_libs_tpu.obs import causes as jcauses
@@ -53,6 +55,8 @@ from k8s_operator_libs_tpu.upgrade.util import KeyFactory
 from k8s_operator_libs_tpu.utils import threads as jthreads
 from k8s_operator_libs_tpu.utils.clock import FakeClock as JFakeClock
 from k8s_operator_libs_tpu_torch import convert, router, server
+from k8s_operator_libs_tpu_torch.core.fakecluster import FakeCluster
+from k8s_operator_libs_tpu_torch.core.httpapi import FakeAPIServer
 from k8s_operator_libs_tpu_torch.models import generate as tgen
 from k8s_operator_libs_tpu_torch.models.llama import LlamaConfig as TConfig
 from k8s_operator_libs_tpu_torch.obs import causes as tcauses
@@ -600,12 +604,19 @@ def _mask_metrics(text):
     return out
 
 
-def _scenario(main, weights, tmp_path):
+# each package's apiserver over its own cluster
+SERVERS = {"reference": (JCluster, JAPIServer),
+           "port": (FakeCluster, FakeAPIServer)}
+
+
+def _scenario(main, weights, tmp_path, server="port"):
     """One run of traffic through a binary over three fresh port
     replicas, then a second binary at ``--queue-high 0`` (every lane
-    without headroom); the bodies of every endpoint, by name, with the
-    floats of :data:`TIMED_BODIES` masked."""
-    cluster = FakeCluster()
+    without headroom), with ``server``'s package's apiserver; the bodies
+    of every endpoint, by name, with the floats of :data:`TIMED_BODIES`
+    masked."""
+    make_cluster, make_server = SERVERS[server]
+    cluster = make_cluster()
     for node in ("node-a", "node-b", "node-c"):
         cluster.add_node(node)
     reps = [Replica("torch", weights) for _ in URL_ROLES]
@@ -617,7 +628,7 @@ def _scenario(main, weights, tmp_path):
             text = text.replace(rep.base, f"<url {role}>")
         return json.loads(text)
 
-    with FakeAPIServer(cluster) as api:
+    with make_server(cluster) as api:
         kc = _kubeconfig(tmp_path, api.base_url)
         seeds = ["--replica", f"a={reps[0].base}@node-a",
                  "--replica", f"b={reps[1].base}@node-b"]
@@ -675,11 +686,15 @@ def _scenario(main, weights, tmp_path):
             for k, v in out.items()}
 
 
-@pytest.fixture(scope="module")
-def bodies(weights, tmp_path_factory):
+@pytest.fixture(scope="module", params=sorted(SERVERS))
+def bodies(weights, tmp_path_factory, request):
+    """The scenario's bodies from the reference binary and the port's,
+    both behind one package's apiserver."""
     ref = _load_cmd("router")
-    return (_scenario(ref.main, weights, tmp_path_factory.mktemp("ref")),
-            _scenario(router.main, weights, tmp_path_factory.mktemp("port")))
+    return (_scenario(ref.main, weights, tmp_path_factory.mktemp("ref"),
+                      request.param),
+            _scenario(router.main, weights, tmp_path_factory.mktemp("port"),
+                      request.param))
 
 
 ENDPOINTS = ("healthz", "generate", "generate_unknown_lane",

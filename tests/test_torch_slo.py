@@ -2,11 +2,10 @@
 ``obs/alerts.py``) held against the JAX package's.
 
 The reference's own tests (``tests/test_slo.py``) run on the port through
-:mod:`torch_twin`, its operator being the port's ``GPUOperator``; two are
-left out: one loads the operator binary ``cmd/operator.py`` (its port
-comes with the binary), and the slow-drain episode serves ``/alerts``
-and ``status --slo`` through ``cmd/operator.py`` and ``cmd/status.py``
-in its middle, so its operator part is twinned below, tick by tick.
+:mod:`torch_twin`, its operator being the port's ``GPUOperator`` and its
+operator binary the port's ``operator.py``; one is left out: the
+slow-drain episode reads ``/alerts`` through ``cmd/status.py --slo`` in
+its middle, so its operator part is twinned below, tick by tick.
 Seeded streams of gauges, counters and histograms then go through both
 packages' ``TimeSeriesStore``, ``SLOEngine`` and ``AlertManager``, and
 every query, evaluation, alert state and event is compared with ``==``.
@@ -27,13 +26,11 @@ globals().update(reference_tests(
              # the port's hub renders under the workload prefix unless
              # told (its first users were the serving metrics)
              ("hub.render()", 'hub.render(prefix="tpu_operator")')],
-    exclude={"test_cmd_operator_load_slo_section":
-             "loads the operator binary cmd/operator.py",
-             "test_slow_drain_episode_fires_and_resolves_drain_latency_alert":
-             "serves /alerts and status --slo through cmd/operator.py and "
-             "cmd/status.py; its operator part is "
-             "test_slow_drain_pages_resolves_and_recovers_like_the_reference"
-             " below"}))
+    binaries=["operator"],
+    exclude={"test_slow_drain_episode_fires_and_resolves_drain_latency_alert":
+             "reads /alerts through cmd/status.py --slo; its operator part "
+             "is test_slow_drain_pages_resolves_and_recovers_like_the_"
+             "reference below"}))
 
 from torch_operator_twin import NS, add_ds, run_twins  # noqa: E402
 

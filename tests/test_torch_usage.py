@@ -2,10 +2,8 @@
 package's.
 
 The reference's own tests (``tests/test_usage.py``) run on the port
-through :mod:`torch_twin`, except those of billing (``obs/billing.py``)
-and of ``cmd/status.py``'s usage views, which come with their own ports;
-the module's billing imports stay the reference's for the status table
-data it defines. Then seeded node-signal schedules (serving lanes,
+through :mod:`torch_twin`, billing (``obs/billing.py``) included, except
+those of ``cmd/status.py``'s usage views, which come with its port. Then seeded node-signal schedules (serving lanes,
 training, maintenance states, quarantine, the market, degraded ticks)
 go through both meters and every sealed record, payload, efficiency and
 metrics text is compared with ``==``; a recording stand-in for the
@@ -19,20 +17,10 @@ import pytest
 
 from torch_twin import reference_tests
 
-BILLING = ("billing: the port of obs/billing.py comes with cmd/status.py "
-           "and the chaos campaign")
 STATUS = "cmd/status.py's usage views"
 globals().update(reference_tests(
-    "test_usage.py", keep=["obs.billing"],
-    exclude={"test_billing_prices_lanes_training_and_overhead": BILLING,
-             "test_training_prices_at_parity_without_goodput_ledger":
-                 BILLING,
-             "test_ledger_rotates_and_tail_looks_through_generations":
-                 BILLING,
-             "test_meter_resumes_account_from_ledger_tail": BILLING,
-             "test_standby_discipline_prevents_double_billing": BILLING,
-             "test_same_sequence_replays_byte_identical": BILLING,
-             "test_render_usage_tables_and_waste_events": STATUS,
+    "test_usage.py",
+    exclude={"test_render_usage_tables_and_waste_events": STATUS,
              "test_run_usage_view_exit_codes": STATUS,
              "test_efficiency_banner_contents_and_best_effort": STATUS,
              "test_banner_lines_precedence_is_pinned": STATUS,
@@ -136,3 +124,30 @@ def test_a_billing_engine_sees_the_same_calls():
         calls[side] = billing.calls
     assert calls["port"] == calls["reference"]
     assert ("tail",) in calls["port"]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_billing_ledgers_are_byte_identical(seed, tmp_path):
+    """Both packages' ``BillingEngine`` over their own ``UsageLedger``,
+    fed by the seeded meters above with a small rotation cap: every
+    ledger generation is the same bytes, and the summaries, the
+    headline fraction and the tail agree."""
+    out = {}
+    for side in ROOTS:
+        billing_mod = mod(side, "obs.billing")
+        path = tmp_path / side / "usage.jsonl"
+        engine = billing_mod.BillingEngine(
+            billing_mod.UsageLedger(str(path), max_bytes=16384),
+            clock=mod(side, "utils.clock").FakeClock(1000.0),
+            lane_weights={"interactive": 4.0, "batch": 2.0,
+                          "best-effort": 1.0})
+        run_meter(side, seed, billing=engine, ticks=40)
+        rotated = path.with_name(path.name + ".1")
+        summary = engine.summary()
+        assert summary.pop("ledger_path") == str(path)
+        out[side] = (path.read_bytes(),
+                     rotated.read_bytes() if rotated.exists() else None,
+                     summary, engine.fleet_goodput_fraction(),
+                     engine.ledger.tail())
+    assert out["port"] == out["reference"]
+    assert out["port"][1] is not None, "the cap never rotated the ledger"

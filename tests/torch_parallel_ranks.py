@@ -279,6 +279,30 @@ def fail():
     return rank
 
 
+def leave_in_order(delay):
+    """Leaves the group through ``distributed.leave_process_group``, rank
+    1's teardown slowed by ``delay`` seconds; returns (rank, when rank 1
+    finished tearing down, or when rank 0's leave returned)."""
+    import time
+    from k8s_operator_libs_tpu_torch.parallel import distributed
+    rank, _ = _setup()
+    marks = {}
+    if rank == 1:
+        real = dist.destroy_process_group
+
+        def slow(*a, **kw):
+            time.sleep(delay)
+            real(*a, **kw)
+            marks["torn_down"] = time.time()
+        dist.destroy_process_group = slow
+    try:
+        distributed.leave_process_group(timeout=60.0)
+    finally:
+        if rank == 1:
+            dist.destroy_process_group = real
+    return rank, marks.get("torn_down", time.time())
+
+
 
 # ------------------------------------------------- pipeline, 3-D, experts
 

@@ -26,16 +26,44 @@ PORT = "k8s_operator_libs_tpu_torch"
 TESTS = Path(__file__).resolve().parent
 
 
-def reference_tests(name, renames=(), keep=(), exclude=None):
+# a reference test's load of a binary from the repo's cmd/ by file path
+# (``spec_from_file_location(name, os.path.join(<tests>, "..", "cmd",
+# "<binary>.py"))``, then ``module_from_spec`` and ``exec_module``)
+_CMD_LOAD = re.compile(
+    r"spec = importlib\.util\.spec_from_file_location\(\s*[^,]+,\s*"
+    r"os\.path\.join\(os\.path\.dirname\(__file__\),\s*\"\.\.\",\s*"
+    r"\"cmd\",\s*(f?)\"([^\"]+)\.py\"\)\)\s*\n"
+    r"(\s*)(\w+) = importlib\.util\.module_from_spec\(spec\)\s*\n"
+    r"\s*spec\.loader\.exec_module\(\4\)")
+
+
+def port_binaries(src, binaries):
+    """``src`` with each load of ``cmd/<b>.py`` for ``b`` in ``binaries``
+    (or of ``cmd/{name}.py`` through a helper) replaced by an import of
+    the port's ``<b>`` module, which ``python -m`` runs."""
+    def swap(m):
+        fmt, stem, indent, var = m.groups()
+        if not fmt and stem not in binaries:
+            return m.group(0)
+        return (f"{var} = importlib.import_module("
+                f"{fmt}\"{PORT}.{stem}\")")
+    return _CMD_LOAD.sub(swap, src)
+
+
+def reference_tests(name, renames=(), keep=(), exclude=None, binaries=()):
     """The namespace of ``tests/<name>`` executed against the port.
 
     ``renames``: (old, new) text replacements applied after the package
     swap; ``keep``: dotted module paths under the package whose imports
     stay the reference's; ``exclude``: {test name: why it is not
-    twinned}. Raises if a renamed or excluded name is not found, so a
-    changed reference file cannot silently drop a twin."""
+    twinned}; ``binaries``: the ``cmd/`` binaries whose loads become
+    imports of the port's (:func:`port_binaries`). Raises if a renamed or
+    excluded name is not found, so a changed reference file cannot
+    silently drop a twin."""
     src = (TESTS / name).read_text()
     src = re.sub(rf"\b{REFERENCE}\b", PORT, src)
+    if binaries:
+        src = port_binaries(src, binaries)
     for module in keep:
         src = src.replace(f"{PORT}.{module}", f"{REFERENCE}.{module}")
     for old, new in renames:
@@ -94,3 +122,40 @@ class ServingSLO:
         self.clock.advance(60.0)
         self._feed(0.2, 400)
         return self
+
+
+def argparse_actions(main):
+    """The argparse actions a binary's ``main(argv)`` builds, as
+    (option strings, dest, default, type name, action class, required,
+    metavar, choices, nargs, const); ``main`` stops at ``parse_args``."""
+    import argparse
+    seen = {}
+
+    def parse(self, args=None, namespace=None):
+        seen["actions"] = [
+            (tuple(a.option_strings), a.dest, a.default,
+             getattr(a.type, "__name__", a.type), type(a).__name__,
+             a.required, a.metavar, a.choices, a.nargs, a.const)
+            for a in self._actions]
+        raise SystemExit(0)
+
+    orig = argparse.ArgumentParser.parse_args
+    argparse.ArgumentParser.parse_args = parse
+    try:
+        main([])
+    except SystemExit:
+        pass
+    finally:
+        argparse.ArgumentParser.parse_args = orig
+    return seen["actions"]
+
+
+def load_reference_binary(name):
+    """The JAX package's ``cmd/<name>.py``, loaded by file path (``cmd/``
+    is a directory of entry points, not a package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"reference_cmd_{name}", TESTS.parent / "cmd" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
