@@ -208,6 +208,29 @@ Phases, each fatal on failure:
    step 2, drained at step 3 and resumed to step 6 must reach the step-6
    loss of an uninterrupted run; its goodput ledger (on by default) must
    hold every badput phase, whose seconds it prints.
+   6b. The trainer under the operator: a ``CheckpointingTrainer`` at
+   Llama-3-8B width cut to 1 layer (bf16, remat, B 2 x T 2048, batches
+   from a numpy seed, the goodput ledger on) on node gpu-t of a port
+   ``FakeCluster`` of two nodes (GPU Feature Discovery's labels for this
+   card, one GPU each, no clique) with the NVIDIA driver DaemonSet at v1,
+   a ``job=train`` pod on gpu-t and an in-process ``GPUOperator`` (3f's
+   policy, waiting for ``job=train``; health, the default objectives and
+   usage). 2 steps; the DaemonSet goes to v2; one operator tick after each
+   step until the trainer, whose drain signal is "gpu-t is cordoned",
+   drain-saves at step s; one forward of step s+1's batch on the saved
+   state keeps its loss; the pod completes; ticks until gpu-t is back; a
+   fresh trainer resumes and takes 2 steps; ticks until both nodes are
+   upgrade-done at v2. The chaos harness's budget, journey,
+   alert-transition, event-dedup and attribution invariants hold at every
+   tick. Checked: the resume at s+1, the ledger's steps 1 to s+2 once
+   each, step s+1's loss bit-equal to the kept one, A-K1-3 once per step
+   each on ``wgmma``, one attribution window on gpu-t's journey whose
+   phases (drain save, restore, the three journey segments among them)
+   sum to it within 1e-6 s, the status CLI's ``--goodput`` split equal to
+   it, its table view exiting 3 in flight and 0 at the end. Prints ms per
+   step before and after the resume, the drain save's fetch and write,
+   the restore and the first step after it, the window's split and
+   ``downtime_summary``, each beside the card's name and power limit.
 7. MoE serving: ``MoEConfig.llama3_8b`` (Llama-3-8B attention, eight
    SwiGLU experts of d_ff 14336, top-2) cut to 16 layers, bf16, weights
    seeded on the card, on the continuous batcher with
@@ -250,7 +273,12 @@ Phases, each fatal on failure:
    9c: the same SP and FSDP steps through an NCCL group of one rank.
    9d: ``train.main --parallel fsdp`` on ``small`` at 2 ranks,
    checkpointed at 2, drained at 3 (signalled on rank 0), resumed at 1
-   rank to step 6, against an uninterrupted run.
+   rank to step 6, against an uninterrupted run. Ranks start as few
+   times as the work allows: two gloo ranks run 9a, 9b, 9d's 2-rank run,
+   then phase 10's 2-rank work (10a, 10c, 10e's ep runs); one NCCL rank
+   runs 9c, then 10d's paths, then 11b's re-formation; phases 10 and 11
+   check their results. Each timed step's warm-up is the parity pass of
+   the same loss just before it.
 10. Pipeline, 3-D and expert parallelism at Llama-3-8B width on the one
    card over gloo, as phase 9, each step held against its one-rank step
    (run first in rank 0, then freed to the host) by phase 9's bounds,
@@ -272,7 +300,9 @@ Phases, each fatal on failure:
    10e: ``train.main``: ``small --parallel 3d`` at 4 ranks drained at 3
    and resumed at 1 rank; ``moe_tiny --parallel 3d`` at 4 ranks for 3
    steps, its loss falling; ``moe_tiny --parallel ep --moe-dispatch
-   a2a`` at 2 ranks drained and resumed, against uninterrupted runs.
+   a2a`` at 2 ranks drained and resumed, against uninterrupted runs. Its
+   4-rank runs go last in 10b's ranks, its 2-rank ones in 10a/10c's
+   (phase 9's).
 
 11. The elastic trainer (``train/harness.py``, ``elastic=True``) at
    Llama-3-8B width, 1 layer, bf16, remat, B 4 x T 2048, on the one
@@ -1952,15 +1982,16 @@ UPGRADE_ORDER = ("upgrade-required", "cordon-required",
                  "pod-restart-required", "uncordon-required", "upgrade-done")
 
 
-def add_serve_pod(cluster, node):
-    """The node's serve pod, which holds one GPU and which the
-    wait-for-jobs gate watches (``job=serve``)."""
+def add_serve_pod(cluster, node, job="serve"):
+    """The node's ``<job>-<node>`` pod, which holds one GPU and which the
+    wait-for-jobs gate watches (``job=<job>``: serve, or phase 6b's
+    train)."""
     from k8s_operator_libs_tpu_torch.core.objects import (ContainerStatus,
                                                           ObjectMeta, Pod,
                                                           PodCondition)
     from k8s_operator_libs_tpu_torch.gpu import GPU_RESOURCE
-    pod = Pod(metadata=ObjectMeta(name=f"serve-{node}", namespace="default",
-                                  labels={"job": "serve"}))
+    pod = Pod(metadata=ObjectMeta(name=f"{job}-{node}", namespace="default",
+                                  labels={"job": job}))
     pod.spec.node_name = node
     pod.spec.resource_requests = {GPU_RESOURCE: 1}
     pod.status.phase = "Running"
@@ -3935,7 +3966,8 @@ def phase_train_parity(torch):
         with contextlib.redirect_stdout(buf):
             rc = train.main(argv, drain_signal=drain_signal)
         out = buf.getvalue().strip()
-        log(f"phase 6b: train.main --ckpt {ckpt}: {out.splitlines()[-1]}")
+        log(f"phase 6 (CLI): train.main --ckpt {ckpt}: "
+            f"{out.splitlines()[-1]}")
         check(rc == 0, f"train.main returned {rc}")
         return out
 
@@ -3961,9 +3993,9 @@ def phase_train_parity(torch):
                                       f"4-6: {resumed}")
     a, b = last_loss(straight), last_loss(resumed)
     check(a == b, f"step-6 loss {b} after drain + resume vs {a} straight")
-    log(f"phase 6b: step-6 loss after a drain at 3 and a resume: {b}, "
+    log(f"phase 6 (CLI): step-6 loss after a drain at 3 and a resume: {b}, "
         f"uninterrupted: {a}: identical")
-    seconds = ledger_seconds("phase 6b", work)
+    seconds = ledger_seconds("phase 6 (CLI)", work)
     shutil.rmtree(work, ignore_errors=True)
     return {"train_parity_loss_diff": loss_diff,
             "train_parity_worst_grad": worst, "resume_step6_loss": float(b),
@@ -4006,6 +4038,403 @@ def ledger_seconds(phase, work):
         f"{s['steps']} steps, fraction {s['goodput_fraction']:.4f} of "
         f"accounted time")
     return out
+
+
+# ------------------------------------------ the trainer under the operator
+
+# phase 6b: a CheckpointingTrainer at Llama-3-8B width drained by the
+# port's operator during a rolling NVIDIA driver upgrade. Depth cut 32 ->
+# TO_LAYERS: a drain save writes 6 B per parameter (bf16 parameters and
+# both moments), 7.6 GB at 1 layer (1.27e9 parameters, the embedding and
+# the head most of them) and 16.8 GB at 8, and the resume reads it back.
+# B TO_B x T TO_T, bf16, remat; the batch of step k is drawn from
+# numpy's generator seeded [TO_SEED, k]. TO_NODES are a port FakeCluster's
+# nodes, the trainer on TO_NODE; TO_WARM steps before the DaemonSet's
+# bump, TO_RESUMED after the resume; the loop's bounds in ticks and steps
+TO_LAYERS, TO_B, TO_T, TO_SEED = 1, 2, 2048, 61
+TO_NODES, TO_NODE = ("gpu-s", "gpu-t"), "gpu-t"
+TO_WARM, TO_RESUMED, TO_MAX_TICKS, TO_MAX_STEPS = 2, 2, 200, 100
+# phase 3f's policy with the wait-for-jobs gate on the trainer's pod
+TO_POLICY = {**UPGRADE_POLICY,
+             "waitForCompletion": {"podSelector": "job=train"}}
+# the phases the one unavailability window of TO_NODE must be split into
+TO_PHASES = ("drain_save", "ckpt_restore", "window_to_gate",
+             "window_gate_to_restart", "window_after_restart")
+
+
+def trainer_under_operator(torch, cfg, device, work, product, smi="",
+                           shape=(TO_B, TO_T)):
+    """Phase 6b's sequence on ``device``: a ``CheckpointingTrainer`` of
+    ``cfg`` with the goodput ledger on, batches of ``shape`` (B, T), on
+    node TO_NODE of a port
+    ``FakeCluster`` of TO_NODES (GPU Feature Discovery's labels for
+    ``product``, one GPU each, no clique: each node its own group), the
+    NVIDIA driver DaemonSet at v1 with a pod per node, a ``job=train``
+    pod on TO_NODE and an in-process ``GPUOperator`` (TO_POLICY; health,
+    the default objectives and usage; the host's clock). The trainer
+    takes TO_WARM steps; the DaemonSet goes to v2; then one operator tick
+    follows each step until the trainer, whose drain signal is "my node
+    is cordoned" read through the cluster client, drain-saves and returns
+    ``preempted=True`` at step s. One forward pass of step s+1's batch on
+    the saved state keeps its loss; the pod completes; ticks run until
+    TO_NODE is upgrade-done and schedulable; a fresh trainer on the same
+    directory and ledger resumes and takes TO_RESUMED steps; ticks run
+    until both nodes are upgrade-done at v2. Every tick holds the chaos
+    harness's budget, journey, alert-transition, event-dedup and
+    attribution invariants over the rig. Then the checks: the resume at
+    s+1, the ledger's booking of steps 1 to s+2, step s+1's loss equal to
+    the kept one (bit for bit: the same kernels on the same inputs), one
+    attribution window on TO_NODE's journey whose phases sum to its total
+    within 1e-6 s and include TO_PHASES, the status CLI's ``--goodput``
+    split equal to it, and its table view's exit codes (3 in flight, 0
+    at the end). Returns the readings, the flash launches of the trained
+    steps (the kept forward's excluded), the ledger's records and
+    TO_NODE's journey."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+
+    from k8s_operator_libs_tpu_torch import status
+    from k8s_operator_libs_tpu_torch.api import DriverUpgradePolicySpec
+    from k8s_operator_libs_tpu_torch.chaos.invariants import (
+        AlertTransitionInvariant, AttributionInvariant, BudgetInvariant,
+        CampaignView, EventDedupInvariant, JourneyInvariant)
+    from k8s_operator_libs_tpu_torch.core import FakeCluster
+    from k8s_operator_libs_tpu_torch.gpu import (COUNT_LABEL, PRODUCT_LABEL,
+                                                 GPUOperator,
+                                                 ManagedComponent)
+    from k8s_operator_libs_tpu_torch.gpu.device_plugin import DRIVER_LABELS
+    from k8s_operator_libs_tpu_torch.health import (ClassifierConfig,
+                                                    HealthOptions,
+                                                    RemediationPolicy)
+    from k8s_operator_libs_tpu_torch.obs.attribution import (
+        attribute_downtime, downtime_summary, windows_from_journey)
+    from k8s_operator_libs_tpu_torch.obs.goodput import (GoodputLedger,
+                                                         read_ledger)
+    from k8s_operator_libs_tpu_torch.obs.journey import parse_journey
+    from k8s_operator_libs_tpu_torch.obs.metrics import MetricsHub
+    from k8s_operator_libs_tpu_torch.obs.slo import SLOOptions
+    from k8s_operator_libs_tpu_torch.obs.usage import UsageMeter
+    from k8s_operator_libs_tpu_torch.ops import attention as fa
+    from k8s_operator_libs_tpu_torch.parallel import fsdp
+    from k8s_operator_libs_tpu_torch.parallel.mesh import (local_mesh,
+                                                           param_specs)
+    from k8s_operator_libs_tpu_torch.train.harness import (
+        CheckpointingTrainer)
+    from k8s_operator_libs_tpu_torch.upgrade import KeyFactory, UpgradeState
+
+    tag = "phase 6b"
+    t_phase = time.monotonic()
+    work = Path(work)
+    shutil.rmtree(work, ignore_errors=True)
+    ckpt = work / "ckpt"
+    ckpt.mkdir(parents=True)
+
+    # the rig
+    cluster = FakeCluster()              # the host's clock, no cache lag
+    ds = cluster.add_daemonset(UPGRADE_DS, namespace=UPGRADE_NS,
+                               labels=DRIVER_LABELS, revision_hash="v1")
+    for node in TO_NODES:
+        cluster.add_node(node, labels={PRODUCT_LABEL: product,
+                                       COUNT_LABEL: "1"})
+        cluster.add_pod(f"{UPGRADE_DS}-{node}", node, namespace=UPGRADE_NS,
+                        owner_ds=ds, revision_hash="v1")
+    add_serve_pod(cluster, TO_NODE, job="train")
+    keys = KeyFactory(UPGRADE_COMPONENT)
+    hub = MetricsHub()
+    op = GPUOperator(
+        cluster.client,
+        [ManagedComponent(UPGRADE_COMPONENT, UPGRADE_NS, DRIVER_LABELS,
+                          DriverUpgradePolicySpec.from_dict(TO_POLICY))],
+        recorder=cluster.recorder, synchronous=True,
+        health=HealthOptions(
+            component=UPGRADE_COMPONENT,
+            classifier=ClassifierConfig(damping_seconds=HEALTH_DAMPING_S,
+                                        persist_seconds=HEALTH_PERSIST_S),
+            policy=RemediationPolicy(recovery_seconds=HEALTH_RECOVERY_S,
+                                     backoff_base_seconds=HEALTH_BACKOFF_S)),
+        slo=SLOOptions.from_dict({}), usage=UsageMeter(metrics=hub),
+        metrics=hub)
+    errors = LogErrors(["k8s_operator_libs_tpu_torch.gpu.operator",
+                        "k8s_operator_libs_tpu_torch.obs.slo"])
+    alerts = AlertTransitionInvariant()
+    invariants = [BudgetInvariant(), JourneyInvariant(), alerts,
+                  EventDedupInvariant(alerts), AttributionInvariant()]
+    ledger_path = str(ckpt / "goodput.jsonl")
+    t0_wall = time.time()
+    tick_ms = []
+
+    def tick():
+        """One operator reconcile, the DaemonSet controller's step, then
+        the invariants over the rig and at most one node in progress."""
+        t0 = time.monotonic()
+        op.reconcile()
+        tick_ms.append(1e3 * (time.monotonic() - t0))
+        check(not errors.records, f"{tag}: tick {len(tick_ms)}: "
+                                  f"errors {errors.records}")
+        cluster.reconcile_daemonsets()
+        nodes = {n.metadata.name: n
+                 for n in cluster.client.direct().list_nodes()}
+        view = CampaignView(
+            tick=len(tick_ms), t=time.time() - t0_wall, nodes=nodes,
+            keys=keys, budget=1, fault_notready=set(), leaders=[],
+            recorder_events=list(cluster.recorder.events),
+            alert_status={"op": (op.alert_manager.status()
+                                 if op.alert_manager else [])},
+            ledger_path=ledger_path, workload_node=TO_NODE,
+            tick_seconds=1.0)
+        found = [str(v) for inv in invariants for v in inv.check(view)]
+        check(not found, f"{tag}: invariants violated: {found}")
+        busy = [n for n, node in nodes.items()
+                if node.metadata.labels.get(keys.state_label)
+                in UpgradeState.IN_PROGRESS]
+        check(len(busy) <= 1, f"{tag}: {busy} in progress at once")
+        return nodes
+
+    def tick_until(done, what):
+        for _ in range(TO_MAX_TICKS):
+            nodes = tick()
+            if done(nodes):
+                return nodes
+        check(False, f"{tag}: {what} not within {TO_MAX_TICKS} ticks")
+
+    def upgraded(node):
+        return (node.metadata.labels.get(keys.state_label)
+                == UpgradeState.DONE and not node.spec.unschedulable)
+
+    def cordoned():
+        return cluster.client.get_node(TO_NODE).spec.unschedulable
+
+    def batch(step):
+        return np.random.default_rng([TO_SEED, step]).integers(
+            0, cfg.vocab_size, size=(shape[0], shape[1] + 1),
+            dtype=np.int32)
+
+    def batches(first):
+        step = first
+        while True:
+            yield batch(step)
+            step += 1
+
+    def table_rc():
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = status.main(["--component", UPGRADE_COMPONENT,
+                              "--namespace", UPGRADE_NS, "--selector",
+                              ",".join(f"{k}={v}" for k, v in
+                                       DRIVER_LABELS.items())],
+                             client=cluster.client)
+        return rc, out.getvalue()
+
+    # each step's host seconds (from the loop's last return to the next
+    # call, the step synced) and loss, by host step
+    step_s, losses = {}, {}
+    mark = {"t": None}
+
+    def on_step(ticking):
+        def hook(step, metrics):
+            t = time.monotonic()
+            losses[step] = float(metrics["loss"])
+            step_s[step] = t - mark["t"]
+            if step == TO_WARM:
+                cluster.bump_daemonset_revision(UPGRADE_DS, UPGRADE_NS, "v2")
+            if ticking and step >= TO_WARM:
+                tick()
+            mark["t"] = time.monotonic()
+        return hook
+
+    def trainer():
+        return CheckpointingTrainer(
+            cfg, str(ckpt), checkpoint_interval=10 * TO_MAX_STEPS,
+            device=device, ledger=GoodputLedger.for_checkpoint_dir(str(ckpt)),
+            metrics_sync_every=1)
+
+    fa.reset_launch_counts()
+    job = trainer()
+    state = job.init_or_resume(0)
+    mark["t"] = time.monotonic()
+    result = job.run(state, batches(1), TO_MAX_STEPS, drain_signal=cordoned,
+                     on_step=on_step(True))
+    s = int(result.state.step)
+    check(result.preempted and cordoned() and job.latest_step == s,
+          f"{tag}: the trainer ran to step {s} (preempted "
+          f"{result.preempted}, last checkpoint {job.latest_step}) without "
+          f"a drain for the cordon")
+    fetch_s, write_s = job.last_fetch_s, job.last_write_s
+    trained = dict(fa.LAUNCHES)
+    routes = dict(fa.ROUTE_LAUNCHES)
+    # step s+1's loss on the saved state, before the job exits: the
+    # training step's loss function, forward only
+    loss_fn = fsdp.fsdp_loss(cfg, local_mesh(), param_specs())
+    with torch.no_grad():
+        kept = float(loss_fn(result.state.params,
+                             torch.as_tensor(batch(s + 1), device=device)))
+    fa.reset_launch_counts()
+    job.ledger.close()
+    job.close()
+    del job, state, result
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    rc_flight, _ = table_rc()
+    check(rc_flight == 3, f"{tag}: status exited {rc_flight} with "
+                          f"{TO_NODE} in flight, not 3")
+    # the job's pod completes: the wait-for-jobs gate opens
+    cluster.set_pod_status("default", f"train-{TO_NODE}", phase="Succeeded")
+    tick_until(lambda nodes: upgraded(nodes[TO_NODE]),
+               f"{TO_NODE} upgrade-done and schedulable")
+    cluster.set_pod_status("default", f"train-{TO_NODE}", phase="Running")
+    job = trainer()
+    t_restore = time.monotonic()
+    state = job.init_or_resume(1)
+    restore_wall = time.monotonic() - t_restore
+    check(int(state.step) == s, f"{tag}: resumed at step {int(state.step)}"
+                                f", not at the drain's {s}")
+    mark["t"] = time.monotonic()
+    resumed = job.run(state, batches(s + 1), TO_RESUMED,
+                      drain_signal=cordoned, on_step=on_step(False))
+    check(not resumed.preempted and int(resumed.state.step) == s + TO_RESUMED,
+          f"{tag}: the resumed run ended at step {int(resumed.state.step)}")
+    for name, n in fa.LAUNCHES.items():
+        trained[name] = trained.get(name, 0) + n
+    for name, n in fa.ROUTE_LAUNCHES.items():
+        routes[name] = routes.get(name, 0) + n
+    job.ledger.close()
+    job.close()
+    del job, state, resumed
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    final = tick_until(lambda nodes: all(upgraded(nodes[n])
+                                         for n in TO_NODES),
+                       "both nodes upgrade-done")
+    errors.close()
+    pods = cluster.client.direct().list_pods(namespace=UPGRADE_NS,
+                                             label_selector=DRIVER_LABELS)
+    check(sorted(p.metadata.labels["controller-revision-hash"]
+                 for p in pods) == ["v2"] * len(TO_NODES),
+          f"{tag}: driver pods not all at v2")
+    rc_done, table = table_rc()
+    check(rc_done == 0, f"{tag}: status exited {rc_done} at the end:\n"
+                        f"{table}")
+
+    # steps and loss
+    check(sorted(losses) == list(range(1, s + TO_RESUMED + 1)),
+          f"{tag}: steps taken {sorted(losses)}")
+    records = read_ledger(ledger_path)
+    booked = []
+    for rec in records:
+        if rec.get("kind") == "step":
+            booked += range(rec["step"] - rec["n"] + 1, rec["step"] + 1)
+    firsts = [rec["phase"] for rec in records if rec.get("kind") == "phase"
+              and rec["phase"] in ("compile", "rewarmup")]
+    runs = [(rec["step"], rec.get("preempted")) for rec in records
+            if rec.get("kind") == "run_end"]
+    # each run's first step is booked as its compile (fresh) or
+    # re-warmup (resumed) badput, every other step as goodput
+    check(sorted(booked) == [k for k in range(1, s + TO_RESUMED + 1)
+                             if k not in (1, s + 1)]
+          and firsts == ["compile", "rewarmup"]
+          and runs == [(s, True), (s + TO_RESUMED, False)],
+          f"{tag}: the ledger booked steps {sorted(booked)}, first steps "
+          f"{firsts}, runs {runs}")
+    check(losses[s + 1] == kept,
+          f"{tag}: step {s + 1}'s loss {losses[s + 1]!r} after the resume vs "
+          f"{kept!r} on the saved state before the exit (bound: bit-equal)")
+
+    # attribution
+    entries = parse_journey(final[TO_NODE].metadata.annotations.get(
+        keys.journey_annotation))
+    reports = attribute_downtime(records, entries)
+    check(len(reports) == 1, f"{tag}: {len(reports)} attribution windows")
+    (report,) = reports
+    phases = report["phases"]
+    check(abs(sum(phases.values()) - report["total_s"]) <= 1e-6
+          and all(phases.get(p, 0.0) > 0 for p in TO_PHASES),
+          f"{tag}: window {report['total_s']} s split {phases}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = status.main(["--component", UPGRADE_COMPONENT, "--goodput",
+                          ledger_path, "--goodput-node", TO_NODE, "--json"],
+                         client=cluster.client)
+    envelope = json.loads(out.getvalue())
+    check(rc == 0 and envelope["kind"] == "goodput"
+          and envelope["data"]["attribution"][UPGRADE_COMPONENT] == reports,
+          f"{tag}: status --goodput split "
+          f"{envelope['data']['attribution']} vs {reports}")
+    (window,) = windows_from_journey(entries)
+    restore_s, rewarmup_s = (
+        next(rec["duration_s"] for rec in records
+             if rec.get("phase") == name)
+        for name in ("ckpt_restore", "rewarmup"))
+    summary = downtime_summary(window, ckpt_fetch_s=fetch_s,
+                               ckpt_write_s=write_s,
+                               ckpt_restore_s=restore_s,
+                               rewarmup_s=rewarmup_s)
+    shutil.rmtree(work, ignore_errors=True)
+
+    before = [step_s[k] * 1e3 for k in range(2, s + 1)]
+    after = [step_s[k] * 1e3 for k in range(s + 2, s + TO_RESUMED + 1)]
+    ms_before = float(np.median(before)) if before else float("nan")
+    ms_after = float(np.median(after)) if after else float("nan")
+    lead = f"{tag} ({smi})" if smi else tag
+    log(f"{lead}: drained at step {s} ({len(tick_ms)} operator ticks, "
+        f"median {np.median(tick_ms):.3f} ms); ms per step (host, synced, "
+        f"an operator tick between steps before the drain) median "
+        f"{ms_before:.1f} before the resume (steps 2-{s}), {ms_after:.1f} "
+        f"after (steps {s + 2}-{s + TO_RESUMED}); step {s + 1}'s loss "
+        f"{losses[s + 1]!r} after the resume = {kept!r} before the exit")
+    log(f"{lead}: drain save: device->host fetch {fetch_s:.4f} s, file "
+        f"write {write_s:.4f} s; restore {restore_s:.4f} s (ledger), "
+        f"{restore_wall:.4f} s (host, the trainer's init_or_resume); "
+        f"first step after the resume {rewarmup_s:.4f} s (ledger, "
+        f"rewarmup), {step_s[s + 1]:.4f} s (host)")
+    log(f"{lead}: {TO_NODE}'s unavailability window {report['total_s']:.4f}"
+        f" s split " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                 sorted(phases.items(), key=lambda kv:
+                                        -kv[1]))
+        + f" s (status --goodput the same); the journey's window "
+        + ", ".join(f"{k} {v:.4f}" for k, v in window.as_dict().items()))
+    log(f"{lead}: downtime_summary: " + json.dumps(
+        {k: (round(v, 6) if isinstance(v, float) else v)
+         for k, v in summary.items()}))
+    log(f"{lead}: wall {time.monotonic() - t_phase:.1f} s")
+    return {"drain_step": s, "ticks": len(tick_ms),
+            "tick_ms_median": float(np.median(tick_ms)),
+            "ms_per_step_before": ms_before, "ms_per_step_after": ms_after,
+            "first_step_after_s": rewarmup_s, "fetch_s": fetch_s,
+            "write_s": write_s, "restore_s": restore_s,
+            "restore_wall_s": restore_wall, "loss_resumed": losses[s + 1],
+            "loss_kept": kept, "window_s": report["total_s"],
+            "phases": phases, "downtime": summary,
+            "steps": s + TO_RESUMED, "launches": trained, "routes": routes,
+            "records": records, "journey": entries}
+
+
+def phase_trainer_operator(torch, smi):
+    """Phase 6b on the card: :func:`trainer_under_operator` at
+    Llama-3-8B width, TO_LAYERS layer(s); A-K1, A-K2 and A-K3 must each
+    launch once per layer and trained step, all on ``wgmma``."""
+    from k8s_operator_libs_tpu_torch.models.llama import LlamaConfig
+
+    held = torch.cuda.memory_allocated()
+    check(held < 2**30, f"phase 6b: {held / 2**30:.1f} GiB of the earlier "
+                        f"phases is still allocated")
+    cfg = LlamaConfig.llama3_8b(n_layers=TO_LAYERS, max_seq_len=TO_T)
+    out = trainer_under_operator(
+        torch, cfg, "cuda",
+        Path(__file__).resolve().parent / "build" / "chip_smoke_operator",
+        torch.cuda.get_device_name(0).replace(" ", "-"), smi)
+    want = TO_LAYERS * out["steps"]
+    check(all(out["launches"].get(n) == want for n in FLASH_NAMES)
+          and out["routes"] == {"wgmma": 3 * want, "fma": 0},
+          f"phase 6b: launches {out['launches']}, routes {out['routes']} "
+          f"over {out['steps']} steps of {TO_LAYERS} layer(s)")
+    log(f"phase 6b: A-K1-3 launched {want} times each over {out['steps']} "
+        f"steps of {TO_LAYERS} layer(s), all on wgmma")
+    torch.cuda.empty_cache()
+    return {f"operator_{k}": v for k, v in out.items()
+            if k not in ("records", "journey")}
 
 
 # ------------------------------------------------------------ MoE
@@ -4426,8 +4855,10 @@ def phase_moe_train_parity(torch):
 # measure no interconnect
 GLOO_LABEL = "gloo host-staged, one card, not an interconnect figure"
 NVLINK_BYTES_PER_S = 450e9      # H100 SXM NVLink 4: 900 GB/s, 450 each way
-# timed optimizer steps after a warm-up (2 before phase 3g joined, cut to
-# keep the smoke's phases under 1000 s)
+# timed optimizer steps (2 before phase 3g joined, cut to keep the
+# smoke's phases under 1000 s). Each path's parity pass, the same loss's
+# forward and backward at the same shapes just before, is their warm-up
+# (a separate warm-up step went when phase 6b joined)
 MP_TIMED_STEPS = 1
 MP_TIMEOUT = 900.0
 # bf16 parity against the one-rank step, which runs the same kernels on
@@ -4558,12 +4989,13 @@ def _mp_sp(torch, dist, timed_steps):
 
 def _timed_steps(torch, step, params, tokens, dist):
     """MP_TIMED_STEPS optimizer steps from a copy of ``params``: ms per
-    step on this rank and the bytes each collective kind sent per step."""
+    step on this rank and the bytes each collective kind sent per step.
+    The caller's parity pass of the same loss at the same shapes was the
+    warm-up."""
     from k8s_operator_libs_tpu_torch.parallel import comm, fsdp
     opt = fsdp.default_optimizer()
     p = fsdp._tree_map(lambda t: t.clone(), params)
     state = fsdp.TrainState(params=p, opt_state=opt.init(p), step=0)
-    state, _ = step(state, tokens)                 # warm-up
     torch.cuda.synchronize()
     dist.barrier()
     comm.reset_counts()
@@ -4636,8 +5068,8 @@ def _mp_fsdp(torch, dist, timed_steps):
     del grads, whole, ref
     torch.cuda.empty_cache()
     if timed_steps:
+        # the parity pass above was the warm-up
         step = fsdp.make_train_step(cfg, mesh=mesh)
-        state, _ = step(state, tokens)              # warm-up
         torch.cuda.synchronize()
         dist.barrier()
         comm.reset_counts()
@@ -4656,8 +5088,12 @@ def _mp_fsdp(torch, dist, timed_steps):
     return res
 
 
-def phase9_rank(timed_steps):
-    """The body of one rank of phase 9a-9c (run by ``launch.run``)."""
+def phase9_rank(timed_steps, cli_argv=None, ep_runs=None):
+    """The body of one rank of phase 9a-9c (run by ``launch.run``); with
+    ``cli_argv``, 9d's drained CLI run, and with ``ep_runs`` phase 10's
+    2-rank work (:func:`phase10_pair_rank`) after it, in the same ranks
+    (one start of the two ranks for 9a, 9b, 9d, 10a, 10c and 10e's ep
+    runs)."""
     import torch
     import torch.distributed as dist
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4665,8 +5101,38 @@ def phase9_rank(timed_steps):
     t0 = time.monotonic()
     sp = _mp_sp(torch, dist, timed_steps)
     fsdp = _mp_fsdp(torch, dist, timed_steps)
-    return {"sp": sp, "fsdp": fsdp, "backend": dist.get_backend(),
-            "wall_s": time.monotonic() - t0}
+    out = {"sp": sp, "fsdp": fsdp, "backend": dist.get_backend(),
+           "wall_s": time.monotonic() - t0}
+    if cli_argv is not None:
+        t1 = time.monotonic()
+        out["cli"] = phase9_cli_rank(cli_argv)
+        out["cli_s"] = time.monotonic() - t1
+    if ep_runs is not None:
+        out["10"] = phase10_pair_rank(ep_runs)
+    return out
+
+
+def nccl_rank(data, work):
+    """Phases 9c, 10d and 11b in the one rank of an NCCL group of one, so
+    the rank starts once for the three: 9c's SP and FSDP steps, 10d's
+    paths, then 11b's re-formation (last: it re-creates the group). Each
+    part's seconds by the rank's clock."""
+    t0 = time.monotonic()
+    out = {"9c": phase9_rank(False)}
+    t1 = time.monotonic()
+    out["10d"] = phase10_nccl_rank()
+    t2 = time.monotonic()
+    out["11b"] = phase11_nccl_rank(data, work)
+    out["seconds"] = {"9c": t1 - t0, "10d": t2 - t1,
+                      "11b": time.monotonic() - t2}
+    return out
+
+
+# phase 9's NCCL rank's results, read by phases 10d and 11b
+NCCL_RESULTS = {}
+# phase 10's inputs, made by phase 9, and the results of its 2-rank work
+# in phase 9's ranks
+PAIR_RESULTS = {}
 
 
 def phase9_cli_rank(argv):
@@ -4749,13 +5215,34 @@ def phase_multiprocess(torch):
     work.mkdir(parents=True)
     stats = {}
 
-    # 9a, 9b: two ranks on the card over gloo
+    # 9d's data: the CLI runs last in 9a/9b's ranks
+    data = work / "tokens.bin"
+    write_token_file(str(data), np.random.default_rng(7).integers(
+        0, 32000, size=200_000))
+
+    def argv(ckpt):
+        return ["--data", str(data), "--ckpt", str(work / ckpt), "--model",
+                "small", "--seq", "512", "--batch", "4", "--steps", "6",
+                "--ckpt-interval", "2", "--device", "cuda", "--parallel",
+                "fsdp"]
+
+    # 9a, 9b, 9d's drained run, then 10a, 10c and 10e's ep runs: two
+    # ranks on the card over gloo
+    inputs = phase10_inputs()
+    check(MP_RANKS == PP_S, "phase 10's 2-rank work is not at 9's ranks")
     t0 = time.monotonic()
-    results = launch.run(phase9_rank, MP_RANKS, True, backend="gloo",
+    results = launch.run(phase9_rank, MP_RANKS, True, argv("drained"),
+                         inputs["ep_runs"], backend="gloo",
                          timeout=MP_TIMEOUT, workdir=str(work))
     own = ", ".join(f"{r['wall_s']:.1f}" for r in results)
-    log(f"phase 9a/9b: {MP_RANKS} ranks over gloo, wall "
-        f"{time.monotonic() - t0:.1f} s (ranks' own {own} s)")
+    cli_s = ", ".join(f"{r['cli_s']:.1f}" for r in results)
+    log(f"phase 9a/9b/9d (+10a/10c/10e): {MP_RANKS} ranks over gloo, wall "
+        f"{time.monotonic() - t0:.1f} s (ranks' own {own} s for 9a/9b, "
+        f"{cli_s} s for 9d's drained run, " + ", ".join(
+            f"{r['10']['pp_s'] + r['10']['ep_s'] + r['10']['cli_s']:.1f}"
+            for r in results) + " s for phase 10's)")
+    PAIR_RESULTS.update(inputs, ranks=[r.pop("10") for r in results])
+    cli_res = [r["cli"] for r in results]
     launches = {}
     for impl in ("ring", "ulysses"):
         for tag in ("bf16", "fp32"):
@@ -4827,10 +5314,26 @@ def phase_multiprocess(torch):
                stats, "fsdp")
     del results
 
-    # 9c: the same steps through an NCCL group of one rank
+    # 9c (with 10d's and 11b's work): the same steps through an NCCL group
+    # of one rank, started once for the three
     t0 = time.monotonic()
-    (one,) = launch.run(phase9_rank, 1, False, backend="nccl",
-                        timeout=MP_TIMEOUT, workdir=str(work))
+    nccl_work = Path(__file__).resolve().parent / "build" / "chip_smoke_nccl"
+    shutil.rmtree(nccl_work, ignore_errors=True)
+    nccl_work.mkdir(parents=True)
+    nccl_data = str(nccl_work / "tokens.bin")
+    write_token_file(nccl_data, np.random.default_rng(11).integers(
+        0, _el_cfg().vocab_size, size=4_000_000))
+    (both,) = launch.run(nccl_rank, 1, nccl_data, str(nccl_work),
+                         backend="nccl", timeout=MP_TIMEOUT,
+                         workdir=str(nccl_work))
+    shutil.rmtree(nccl_work, ignore_errors=True)
+    NCCL_RESULTS.update(both)
+    wall = time.monotonic() - t0
+    log(f"phases 9c/10d/11b: one NCCL rank at world size 1, wall "
+        f"{wall:.1f} s (the rank's own: " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in both["seconds"].items()) + ")")
+    stats["nccl_rank_wall_s"] = wall
+    one = both["9c"]
     check(one["backend"] == "nccl", f"phase 9c ran on {one['backend']}")
     for key, res in one["sp"].items():
         impl, tag = key.split("_")
@@ -4846,26 +5349,16 @@ def phase_multiprocess(torch):
           f"phase 9c: FSDP ran {one['fsdp']['calls']}")
     stats["nccl_fsdp_loss_diff"] = _check_parity("phase 9c NCCL FSDP",
                                                  one["fsdp"])
-    log(f"phase 9c: NCCL at world size 1, wall {time.monotonic() - t0:.1f} s;"
-        f" collectives called: SP ring {one['sp']['ring_bf16']['calls']}, "
+    log(f"phase 9c: NCCL at world size 1, {both['seconds']['9c']:.1f} s; "
+        f"collectives called: SP ring {one['sp']['ring_bf16']['calls']}, "
         f"FSDP {one['fsdp']['calls']}")
 
-    # 9d: the CLI, drained at 2 ranks and resumed at 1
-    data = work / "tokens.bin"
-    write_token_file(str(data), np.random.default_rng(7).integers(
-        0, 32000, size=200_000))
-
-    def argv(ckpt):
-        return ["--data", str(data), "--ckpt", str(work / ckpt), "--model",
-                "small", "--seq", "512", "--batch", "4", "--steps", "6",
-                "--ckpt-interval", "2", "--device", "cuda", "--parallel",
-                "fsdp"]
-
-    res = launch.run(phase9_cli_rank, MP_RANKS, argv("drained"),
-                     backend="gloo", timeout=MP_TIMEOUT, workdir=str(work))
-    check([r["rc"] for r in res] == [0] * MP_RANKS, f"phase 9d: {res}")
-    check("preempted at step 3; checkpoint 3 saved" in res[0]["out"],
-          f"phase 9d: the drain did not stop at step 3: {res[0]['out']}")
+    # 9d: the CLI, drained at 2 ranks (in 9a/9b's ranks) and resumed at 1
+    check([r["rc"] for r in cli_res] == [0] * MP_RANKS,
+          f"phase 9d: {cli_res}")
+    check("preempted at step 3; checkpoint 3 saved" in cli_res[0]["out"],
+          f"phase 9d: the drain did not stop at step 3: "
+          f"{cli_res[0]['out']}")
     check((work / "drained" / "2").is_dir(), "phase 9d: no checkpoint at 2")
     outs = {}
     for name in ("drained", "straight"):
@@ -5179,8 +5672,9 @@ def _mp_ep(torch, dist):
     return out
 
 
-def phase10_pair_rank():
-    """The body of one rank of phase 10a and 10c (2 ranks)."""
+def phase10_pair_rank(cli_runs):
+    """The body of one rank of phase 10a and 10c (2 ranks), then 10e's
+    CLI runs at 2 ranks (:func:`phase10_cli_rank`) in the same ranks."""
     import torch
     import torch.distributed as dist
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5189,18 +5683,25 @@ def phase10_pair_rank():
     pp = _mp_pp(torch, dist)
     t1 = time.monotonic()
     ep = _mp_ep(torch, dist)
-    return {"pp": pp, "ep": ep, "pp_s": t1 - t0,
-            "ep_s": time.monotonic() - t1}
+    t2 = time.monotonic()
+    cli = phase10_cli_rank(cli_runs)
+    return {"pp": pp, "ep": ep, "cli": cli, "pp_s": t1 - t0,
+            "ep_s": t2 - t1, "cli_s": time.monotonic() - t2}
 
 
-def phase10_quad_rank():
-    """The body of one rank of phase 10b (4 ranks)."""
+def phase10_quad_rank(cli_runs):
+    """The body of one rank of phase 10b (4 ranks), then 10e's CLI runs
+    at 4 ranks in the same ranks."""
     import torch
     import torch.distributed as dist
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.monotonic()
-    return {"3d": _mp_3d(torch, dist), "wall_s": time.monotonic() - t0}
+    td = _mp_3d(torch, dist)
+    t1 = time.monotonic()
+    cli = phase10_cli_rank(cli_runs)
+    return {"3d": td, "cli": cli, "wall_s": t1 - t0,
+            "cli_s": time.monotonic() - t1}
 
 
 def phase10_nccl_rank():
@@ -5306,38 +5807,85 @@ def _last_loss(out, step):
     return float(m.group(1))
 
 
-def phase_pp_tp_ep(torch):
-    """Phase 10: pipeline (10a), 3-D (10b) and expert parallelism (10c) at
-    Llama-3-8B width on the one card over gloo, held against their
-    one-rank steps; the same paths through NCCL at world size 1 (10d);
-    and the CLI's ``--parallel 3d`` and ``ep --moe-dispatch a2a`` (10e)."""
-    import contextlib
-    import io
+def phase10_inputs():
+    """Phase 10's work directory, made afresh with 10e's token files, its
+    ``argv(ckpt, parallel, ...)`` for ``train.main``, and 10e's runs:
+    ``ep_runs`` at 2 ranks (10a/10c's, which phase 9 starts) and
+    ``td_runs`` at 4 (10b's), each ``(argv, drain_at)``."""
     import shutil
 
     import numpy as np
 
-    from k8s_operator_libs_tpu_torch import train
     from k8s_operator_libs_tpu_torch.data.loader import write_token_file
+
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_pp"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    data = work / "tokens.bin"
+    write_token_file(str(data), np.random.default_rng(7).integers(
+        0, 32000, size=200_000))
+    moe_data = work / "moe_tokens.bin"      # moe_tiny's vocabulary is 512
+    write_token_file(str(moe_data), np.random.default_rng(7).integers(
+        0, 512, size=200_000))
+    cycle = work / "cycle.bin"
+    write_token_file(str(cycle), np.tile(np.arange(16), 20_000))
+
+    def argv(ckpt, parallel, model="small", steps=6, tokens=data,
+             extra=()):
+        return ["--data", str(tokens), "--ckpt", str(work / ckpt),
+                "--model", model, "--seq", "512" if model == "small"
+                else "256", "--batch", "4" if model == "small" else "8",
+                "--steps", str(steps), "--ckpt-interval", "2" if steps > 1
+                else "1", "--device", "cuda", "--parallel", parallel,
+                *extra]
+
+    a2a = ("--moe-dispatch", "a2a")
+    check(EP_RANKS == PP_S and TD_S * TD_TP == 4,
+          "phase 10e's CLI ranks are not 10a/10c's and 10b's")
+    ep_runs = [
+        (argv("a2a_straight", "ep", "moe_tiny", tokens=moe_data,
+              extra=a2a), None),
+        (argv("a2a_drained", "ep", "moe_tiny", tokens=moe_data,
+              extra=a2a), 4),
+        (argv("a2a_drained", "ep", "moe_tiny", tokens=moe_data,
+              extra=a2a), None)]
+    td_runs = [
+        (argv("drained3d", "3d"), 4),
+        (argv("moe3d", "3d", "moe_tiny", 1, cycle), None),
+        (argv("moe3d", "3d", "moe_tiny", 3, cycle), None)]
+    return {"work": work, "argv": argv, "ep_runs": ep_runs,
+            "td_runs": td_runs}
+
+
+def phase_pp_tp_ep(torch):
+    """Phase 10: pipeline (10a), 3-D (10b) and expert parallelism (10c) at
+    Llama-3-8B width on the one card over gloo, held against their
+    one-rank steps; the same paths through NCCL at world size 1 (10d);
+    and the CLI's ``--parallel 3d`` and ``ep --moe-dispatch a2a`` (10e).
+    10a, 10c and 10e's 2-rank runs ran in phase 9's ranks, 10d in its
+    NCCL rank; this phase checks their results."""
+    import contextlib
+    import io
+    import shutil
+
+    from k8s_operator_libs_tpu_torch import train
     from k8s_operator_libs_tpu_torch.parallel import launch
 
     held = torch.cuda.memory_allocated()
     check(held < 2**30, f"phase 10: {held / 2**30:.1f} GiB of the earlier "
                         f"phases is still allocated")
     torch.cuda.empty_cache()
-    work = Path(__file__).resolve().parent / "build" / "chip_smoke_pp"
-    shutil.rmtree(work, ignore_errors=True)
-    work.mkdir(parents=True)
+    work, argv = PAIR_RESULTS["work"], PAIR_RESULTS["argv"]
     stats, launches = {}, {}
 
-    # 10a and 10c: two ranks
-    t0 = time.monotonic()
-    pair = launch.run(phase10_pair_rank, PP_S, backend="gloo",
-                      timeout=MP_TIMEOUT, workdir=str(work))
-    log(f"phase 10a/10c: {PP_S} ranks over gloo, wall "
-        f"{time.monotonic() - t0:.1f} s (pipeline "
-        + ", ".join(f"{r['pp_s']:.1f}" for r in pair) + " s, experts "
-        + ", ".join(f"{r['ep_s']:.1f}" for r in pair) + " s by rank)")
+    # 10a and 10c (then 10e's ep runs): two ranks, phase 9's
+    pair = PAIR_RESULTS["ranks"]
+    ep_cli = [r["cli"] for r in pair]
+    ep_cli_s = max(r["cli_s"] for r in pair)
+    log(f"phase 10a/10c/10e: {PP_S} ranks over gloo, in phase 9's ranks "
+        f"(pipeline " + ", ".join(f"{r['pp_s']:.1f}" for r in pair)
+        + " s, experts " + ", ".join(f"{r['ep_s']:.1f}" for r in pair)
+        + " s by rank)")
     want = PP_LAYERS // PP_S * (PP_S + PP_M - 1)
     for r, res in enumerate(pair):
         # (L/S)(S + M - 1): every tick, bubbles included, each direction
@@ -5403,12 +5951,16 @@ def phase_pp_tp_ep(torch):
         stats[f"ep_a2a_ms_per_step_rank{r}"] = t["ms_per_step"]
     del pair
 
-    # 10b: four ranks
+    # 10b: four ranks (then 10e's 3d runs)
     t0 = time.monotonic()
-    quad = launch.run(phase10_quad_rank, TD_S * TD_TP, backend="gloo",
+    quad = launch.run(phase10_quad_rank, TD_S * TD_TP,
+                      PAIR_RESULTS["td_runs"], backend="gloo",
                       timeout=MP_TIMEOUT, workdir=str(work))
-    log(f"phase 10b: {TD_S * TD_TP} ranks over gloo, wall "
-        f"{time.monotonic() - t0:.1f} s")
+    runs = [r["cli"] for r in quad]
+    td_cli_s = max(r["cli_s"] for r in quad)
+    log(f"phase 10b/10e: {TD_S * TD_TP} ranks over gloo, wall "
+        f"{time.monotonic() - t0:.1f} s (10e's 3d runs "
+        + ", ".join(f"{r['cli_s']:.1f}" for r in quad) + " s by rank)")
     want = TD_LAYERS // TD_S * (TD_S + TD_M - 1)
     for r, res in enumerate(quad):
         _check_counts(f"phase 10b rank {r}", res["3d"], want)
@@ -5444,10 +5996,8 @@ def phase_pp_tp_ep(torch):
                       for n in FLASH_NAMES}
     del quad
 
-    # 10d: NCCL at world size 1
-    t0 = time.monotonic()
-    (one,) = launch.run(phase10_nccl_rank, 1, backend="nccl",
-                        timeout=MP_TIMEOUT, workdir=str(work))
+    # 10d: NCCL at world size 1 (in phase 9's NCCL rank)
+    one = NCCL_RESULTS["10d"]
     check(one["backend"] == "nccl", f"phase 10d ran on {one['backend']}")
     used = {"pp": ("psum", "pmax"),
             "3d": ("psum", "pmax", "all_gather", "reduce_scatter"),
@@ -5461,38 +6011,17 @@ def phase_pp_tp_ep(torch):
         check(all(res["calls"][k] > 0 for k in kinds),
               f"phase 10d: {name} called {res['calls']}")
         stats[f"nccl_{name}_loss_diff"] = d
-    log(f"phase 10d: NCCL at world size 1, wall {time.monotonic() - t0:.1f}"
-        f" s; loss through NCCL vs no process group: " + ", ".join(
+    log(f"phase 10d: NCCL at world size 1, "
+        f"{NCCL_RESULTS['seconds']['10d']:.1f} s in phase 9's NCCL rank; "
+        f"loss through NCCL vs no process group: "
+        + ", ".join(
             f"{n} {one[n]['loss']:.6f}/{one[n]['local_loss']:.6f}"
             for n in used) + "; collectives called: " + ", ".join(
             f"{n} {dict((k, v) for k, v in one[n]['calls'].items() if v)}"
             for n in used))
 
-    # 10e: the CLI
-    data = work / "tokens.bin"
-    write_token_file(str(data), np.random.default_rng(7).integers(
-        0, 32000, size=200_000))
-    moe_data = work / "moe_tokens.bin"      # moe_tiny's vocabulary is 512
-    write_token_file(str(moe_data), np.random.default_rng(7).integers(
-        0, 512, size=200_000))
-    cycle = work / "cycle.bin"
-    write_token_file(str(cycle), np.tile(np.arange(16), 20_000))
-
-    def argv(ckpt, parallel, model="small", steps=6, tokens=data,
-             extra=()):
-        return ["--data", str(tokens), "--ckpt", str(work / ckpt),
-                "--model", model, "--seq", "512" if model == "small"
-                else "256", "--batch", "4" if model == "small" else "8",
-                "--steps", str(steps), "--ckpt-interval", "2" if steps > 1
-                else "1", "--device", "cuda", "--parallel", parallel,
-                *extra]
-
+    # 10e: the CLI (its multi-rank runs ran in 10a/10c's and 10b's ranks)
     t0 = time.monotonic()
-    runs = launch.run(phase10_cli_rank, TD_S * TD_TP, [
-        (argv("drained3d", "3d"), 4),
-        (argv("moe3d", "3d", "moe_tiny", 1, cycle), None),
-        (argv("moe3d", "3d", "moe_tiny", 3, cycle), None)],
-        backend="gloo", timeout=MP_TIMEOUT, workdir=str(work))
     check(all(c["rc"] == 0 for r in runs for c in r),
           f"phase 10e: {[[c['rc'] for c in r] for r in runs]}")
     drained, first, third = (c["out"] for c in runs[0])
@@ -5532,15 +6061,7 @@ def phase_pp_tp_ep(torch):
         f"{abs(a - b):.2e}, bound 1e-3 relative)")
     stats.update(cli_3d_step6_loss_resumed=b, cli_3d_step6_loss_straight=a,
                  cli_moe3d_losses=[l1, l3])
-    a2a = ("--moe-dispatch", "a2a")
-    runs = launch.run(phase10_cli_rank, EP_RANKS, [
-        (argv("a2a_straight", "ep", "moe_tiny", tokens=moe_data,
-              extra=a2a), None),
-        (argv("a2a_drained", "ep", "moe_tiny", tokens=moe_data,
-              extra=a2a), 4),
-        (argv("a2a_drained", "ep", "moe_tiny", tokens=moe_data,
-              extra=a2a), None)],
-        backend="gloo", timeout=MP_TIMEOUT, workdir=str(work))
+    runs = ep_cli
     check(all(c["rc"] == 0 for r in runs for c in r),
           f"phase 10e: {[[c['rc'] for c in r] for r in runs]}")
     straight, drained, resumed = (c["out"] for c in runs[0])
@@ -5553,8 +6074,9 @@ def phase_pp_tp_ep(torch):
                                   f"drain and a resume vs {a}")
     log(f"phase 10e: --parallel ep --moe-dispatch a2a (moe_tiny) at "
         f"{EP_RANKS} ranks drained at 3 and resumed: step-6 loss {b}, "
-        f"uninterrupted {a} (diff {abs(a - b):.2e}); CLI wall "
-        f"{time.monotonic() - t0:.1f} s")
+        f"uninterrupted {a} (diff {abs(a - b):.2e}); CLI wall: the ranks' "
+        f"runs {ep_cli_s:.1f} s (ep) and {td_cli_s:.1f} s (3d), the "
+        f"one-rank resumes {time.monotonic() - t0:.1f} s")
     stats.update(cli_a2a_step6_loss_resumed=b, cli_a2a_step6_loss_straight=a)
     shutil.rmtree(work, ignore_errors=True)
     stats["launches"] = launches
@@ -6056,10 +6578,9 @@ def phase_elastic(torch):
     shutil.rmtree(ckpt)
     shutil.rmtree(mirror)
 
-    # 11b: the NCCL re-formation at world size 1
-    t1 = time.monotonic()
-    (one,) = launch.run(phase11_nccl_rank, 1, data, str(work),
-                        backend="nccl", timeout=MP_TIMEOUT, workdir=str(work))
+    # 11b: the NCCL re-formation at world size 1 (run last in phase 9's
+    # NCCL rank, on 11c's tokens)
+    one = NCCL_RESULTS["11b"]
     a, b = one["resized"], one["straight"]
     check(a["reshards"] == 1 and a["backend"] == "nccl"
           and a["generation"] == 1 and a["calls"]["all_gather"] > 0,
@@ -6069,7 +6590,8 @@ def phase_elastic(torch):
                                       f"after the NCCL re-formation vs "
                                       f"{b['losses']} without it")
     log(f"phase 11b: NCCL re-formed at world size 1 (the only NCCL resize "
-        f"one card allows), wall {time.monotonic() - t1:.1f} s; step 2 loss "
+        f"one card allows), {NCCL_RESULTS['seconds']['11b']:.1f} s in phase "
+        f"9's NCCL rank; step 2 loss "
         f"{a['losses'][2]:.6f} after it, {b['losses'][2]:.6f} without")
     stats["nccl_step2_loss"] = a["losses"][2]
 
@@ -6530,6 +7052,7 @@ def main():
         moe_serve.update(timed("phase 7b", phase_moe_parity, torch))
         training = timed("phase 5", phase_train, torch)
         training.update(timed("phase 6", phase_train_parity, torch))
+        training.update(timed("phase 6b", phase_trainer_operator, torch, smi))
         moe_train = timed("phase 8", phase_moe_train, torch)
         moe_train.update(timed("phase 8b", phase_moe_train_parity, torch))
         multi = timed("phase 9", phase_multiprocess, torch)
@@ -6570,6 +7093,12 @@ def main():
              training["launches_flash_bwd_dq"]),
             ("flash_bwd_dkv", "flash_attention_tc", f"{jax_attn}:519",
              training["launches_flash_bwd_dkv"]),
+            *((f"{kname}_operator", "flash_attention_tc",
+               f"{jax_attn}:{line}",
+               training["operator_launches"][kname])
+              for kname, line in (("flash_forward", 236),
+                                  ("flash_bwd_dq", 439),
+                                  ("flash_bwd_dkv", 519))),
             ("paged_decode_moe", "paged_decode", f"{jax_attn}:734",
              moe_serve["launches"]),
             ("flash_forward_moe", "flash_attention_tc", f"{jax_attn}:236",
@@ -6588,7 +7117,8 @@ def main():
         # the speculative path's draft steps, the serving tier's replicas,
         # the replicas behind the router binary, those under the rolling
         # upgrade, the quarantine-and-repair and the operator binary's
-        # handover, and the MoE paths run their kernels at phase 2's shapes
+        # handover, phase 6b's trainer under the operator and the MoE
+        # paths run their kernels at phase 2's shapes
         # (A-K4 at the serving shape, A-K1-3 at
         # H 32, KV 8, Dh 128, B 2, T 2048), so their rows carry phase 2's
         # measurements; phase 9's rows carry those of phase 2's cases at
@@ -6600,7 +7130,7 @@ def main():
                      "paged_decode_upgrade": "paged_decode",
                      "paged_decode_health": "paged_decode",
                      "paged_decode_handover": "paged_decode"}.get(
-            name, name.split("_moe")[0])]
+            name, name.split("_moe")[0].removesuffix("_operator"))]
         rows.append({"name": name, "route": "cuda",
                      "source": CSRC.format(source), "replaces": replaces,
                      "launches": launches, "max_abs_err": k["max_abs_err"],

@@ -224,7 +224,13 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "health/monitor.py", "health/metrics.py", "gpu/operator.py",
         "consts.py", "core/httpapi.py", "core/leaderelection.py",
         "obs/profile.py", "obs/billing.py", "crdutil/__init__.py",
-        "crdutil/crdutil.py", "apply_crds.py", "operator.py")} <= names
+        "crdutil/crdutil.py", "apply_crds.py", "operator.py",
+        "obs/attribution.py", "chaos/__init__.py", "chaos/__main__.py",
+        "chaos/faults.py", "chaos/scenario.py", "chaos/injector.py",
+        "chaos/invariants.py", "chaos/campaign.py",
+        "chaos/crash/__init__.py", "chaos/crash/__main__.py",
+        "chaos/crash/registry.py", "chaos/crash/explorer.py",
+        "status.py")} <= names
     assert len(files) > 20
     banned = ("jax", "jaxlib", "ml_dtypes", "k8s_operator_libs_tpu")
     for path in files:

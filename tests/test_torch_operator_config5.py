@@ -140,3 +140,45 @@ def test_zero_loss_rolling_upgrade_with_a_live_job(tmp_path):
                   for p in pods) == ["v2"] * CLIQUE_NODES
     for j in jobs.values():
         j.trainer.close()
+
+
+def test_phase_6b_sequence_on_the_cpu(tmp_path):
+    """``chip_smoke.py`` phase 6b's sequence, run here at the tiny config
+    on the CPU: a ``CheckpointingTrainer`` on ``gpu-t`` drained by the
+    port's ``GPUOperator`` during a rolling driver upgrade (the chaos
+    invariants held every tick), resumed at the drained step + 1 with the
+    kept loss, its one unavailability window split by the port's
+    attribution (the status CLI's ``--goodput`` split the same), and
+    that split equal to the reference's ``attribute_downtime`` and
+    ``downtime_summary`` on the same ledger and journey."""
+    import torch
+
+    import chip_smoke
+    from k8s_operator_libs_tpu.obs import attribution as ref_attribution
+    from k8s_operator_libs_tpu_torch.models.llama import LlamaConfig
+    from k8s_operator_libs_tpu_torch.obs import attribution
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        out = chip_smoke.trainer_under_operator(
+            torch, LlamaConfig.tiny(), "cpu", tmp_path / "operator",
+            "NVIDIA-H100-80GB-HBM3", shape=(2, 32))
+    finally:
+        torch.set_num_threads(threads)
+    s = out["drain_step"]
+    assert s > chip_smoke.TO_WARM
+    assert out["steps"] == s + chip_smoke.TO_RESUMED
+    assert out["loss_resumed"] == out["loss_kept"]
+    assert set(chip_smoke.TO_PHASES) <= set(out["phases"])
+    want = ref_attribution.attribute_downtime(out["records"],
+                                              out["journey"])
+    assert attribution.attribute_downtime(out["records"],
+                                          out["journey"]) == want
+    assert want[0]["phases"] == out["phases"]
+    (ref_window,) = ref_attribution.windows_from_journey(out["journey"])
+    kw = {k: out["downtime"][k] for k in ("ckpt_fetch_s", "ckpt_write_s",
+                                          "ckpt_restore_s", "rewarmup_s")}
+    ref = ref_attribution.downtime_summary(ref_window, **kw)
+    assert {k: v for k, v in out["downtime"].items() if k != "source"} \
+        == {k: v for k, v in ref.items() if k != "source"}

@@ -2,10 +2,10 @@
 accounting (``core/client.py:CountingClient``) held to the JAX package's
 own tests (``tests/test_obs_profile.py``), run on the port through
 :mod:`torch_twin` with ``GPUOperator`` where they build ``TPUOperator``
-and the port's operator binary where they load ``cmd/operator.py``.
-Tests of the chaos campaign and of ``cmd/status.py``'s views wait for
-those ports, and the fleet benchmark's smoke test runs the JAX package's
-``tools/fleetbench.py``.
+and the port's operator binary and status CLI where they load
+``cmd/operator.py`` and ``cmd/status.py``; the chaos campaign's tests run
+the port's ``chaos/``. The fleet benchmark's smoke test runs the JAX
+package's ``tools/fleetbench.py`` and is left out.
 
 Then one seeded reconcile schedule runs under both packages' profilers,
 and every tick profile (handlers, self-times, apiserver calls by verb
@@ -19,26 +19,15 @@ import pytest
 
 from torch_twin import reference_tests
 
-CHAOS = "drives the chaos campaign (chaos/)"
-STATUS = "renders through cmd/status.py"
 globals().update(reference_tests(
     "test_obs_profile.py",
-    keep=["chaos.campaign", "chaos.injector", "chaos.scenario",
-          "chaos.invariants", "tpu.topology"],
+    keep=["tpu.topology"],
     renames=[("k8s_operator_libs_tpu_torch.tpu.operator import",
               "k8s_operator_libs_tpu_torch.gpu.operator import"),
              ("TPUOperator)\n", "GPUOperator as TPUOperator)\n"),
              ("hub.render()", 'hub.render(prefix="tpu_operator")')],
-    binaries=["operator"],
+    binaries=["operator", "status"],
     exclude={
-        "test_counting_client_wraps_chaos_client_lease_ops_counted_not_delayed":
-            CHAOS,
-        "test_campaign_identical_with_profiler_on_and_off": CHAOS,
-        "test_campaign_profile_deterministic_per_seed": CHAOS,
-        "test_journey_invariant_accepts_marker_trim_rejects_reset": CHAOS,
-        "test_status_timeline_renders_truncation_marker": STATUS,
-        "test_status_profile_renders_critical_path": STATUS,
-        "test_status_profile_unreachable_exits_2": STATUS,
         "test_fleetbench_smoke_tiny":
             "runs tools/fleetbench.py, the JAX package's fleet benchmark, "
             "which imports that package whole (its port is a benchmark's "

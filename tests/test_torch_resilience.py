@@ -5,10 +5,10 @@ The reference's own tests (``tests/test_resilience.py``: the breaker,
 retry and 429 pacing, the exemptions, the options, the drain and the
 health monitor over the resilient client, the operator's degraded mode)
 run on the port through :mod:`torch_twin`, its operator being the port's
-``GPUOperator``, and its ``counting_client`` the port's
-(``obs/profile.py``) where a test counts apiserver calls. Left out: the chaos campaign's blackout
-and crash scenarios and the crash-point explorer of ``tools/crash``,
-which drive the JAX package's operator, and ``cmd/status.py``'s view.
+``GPUOperator``, its ``counting_client`` the port's
+(``obs/profile.py``) where a test counts apiserver calls, its chaos
+campaign and crash-point explorer the port's (``chaos/``,
+``chaos/crash/``) and its status CLI the port's ``status.py``.
 Then one seeded schedule of calls (reads, writes, watches, leases,
 events, safety writes) against an apiserver that answers with 5xx, 429s
 with and without ``retry_after`` and timeouts goes through both
@@ -23,25 +23,14 @@ import pytest
 
 from torch_twin import reference_tests
 
-CHAOS = "the chaos campaign (its port comes with chaos/)"
-CRASH = ("tools/crash's explorer, which drives the JAX package's "
-         "operator")
 globals().update(reference_tests(
     "test_resilience.py",
-    keep=["chaos.campaign", "chaos.scenario"],
     renames=[("k8s_operator_libs_tpu_torch.tpu.operator import",
               "k8s_operator_libs_tpu_torch.gpu.operator import"),
-             ("TPUOperator)\n", "GPUOperator as TPUOperator)\n")],
-    exclude={"test_blackout_mid_upgrade_e2e": CHAOS,
-             "test_blackout_replay_is_byte_identical": CHAOS,
-             "test_operator_crash_fault_reboots_and_converges": CHAOS,
-             "test_crash_registry_classifier": CRASH,
-             "test_crash_plan_validation": CRASH,
-             "test_crash_sweep_covers_every_registered_site": CRASH,
-             "test_crash_points_converge_and_replay": CRASH,
-             "test_alert_incarnation_regression_pin": CRASH,
-             "test_status_resilience_view_and_banner":
-                 "cmd/status.py's resilience view"}))
+             ("TPUOperator)\n", "GPUOperator as TPUOperator)\n"),
+             ("from tools.crash.",
+              "from k8s_operator_libs_tpu_torch.chaos.crash.")],
+    binaries=["status"]))
 
 from k8s_operator_libs_tpu_torch.core.fakecluster import (  # noqa: E402
     FakeCluster as PortCluster)

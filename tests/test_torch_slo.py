@@ -3,9 +3,9 @@
 
 The reference's own tests (``tests/test_slo.py``) run on the port through
 :mod:`torch_twin`, its operator being the port's ``GPUOperator`` and its
-operator binary the port's ``operator.py``; one is left out: the
-slow-drain episode reads ``/alerts`` through ``cmd/status.py --slo`` in
-its middle, so its operator part is twinned below, tick by tick.
+operator binary and status CLI the port's ``operator.py`` and
+``status.py``; the slow-drain episode's operator part is also twinned
+below, tick by tick, against the reference's.
 Seeded streams of gauges, counters and histograms then go through both
 packages' ``TimeSeriesStore``, ``SLOEngine`` and ``AlertManager``, and
 every query, evaluation, alert state and event is compared with ``==``.
@@ -26,11 +26,7 @@ globals().update(reference_tests(
              # the port's hub renders under the workload prefix unless
              # told (its first users were the serving metrics)
              ("hub.render()", 'hub.render(prefix="tpu_operator")')],
-    binaries=["operator"],
-    exclude={"test_slow_drain_episode_fires_and_resolves_drain_latency_alert":
-             "reads /alerts through cmd/status.py --slo; its operator part "
-             "is test_slow_drain_pages_resolves_and_recovers_like_the_"
-             "reference below"}))
+    binaries=["operator", "status"]))
 
 from torch_operator_twin import NS, add_ds, run_twins  # noqa: E402
 

@@ -2,9 +2,10 @@
 package's.
 
 The reference's own tests (``tests/test_usage.py``) run on the port
-through :mod:`torch_twin`, billing (``obs/billing.py``) included, except
-those of ``cmd/status.py``'s usage views, which come with its port. Then seeded node-signal schedules (serving lanes,
-training, maintenance states, quarantine, the market, degraded ticks)
+through :mod:`torch_twin`, billing (``obs/billing.py``) included, and
+``cmd/status.py``'s usage views on the port's ``status.py``. Then seeded
+node-signal schedules (serving lanes, training, maintenance states,
+quarantine, the market, degraded ticks)
 go through both meters and every sealed record, payload, efficiency and
 metrics text is compared with ``==``; a recording stand-in for the
 billing engine sees the same calls from both.
@@ -17,14 +18,7 @@ import pytest
 
 from torch_twin import reference_tests
 
-STATUS = "cmd/status.py's usage views"
-globals().update(reference_tests(
-    "test_usage.py",
-    exclude={"test_render_usage_tables_and_waste_events": STATUS,
-             "test_run_usage_view_exit_codes": STATUS,
-             "test_efficiency_banner_contents_and_best_effort": STATUS,
-             "test_banner_lines_precedence_is_pinned": STATUS,
-             "test_dashboard_frame_leads_with_banners": STATUS}))
+globals().update(reference_tests("test_usage.py", binaries=["status"]))
 
 ROOTS = {"reference": "k8s_operator_libs_tpu",
          "port": "k8s_operator_libs_tpu_torch"}
