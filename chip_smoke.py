@@ -354,6 +354,14 @@ Phases, each fatal on failure:
    per rank and one rank's alone (two points: 32 tokens less 2), the
    bytes each decode step sums per rank, weights held and peak memory.
 
+After every phase (and after 3, 3b and 3c inside phase 3), and at the
+end of every rank that runs a token loader or the training CLI, no
+thread of a serving runtime (``serve-stepper``, ``serve-drain``), a
+checkpoint uploader (``ckpt-uploader``) or a token loader
+(``tokenloader-prefetch``) may still be alive: the port names them
+through ``utils/threads.py``, and ``threads.live_threads`` finds a leaked
+one by name, which the run then fails naming the phase.
+
 Phases run in the order 1, 2, 3, 4, 7, 5, 6, 8, 9, 10, 11, 12, each with
 its wall seconds. At the end it prints ``{"kernels": [...]}``, then the serving and
 training numbers and the card's name, each on a line of its own; the last
@@ -414,6 +422,39 @@ def check(cond, msg):
 
 def log(msg):
     print(msg, flush=True)
+
+
+# the port's workload threads, named through its utils/threads.py: none
+# may outlive the phase (or rank) that started it
+WORKLOAD_THREADS = ("serve-stepper", "serve-drain", "ckpt-uploader",
+                    "tokenloader-prefetch")
+# the thread checks made in this process and the seconds they took
+THREAD_CHECKS = {"n": 0, "s": 0.0}
+
+
+def check_threads_stopped(where):
+    """Fail, naming ``where`` and the thread, if a serving runtime's
+    stepper or drain, a checkpoint uploader or a token loader's prefetch
+    thread is still alive once ``where`` stopped its components."""
+    from k8s_operator_libs_tpu_torch.utils import threads
+    t0 = time.monotonic()
+    left = [h.name for prefix in WORKLOAD_THREADS
+            for h in threads.live_threads(prefix)]
+    THREAD_CHECKS["n"] += 1
+    THREAD_CHECKS["s"] += time.monotonic() - t0
+    check(not left, f"{where}: thread(s) still alive after it stopped its "
+                    f"components: {', '.join(left)}")
+
+
+def rank_name():
+    """``rank <r>`` of the process group this process is in, else its
+    pid."""
+    import os
+
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return f"rank {dist.get_rank()}"
+    return f"pid {os.getpid()}"
 
 
 # ------------------------------------------------------------------ timing
@@ -1151,9 +1192,12 @@ def phase_serve(torch):
     stats["logit_max_diff"] = diff
     stats.update(profile_decode(torch, srv, CHUNK))
     del srv, rt, cache, lk, lp
+    check_threads_stopped("phase 3")
     plain_tokens = [body["tokens"] for _, body in results]
     stats.update(phase_spec_serve(torch, params, cfg, prompts, plain_tokens))
+    check_threads_stopped("phase 3b")
     stats.update(phase_migrate(torch, params, cfg))
+    check_threads_stopped("phase 3c")
     stats.update(timed("phase 3d", phase_fleet, torch, params, cfg, prompts,
                        plain_tokens))
     stats.update(timed("phase 3e", phase_router, torch, params, cfg, prompts,
@@ -5109,6 +5153,7 @@ def phase9_rank(timed_steps, cli_argv=None, ep_runs=None):
         out["cli_s"] = time.monotonic() - t1
     if ep_runs is not None:
         out["10"] = phase10_pair_rank(ep_runs)
+    check_threads_stopped(f"phase 9 {rank_name()}")
     return out
 
 
@@ -5125,6 +5170,7 @@ def nccl_rank(data, work):
     out["11b"] = phase11_nccl_rank(data, work)
     out["seconds"] = {"9c": t1 - t0, "10d": t2 - t1,
                       "11b": time.monotonic() - t2}
+    check_threads_stopped(f"phases 9c-11b {rank_name()}")
     return out
 
 
@@ -5700,6 +5746,7 @@ def phase10_quad_rank(cli_runs):
     td = _mp_3d(torch, dist)
     t1 = time.monotonic()
     cli = phase10_cli_rank(cli_runs)
+    check_threads_stopped(f"phase 10b {rank_name()}")
     return {"3d": td, "cli": cli, "wall_s": t1 - t0,
             "cli_s": time.monotonic() - t1}
 
@@ -6255,6 +6302,7 @@ def phase11_member(data, work, survivors, grown, marker):
         book.close()
     if not out["reclaimed"]:
         out.update(_el_twins(torch, dist, ckpt, data, membership, params))
+    check_threads_stopped(f"phase 11a member {rank_name()}")
     return out
 
 
@@ -6275,6 +6323,7 @@ def phase11_joiner(data, work):
         book.close()
     out["joined"] = joined
     out.update(_el_twins(torch, dist, ckpt, data, membership, params))
+    check_threads_stopped(f"phase 11a joiner {rank_name()}")
     return out
 
 
@@ -7013,10 +7062,12 @@ def _log_bytes(tag, per_step, stats, key):
 
 
 def timed(label, fn, *args):
-    """``fn(*args)``, its wall seconds logged."""
+    """``fn(*args)``, its wall seconds logged; then no workload thread
+    may be left alive (:func:`check_threads_stopped`)."""
     t0 = time.monotonic()
     out = fn(*args)
     log(f"{label}: wall {time.monotonic() - t0:.1f} s")
+    check_threads_stopped(label)
     return out
 
 
@@ -7064,6 +7115,8 @@ def main():
             RuntimeError, ValueError) as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
+    log(f"workload-thread checks in this process: {THREAD_CHECKS['n']}, "
+        f"{THREAD_CHECKS['s'] * 1e3:.3f} ms in all ({smi})")
     rows = []
     jax_attn = f"{REFERENCE}/ops/attention.py"
     for name, source, replaces, launches in (

@@ -22,12 +22,12 @@ import logging
 import os
 import queue
 import subprocess
-import threading
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
 from ..ops.build import BUILD_DIR, CSRC_DIR
+from ..utils import threads
 
 logger = logging.getLogger(__name__)
 
@@ -36,7 +36,7 @@ HEADER_BYTES = 8
 PREFETCH = 2             # batches the producer thread keeps ready
 CXX_FLAGS = ("-O3", "-shared", "-fPIC")
 
-_lib_lock = threading.Lock()
+_lib_lock = threads.make_lock("tokenloader-native-compile")
 _lib: Optional[ctypes.CDLL] = None
 
 
@@ -159,8 +159,8 @@ class TokenDataset:
                                  offset=HEADER_BYTES if elem else 0)
             self.num_tokens = int(self._mm.shape[0])
         self._closed = False
-        self._streams_lock = threading.Lock()
-        self._streams: List[Tuple[threading.Event, threading.Thread]] = []
+        self._streams_lock = threads.make_lock("tokenloader-streams")
+        self._streams: List[Tuple[object, object]] = []  # (stop, thread)
 
     @property
     def native(self) -> bool:
@@ -241,7 +241,7 @@ class TokenDataset:
         produced PREFETCH ahead by a thread. A producer's exception is
         raised to the consumer; closing the dataset ends the stream."""
         q: "queue.Queue" = queue.Queue(maxsize=PREFETCH)
-        stop = threading.Event()
+        stop = threads.make_event("tokenloader-prefetch-stop")
 
         def put(item) -> bool:
             while not stop.is_set():
@@ -263,8 +263,8 @@ class TokenDataset:
                 step += 1
                 put(item)
 
-        t = threading.Thread(target=producer, daemon=True,
-                             name="tokenloader-prefetch")
+        t = threads.spawn(f"tokenloader-prefetch-{id(q):x}", producer,
+                          start=False)
         with self._streams_lock:
             self._streams.append((stop, t))
         t.start()

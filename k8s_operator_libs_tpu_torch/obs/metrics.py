@@ -16,8 +16,9 @@ from __future__ import annotations
 
 import bisect
 import re
-import threading
 from typing import Dict, List, Optional, Tuple
+
+from ..utils import threads
 
 DEFAULT_BUCKETS: Tuple[float, ...] = (
     0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
@@ -500,7 +501,7 @@ class MetricsHub:
     render."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = threads.make_lock("metrics-hub")
         self._hists: Dict[str, _Histogram] = {}
         self._gauges: Dict[str, Dict[Tuple[Tuple[str, str], ...],
                                      float]] = {}

@@ -55,7 +55,6 @@ import json
 import logging
 import signal
 import sys
-import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
@@ -71,6 +70,7 @@ from .obs.metrics import MetricsHub, render_gauges
 from .obs.reqtrace import (TRACE_HEADER, RequestTraceRecorder,
                            parse_trace_header)
 from .obs.trace import JsonlSink, Tracer
+from .utils import threads
 from .utils.clock import RealClock
 
 logger = logging.getLogger("torch-serve")
@@ -98,7 +98,7 @@ class ServingRuntime:
                                      metrics=self.hub, tracer=tracer,
                                      draft=draft, spec_k=spec_k)
         self.chunk = chunk
-        self.lock = threading.Lock()
+        self.lock = threads.make_lock("serve-runtime")
         self.results = {}
         self.events = {}
         # rid -> SSE event dicts ({"seq", "token"} per token, drain
@@ -108,10 +108,8 @@ class ServingRuntime:
         self.draining = False
         self.failed = False
         self.handoff = None
-        self._stop = threading.Event()
-        self.thread = threading.Thread(target=self._loop, name="serve-stepper",
-                                       daemon=True)
-        self.thread.start()
+        self._stop = threads.make_event("serve-stepper-stop")
+        self.thread = threads.spawn("serve-stepper", self._loop)
 
     def submit(self, tokens, max_new, stream=False, trace=None):
         """(rid, completion event), or None while draining/failed.
@@ -120,7 +118,8 @@ class ServingRuntime:
             if self.draining or self.failed:
                 return None
             rid = self.srv.submit(np.asarray(tokens, np.int32), max_new)
-            ev = self.events[rid] = threading.Event()
+            ev = threads.make_event(f"serve-result-{rid}")
+            self.events[rid] = ev
             if stream:
                 self.streams[rid] = []
                 self._stream_seq[rid] = 0
@@ -168,7 +167,7 @@ class ServingRuntime:
             payload["kv"] = decode_kv_payload(payload["kv"])
             rid = self.srv.adopt_slot(payload)
             generated = [int(t) for t in payload["generated"]]
-            self.events[rid] = threading.Event()
+            self.events[rid] = threads.make_event(f"serve-result-{rid}")
             self.streams[rid] = []
             # sequence numbers continue from the donor's splice point
             self._stream_seq[rid] = len(generated)
@@ -576,8 +575,8 @@ def main(argv=None):
     httpd = make_server(rt, args.host, args.port)
 
     def on_term(signum, frame):
-        threading.Thread(target=drain_then_shutdown,
-                         args=(rt, httpd, args.grace), daemon=True).start()
+        threads.spawn("serve-drain", drain_then_shutdown,
+                      args=(rt, httpd, args.grace))
 
     signal.signal(signal.SIGTERM, on_term)
     signal.signal(signal.SIGINT, on_term)

@@ -190,8 +190,8 @@ class ReplicaPool:
         self._metrics = metrics
         self._clock = clock or RealClock()
         self._prefix = metrics_prefix
-        self.replicas: Dict[str, Replica] = {}
         self._registry_lock = threads.make_lock("replica-pool-registry")
+        self._replicas: Dict[str, Replica] = {}
         self.node_states: Dict[str, NodeState] = {}
         self.node_refresh_errors = 0
         self.scrape_gate: Optional[Callable[[Replica], None]] = None
@@ -204,6 +204,13 @@ class ReplicaPool:
 
     # ---------------------------------------------------------- registry
 
+    @property
+    def replicas(self) -> Dict[str, Replica]:
+        """The registry, id -> replica: the dict last published, read
+        under the registry lock (see :meth:`register`)."""
+        with self._registry_lock:
+            return self._replicas
+
     def register(self, replica: Replica) -> Replica:
         """Add (or replace — a respawned generation reuses the node, not
         the id) a replica and mirror the registration onto its node.
@@ -213,9 +220,10 @@ class ReplicaPool:
         handler while its ticker iterates the registry (:meth:`scrape`,
         :meth:`refresh_nodes`, :meth:`admitting`), and a dict that
         changes size under an iteration raises. Each reader iterates the
-        dict it read, whole; writers take the registry lock."""
+        dict it read, whole; readers and writers take the registry
+        lock."""
         with self._registry_lock:
-            self.replicas = {**self.replicas, replica.id: replica}
+            self._replicas = {**self._replicas, replica.id: replica}
         if self._client is not None:
             annotations = {}
             if replica.url:
@@ -245,9 +253,9 @@ class ReplicaPool:
 
     def deregister(self, replica_id: str) -> Optional[Replica]:
         with self._registry_lock:
-            replicas = dict(self.replicas)
+            replicas = dict(self._replicas)
             replica = replicas.pop(replica_id, None)
-            self.replicas = replicas
+            self._replicas = replicas
         if replica is not None and self._client is not None:
             try:
                 self._client.patch_node_metadata(

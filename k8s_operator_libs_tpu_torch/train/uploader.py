@@ -33,10 +33,10 @@ from __future__ import annotations
 import logging
 import os
 import shutil
-import threading
 import uuid
 from typing import List, Optional
 
+from ..utils import threads
 from ..utils.clock import Clock, RealClock
 
 logger = logging.getLogger(__name__)
@@ -150,14 +150,12 @@ class CheckpointUploader:
         self.durable_dir = durable_dir
         self.poll_seconds = poll_seconds
         self._clock = clock or RealClock()
-        self._stop = threading.Event()
-        self._idle = threading.Event()
-        self._thread: Optional[threading.Thread] = None
+        self._stop = threads.make_event("ckpt-uploader-stop")
+        self._idle = threads.make_event("ckpt-uploader-idle")
+        self._thread = None
 
     def start(self) -> "CheckpointUploader":
-        self._thread = threading.Thread(target=self._run, daemon=True,
-                                        name="ckpt-uploader")
-        self._thread.start()
+        self._thread = threads.spawn("ckpt-uploader", self._run)
         return self
 
     def _caught_up(self) -> bool:

@@ -7,8 +7,9 @@ drive time by hand; the default is the monotonic wall clock.
 from __future__ import annotations
 
 import abc
-import threading
 import time
+
+from . import threads
 
 
 class Clock(abc.ABC):
@@ -41,7 +42,7 @@ class FakeClock(Clock):
 
     def __init__(self, start: float = 0.0):
         self._now = start
-        self._lock = threading.Lock()
+        self._lock = threads.make_lock("fake-clock")
 
     def now(self) -> float:
         with self._lock:

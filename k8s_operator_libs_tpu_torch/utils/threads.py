@@ -1,14 +1,14 @@
 """Named threads, locks and events (a copy of the JAX package's
 ``utils/threads.py``).
 
-The router binary's lock and drain-watch ticker, the request recorder's
-lock and the replica pool's registry lock are made here, so every
-thread has a name (:func:`live_threads` answers which one leaked after
-a stop) and each thread keeps the stack of named locks it holds
-(:func:`held_locks`). A backend with the :class:`RealBackend` surface
-may be installed in place of the stdlib one (:func:`use_backend`), as a
-cooperative scheduler that runs the real components one thread at a
-time does.
+The port's threads, locks and events are made here, each under the
+name the JAX package gives it (``obs/trace.py`` keeps raw locks, as the
+reference does), so every thread has a name (:func:`live_threads`
+answers which one leaked after a stop) and each thread keeps the stack
+of named locks it holds (:func:`held_locks`). A backend with the
+:class:`RealBackend` surface may be installed in place of the stdlib
+one (:func:`use_backend`): ``race/scheduler.py``'s cooperative
+scheduler is one, and runs the real components one thread at a time.
 
 Usage::
 
