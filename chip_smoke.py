@@ -4437,7 +4437,7 @@ def trainer_under_operator(torch, cfg, device, work, product, smi="",
         f" s split " + ", ".join(f"{k} {v:.4f}" for k, v in
                                  sorted(phases.items(), key=lambda kv:
                                         -kv[1]))
-        + f" s (status --goodput the same); the journey's window "
+        + " s (status --goodput the same); the journey's window "
         + ", ".join(f"{k} {v:.4f}" for k, v in window.as_dict().items()))
     log(f"{lead}: downtime_summary: " + json.dumps(
         {k: (round(v, 6) if isinstance(v, float) else v)
@@ -4732,7 +4732,7 @@ def phase_moe_train(torch):
     log(f"phase 8: losses {' '.join(f'{x:.4f}' for x in losses)} (warm-up "
         f"first); aux after the steps {aux:.4f}; launches per step "
         + ", ".join(f"{n} {launches[n] // TRAIN_STEPS}" for n in FLASH_NAMES)
-        + f", all on route wgmma")
+        + ", all on route wgmma")
     stats = {"ms_per_step": ms, "tokens_per_s": tokens_per_step / ms * 1e3,
              "model_flops_per_step_dense_dispatch": flops,
              "model_flop_share_dense_dispatch": share,

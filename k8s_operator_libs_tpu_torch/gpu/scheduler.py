@@ -49,7 +49,7 @@ import dataclasses
 import logging
 from typing import Dict, List, Optional
 
-from ..core.objects import (ObjectMeta, Pod, PodSpec, Service, ServicePort,
+from ..core.objects import (ObjectMeta, Pod, Service, ServicePort,
                             ServiceSpec)
 from ..utils.clock import Clock, RealClock
 from ..wire import WORKLOAD_LABEL

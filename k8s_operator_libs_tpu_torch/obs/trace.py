@@ -23,6 +23,7 @@ import os
 import threading
 from typing import Any, Dict, List, Optional
 
+from ..utils import threads
 from ..utils.clock import Clock, RealClock
 
 # a JSONL sink rotates once its live file crosses this cap: one rename to
@@ -55,7 +56,7 @@ class ListSink(Sink):
 
     def __init__(self):
         self.records: List[Dict[str, Any]] = []
-        self._lock = threading.Lock()
+        self._lock = threads.make_lock("trace-list-sink")
 
     def emit(self, record: Dict[str, Any]) -> None:
         with self._lock:
@@ -70,7 +71,7 @@ class JsonlSink(Sink):
     def __init__(self, path: str, max_bytes: int = DEFAULT_MAX_LOG_BYTES):
         self._path = path
         self._max_bytes = int(max_bytes)
-        self._lock = threading.Lock()
+        self._lock = threads.make_lock("trace-jsonl-sink")
         self._fh = open(path, "a", encoding="utf-8")
 
     def emit(self, record: Dict[str, Any]) -> None:

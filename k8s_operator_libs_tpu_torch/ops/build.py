@@ -95,6 +95,9 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            path, _, _ = build_all([name])[name]
+            # one lock across nvcc is the point (LCK004 hatch): a second
+            # thread waits for the library instead of building it into
+            # the same temporary file
+            path, _, _ = build_all([name])[name]  # lint: ignore
             lib = _loaded[name] = ctypes.CDLL(str(path))
         return lib

@@ -28,9 +28,9 @@ class RacyCounter:
         self.value = 0
 
     def incr(self) -> None:
-        v = self.value
+        v = self.value  # lint: ignore — the planted race IS the fixture
         self._clock.now()        # preemption point mid read-modify-write
-        self.value = v + 1  # the planted race
+        self.value = v + 1  # lint: ignore — the planted race IS the fixture
 
     def incr_safe(self) -> None:
         with self._lock:
@@ -77,7 +77,7 @@ class SilentlySharedFlag:
 
     def poll(self) -> bool:
         self._clock.now()
-        return self.draining        # lock-free read
+        return self.draining  # lint: ignore — the planted race IS the fixture
 
 
 def shared_flag_harness(sched):

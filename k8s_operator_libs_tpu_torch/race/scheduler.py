@@ -161,7 +161,7 @@ class CoopLock:
         return self.holder is not None
 
     def __enter__(self) -> "CoopLock":
-        self.acquire()
+        self.acquire()  # lint: ignore — context-manager protocol; __exit__ releases
         return self
 
     def __exit__(self, *exc) -> bool:
@@ -334,7 +334,7 @@ class CoopScheduler:
 
     def _task_main(self, task: _Task) -> None:
         self._ident[threading.get_ident()] = task
-        task.baton.acquire()
+        task.baton.acquire()  # lint: ignore — baton semaphore, released by the driver
         try:
             if not self.aborting:
                 task.target(*task.args, **task.kwargs)
@@ -363,7 +363,7 @@ class CoopScheduler:
         task.state = RUNNABLE
         task.wait_reason = label
         self._control.release()
-        task.baton.acquire()
+        task.baton.acquire()  # lint: ignore — baton handoff, not a lock
         if self.aborting:
             raise _Aborted()
 
@@ -383,7 +383,7 @@ class CoopScheduler:
         task.wake_at = deadline
         task.timed_out = False
         self._control.release()
-        task.baton.acquire()
+        task.baton.acquire()  # lint: ignore — baton handoff, not a lock
         if self.aborting:
             raise _Aborted()
         timed_out = task.timed_out
@@ -506,7 +506,7 @@ class CoopScheduler:
             chosen.state = RUNNING
             self.current = chosen
             chosen.baton.release()
-            self._control.acquire()
+            self._control.acquire()  # lint: ignore — driver waits for the task to yield
             self.current = None
 
         self._teardown()

@@ -235,12 +235,6 @@ class ServingRuntime:
         return (render_gauges({"serve": gauges}, prefix="tpu_workload")
                 + self.hub.render(prefix="tpu_workload"))
 
-    def _held(self):
-        """True while the drain barrier holds streamed requests."""
-        return (self.draining and bool(self.streams)
-                and self._drain_hold_until is not None
-                and self._clock.now() < self._drain_hold_until)
-
     def _step_locked(self):
         """One batcher step, then the SSE buffers and completions."""
         self.srv.step(self.chunk)
@@ -266,7 +260,13 @@ class ServingRuntime:
         while not self._stop.is_set():
             try:
                 with self.lock:
-                    busy = not self.srv.idle and not self._held()
+                    # drain barrier: streamed in-flight requests freeze at
+                    # a step boundary until the router exports them (or
+                    # the bounded deadline passes)
+                    held = (self.draining and bool(self.streams)
+                            and self._drain_hold_until is not None
+                            and self._clock.now() < self._drain_hold_until)
+                    busy = not self.srv.idle and not held
                     if busy:
                         self._step_locked()
             except Exception:  # a dead stepper must fail the server, not hang its waiters

@@ -380,7 +380,7 @@ class CheckpointingTrainer:
 
     def _write(self, step: int, snapshot: dict, ready, t0: float) -> None:
         if ready is not None:
-            ready.synchronize()
+            self._sync(ready)
         t1 = time.monotonic()
         final = self.dir / str(step)
         tmp = self.dir / f".tmp-{step}-{os.getpid()}"
@@ -424,9 +424,13 @@ class CheckpointingTrainer:
         dist.broadcast_object_list(box, src=0, group=self._ctl)
         return drain, box[0]
 
-    def _sync(self) -> None:
-        """The one place the loop waits for the device."""
-        if self.device.type == "cuda":
+    def _sync(self, event=None) -> None:
+        """The one place the trainer waits for the device: the loop for
+        all of its work, the checkpoint writer for the recorded ``event``
+        its snapshot's copies must pass."""
+        if event is not None:
+            event.synchronize()
+        elif self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     def _save_phase(self, phase: str, state: TrainState,

@@ -104,7 +104,7 @@ class _NamedLock:
         self._raw = raw
 
     def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
-        ok = self._raw.acquire(blocking, timeout)
+        ok = self._raw.acquire(blocking, timeout)  # lint: ignore — the wrapper IS the lock; callers own release discipline
         if ok:
             _push_held(self)
         return ok
@@ -117,7 +117,7 @@ class _NamedLock:
         return self._raw.locked()
 
     def __enter__(self) -> "_NamedLock":
-        self.acquire()
+        self.acquire()  # lint: ignore — context-manager protocol; __exit__ releases
         return self
 
     def __exit__(self, *exc) -> bool:
