@@ -4163,8 +4163,8 @@ def trainer_under_operator(torch, cfg, device, work, product, smi="",
     from k8s_operator_libs_tpu_torch.obs.usage import UsageMeter
     from k8s_operator_libs_tpu_torch.ops import attention as fa
     from k8s_operator_libs_tpu_torch.parallel import fsdp
-    from k8s_operator_libs_tpu_torch.parallel.mesh import (local_mesh,
-                                                           param_specs)
+    from k8s_operator_libs_tpu_torch.utils.mesh import (local_mesh,
+                                                        param_specs)
     from k8s_operator_libs_tpu_torch.train.harness import (
         CheckpointingTrainer)
     from k8s_operator_libs_tpu_torch.upgrade import KeyFactory, UpgradeState
@@ -4955,11 +4955,11 @@ def _mp_sp(torch, dist, timed_steps):
     from k8s_operator_libs_tpu_torch.models.llama import LlamaConfig
     from k8s_operator_libs_tpu_torch.models.llama import init_params
     from k8s_operator_libs_tpu_torch.ops import attention as fa
-    from k8s_operator_libs_tpu_torch.parallel import (comm, fsdp,
-                                                      ring_attention)
+    from k8s_operator_libs_tpu_torch.utils import comm
+    from k8s_operator_libs_tpu_torch.parallel import fsdp, ring_attention
     from k8s_operator_libs_tpu_torch.parallel.long_context import (
         make_sp_loss)
-    from k8s_operator_libs_tpu_torch.parallel.mesh import make_mesh
+    from k8s_operator_libs_tpu_torch.utils.mesh import make_mesh
 
     rank, n = dist.get_rank(), dist.get_world_size()
     mesh = make_mesh(seq=n, fsdp=1)
@@ -5036,7 +5036,8 @@ def _timed_steps(torch, step, params, tokens, dist):
     step on this rank and the bytes each collective kind sent per step.
     The caller's parity pass of the same loss at the same shapes was the
     warm-up."""
-    from k8s_operator_libs_tpu_torch.parallel import comm, fsdp
+    from k8s_operator_libs_tpu_torch.utils import comm
+    from k8s_operator_libs_tpu_torch.parallel import fsdp
     opt = fsdp.default_optimizer()
     p = fsdp._tree_map(lambda t: t.clone(), params)
     state = fsdp.TrainState(params=p, opt_state=opt.init(p), step=0)
@@ -5066,9 +5067,10 @@ def _mp_fsdp(torch, dist, timed_steps):
                                                           init_params,
                                                           param_leaves)
     from k8s_operator_libs_tpu_torch.ops import attention as fa
-    from k8s_operator_libs_tpu_torch.parallel import comm, fsdp
-    from k8s_operator_libs_tpu_torch.parallel.mesh import (make_mesh,
-                                                           param_specs)
+    from k8s_operator_libs_tpu_torch.utils import comm
+    from k8s_operator_libs_tpu_torch.parallel import fsdp
+    from k8s_operator_libs_tpu_torch.utils.mesh import (make_mesh,
+                                                        param_specs)
 
     rank, n = dist.get_rank(), dist.get_world_size()
     cfg = LlamaConfig.llama3_8b(n_layers=FSDP_LAYERS, max_seq_len=FSDP_T)
@@ -5453,7 +5455,7 @@ def _whole_on_rank0(torch, dist, x, spec, mesh):
     elsewhere): every rank's slice gathered to rank 0 through the host,
     half the bytes of an all-gather."""
     from k8s_operator_libs_tpu_torch.parallel.fsdp import full_shape
-    from k8s_operator_libs_tpu_torch.parallel.mesh import coordinates
+    from k8s_operator_libs_tpu_torch.utils.mesh import coordinates
     split = {}
     for d, entry in enumerate(spec):
         for axis in (entry if isinstance(entry, tuple) else (entry,)):
@@ -5540,7 +5542,8 @@ def _path_step(torch, loss_fn, params, tokens, specs, mesh, ref, tol,
     import torch.distributed as dist
 
     from k8s_operator_libs_tpu_torch.ops import attention as fa
-    from k8s_operator_libs_tpu_torch.parallel import comm, fsdp
+    from k8s_operator_libs_tpu_torch.utils import comm
+    from k8s_operator_libs_tpu_torch.parallel import fsdp
     torch.cuda.synchronize()
     fa.reset_launch_counts()
     comm.reset_counts()
@@ -5567,7 +5570,7 @@ def _mp_pp(torch, dist):
     from k8s_operator_libs_tpu_torch.models.llama import (LlamaConfig,
                                                           init_params)
     from k8s_operator_libs_tpu_torch.parallel import fsdp, pipeline
-    from k8s_operator_libs_tpu_torch.parallel.mesh import make_mesh
+    from k8s_operator_libs_tpu_torch.utils.mesh import make_mesh
     cfg = LlamaConfig.llama3_8b(n_layers=PP_LAYERS, max_seq_len=PP_T)
     tokens = _tokens(torch, cfg, PP_B, PP_T, 13)
     ref = _one_rank_ref(torch, dist,
@@ -5594,7 +5597,7 @@ def _mp_3d(torch, dist):
     from k8s_operator_libs_tpu_torch.models.llama import (LlamaConfig,
                                                           init_params)
     from k8s_operator_libs_tpu_torch.parallel import composed, fsdp
-    from k8s_operator_libs_tpu_torch.parallel.mesh import make_mesh
+    from k8s_operator_libs_tpu_torch.utils.mesh import make_mesh
     cfg = LlamaConfig.llama3_8b(n_layers=TD_LAYERS, max_seq_len=TD_T)
     tokens = _tokens(torch, cfg, TD_B, TD_T, 14)
     whole = {}
@@ -5658,7 +5661,7 @@ def _mp_ep(torch, dist):
 
     from k8s_operator_libs_tpu_torch.models import moe
     from k8s_operator_libs_tpu_torch.parallel import expert, fsdp
-    from k8s_operator_libs_tpu_torch.parallel.mesh import make_mesh
+    from k8s_operator_libs_tpu_torch.utils.mesh import make_mesh
     mesh = make_mesh(tensor=dist.get_world_size(), fsdp=1)
     specs = expert.ep_param_specs()
     out = {}
@@ -5763,10 +5766,11 @@ def phase10_nccl_rank():
     from k8s_operator_libs_tpu_torch.models import moe
     from k8s_operator_libs_tpu_torch.models.llama import (LlamaConfig,
                                                           init_params)
-    from k8s_operator_libs_tpu_torch.parallel import (comm, composed, expert,
-                                                      fsdp, pipeline)
-    from k8s_operator_libs_tpu_torch.parallel.mesh import (local_mesh,
-                                                           make_mesh)
+    from k8s_operator_libs_tpu_torch.utils import comm
+    from k8s_operator_libs_tpu_torch.parallel import (composed, expert, fsdp,
+                                                      pipeline)
+    from k8s_operator_libs_tpu_torch.utils.mesh import (local_mesh,
+                                                        make_mesh)
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = LlamaConfig.llama3_8b(n_layers=PP_LAYERS, max_seq_len=PP_T)
     mcfg = moe.MoEConfig.llama3_8b(n_layers=EP_LAYERS, max_seq_len=EP_T)
@@ -6157,7 +6161,7 @@ def _el_trainer(ckpt, membership, ledger):
     """An elastic FSDP trainer over the current group (its own ledger
     beside the checkpoints on every rank when ``ledger``)."""
     from k8s_operator_libs_tpu_torch.obs.goodput import GoodputLedger
-    from k8s_operator_libs_tpu_torch.parallel.mesh import make_mesh
+    from k8s_operator_libs_tpu_torch.utils.mesh import make_mesh
     from k8s_operator_libs_tpu_torch.train.harness import (
         CheckpointingTrainer)
     book = GoodputLedger.for_checkpoint_dir(ckpt) if ledger else None
@@ -6334,7 +6338,8 @@ def phase11_nccl_rank(data, work):
     import torch
     import torch.distributed as dist
 
-    from k8s_operator_libs_tpu_torch.parallel import comm, launch
+    from k8s_operator_libs_tpu_torch.utils import comm
+    from k8s_operator_libs_tpu_torch.parallel import launch
     torch.backends.cuda.matmul.allow_tf32 = False
     me = launch.membership()
     trainer, _ = _el_trainer(str(Path(work) / "nccl_resized"), me, False)
@@ -6729,9 +6734,10 @@ def phase12_placed_rank():
     from k8s_operator_libs_tpu_torch.models.llama import (LlamaConfig,
                                                           init_params)
     from k8s_operator_libs_tpu_torch.ops import attention as fa
-    from k8s_operator_libs_tpu_torch.parallel import comm, fsdp, launch
-    from k8s_operator_libs_tpu_torch.parallel.mesh import (make_mesh,
-                                                           param_specs)
+    from k8s_operator_libs_tpu_torch.utils import comm
+    from k8s_operator_libs_tpu_torch.parallel import fsdp, launch
+    from k8s_operator_libs_tpu_torch.utils.mesh import (make_mesh,
+                                                        param_specs)
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = LlamaConfig.llama3_8b(n_layers=PL_LAYERS, max_seq_len=PL_T)
     tokens = _tokens(torch, cfg, PL_B, PL_T, 13)
@@ -6774,7 +6780,7 @@ def _tp_decode_params(torch, cfg, mesh):
     from k8s_operator_libs_tpu_torch.models.generate import (
         tp_generate_param_specs)
     from k8s_operator_libs_tpu_torch.models.llama import init_params
-    from k8s_operator_libs_tpu_torch.parallel.mesh import shard
+    from k8s_operator_libs_tpu_torch.utils.mesh import shard
     whole = init_params(cfg, seed=0, device="cuda")
     specs = tp_generate_param_specs()
     out = {}
@@ -6796,7 +6802,7 @@ def _two_point_decode(torch, dist, make, params, prompt):
     one of TPD_SHORT, over the MAX_NEW - TPD_SHORT steps between (prefill
     and set-up cancel). The caller has decoded ``prompt`` once already:
     that is the warm-up."""
-    from k8s_operator_libs_tpu_torch.parallel import comm
+    from k8s_operator_libs_tpu_torch.utils import comm
     out = {}
     for n in (TPD_SHORT, MAX_NEW):
         gen = make(n)
@@ -6824,7 +6830,7 @@ def phase12_tp_rank(prompts):
     from k8s_operator_libs_tpu_torch.models.generate import make_tp_generate
     from k8s_operator_libs_tpu_torch.models.llama import (LlamaConfig,
                                                           param_leaves)
-    from k8s_operator_libs_tpu_torch.parallel.mesh import make_mesh
+    from k8s_operator_libs_tpu_torch.utils.mesh import make_mesh
     torch.backends.cuda.matmul.allow_tf32 = False
     mesh = make_mesh(tensor=dist.get_world_size(), fsdp=1)
     out = {"rank": dist.get_rank()}
@@ -6966,7 +6972,7 @@ def phase_tp_decode(torch):
                                                           init_params,
                                                           param_leaves)
     from k8s_operator_libs_tpu_torch.parallel import launch
-    from k8s_operator_libs_tpu_torch.parallel.mesh import local_mesh
+    from k8s_operator_libs_tpu_torch.utils.mesh import local_mesh
 
     work = Path(__file__).resolve().parent / "build" / "chip_smoke_tp"
     shutil.rmtree(work, ignore_errors=True)

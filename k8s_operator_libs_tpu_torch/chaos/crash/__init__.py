@@ -26,6 +26,7 @@ still fails under the same crash plan.
 
 ``python -m k8s_operator_libs_tpu_torch.chaos.crash`` runs the full
 sweep, ``--smoke`` a budgeted subset. The port's twin of the JAX
-package's ``tools/crash/`` (its lint pass is not ported); it imports
-nothing of that package.
+package's ``tools/crash/``; the port's CRS001 (``lint/crash_check.py``)
+keeps :mod:`.registry` closed over ``wire.py``. It imports nothing of
+that package.
 """

@@ -9,9 +9,10 @@ imports ml_dtypes; going back, a ``bfloat16`` numpy dtype is used where the
 process has one registered, else the ``uint16`` bits are returned.
 
 The same element conversions serve the KV wire format (``models/paged.py``),
-whose dtype strings are numpy's names. ``train_state_to_torch`` carries a
-reference training state, optax's AdamW moments included, into the
-port's ``TrainState``.
+whose dtype strings are numpy's names. ``parallel/fsdp.py:
+train_state_to_torch`` carries a reference training state, optax's AdamW
+moments included (found by :func:`_adam_state`), into the port's
+``TrainState``.
 """
 
 from __future__ import annotations
@@ -119,20 +120,3 @@ def _adam_state(tree: Any):
             if found is not None:
                 return found
     return None
-
-
-def train_state_to_torch(state: Any, device: DeviceLike = "cuda"):
-    """A reference ``TrainState`` with numpy leaves (``jax.device_get``
-    of one trained by ``default_optimizer``) -> the port's ``TrainState``:
-    the parameters, the AdamW moments and count, and the step."""
-    from .parallel.fsdp import AdamWState, TrainState
-    adam = _adam_state(state.opt_state)
-    if adam is None:
-        raise ValueError("no ScaleByAdamState(count, mu, nu) in opt_state")
-    dev = resolve_device(device)
-    return TrainState(
-        params=to_torch(state.params, dev),
-        opt_state=AdamWState(count=int(np.asarray(adam.count)),
-                             mu=to_torch(adam.mu, dev),
-                             nu=to_torch(adam.nu, dev)),
-        step=int(np.asarray(state.step)))

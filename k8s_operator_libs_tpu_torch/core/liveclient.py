@@ -75,7 +75,7 @@ class KubeConfig:
         # apiserver. 60 s slack covers the request's flight time.
         import time as _time
         return (self.token_expiry is not None
-                and _time.time() >= self.token_expiry - 60.0)
+                and _time.time() >= self.token_expiry - 60.0)  # det: allow — real OAuth token expiry
 
     @classmethod
     def from_kubeconfig(cls, path: Optional[str] = None,
@@ -535,7 +535,7 @@ class LiveClient(Client):
         LiveEventRecorder: a time_ns suffix never collides across recorder
         restarts (the --once Job case)."""
         import time as _time
-        uid = f"{_time.time_ns():x}"
+        uid = f"{_time.time_ns():x}"  # det: allow — cross-restart unique Event name
         name = (f"{event.object_name or 'obj'}."
                 f"{(event.reason or 'event').lower()}.{uid}")
         body = {
@@ -618,7 +618,7 @@ class LiveEventRecorder(EventRecorder):
         # unique across drain threads AND process restarts (client-go's
         # recorder uses a timestamp suffix for the same reason): a reused
         # name would 409 against Events persisted from a prior --once run
-        uid = f"{_time.time_ns():x}.{next(self._seq)}"
+        uid = f"{_time.time_ns():x}.{next(self._seq)}"  # det: allow — cross-restart unique Event name
         body = {
             "apiVersion": "v1", "kind": "Event",
             "metadata": {"name": f"{name}.{reason.lower()}.{uid}",

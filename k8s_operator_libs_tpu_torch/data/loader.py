@@ -6,7 +6,7 @@ Port of the JAX package's ``data/loader.py``. The native gather
 file and copies [batch, seq] int32 windows in one C loop, with no
 per-sequence Python slicing and the interpreter lock released; it is
 built with ``g++ -O3 -shared -fPIC`` at first use into the port's build
-directory (``ops/build.py:BUILD_DIR``, the file named by a hash of the
+directory (``utils/paths.py:BUILD_DIR``, the file named by a hash of the
 source) and loaded with ``ctypes``. The numpy path gives the same
 batches. The file format and the sampling are the reference's, so the
 same file, seed, step and shard give the same batch as the JAX
@@ -26,8 +26,8 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from ..ops.build import BUILD_DIR, CSRC_DIR
 from ..utils import threads
+from ..utils.paths import BUILD_DIR, CSRC_DIR
 
 logger = logging.getLogger(__name__)
 
@@ -238,8 +238,9 @@ class TokenDataset:
                 shard: Optional[Tuple[int, int]] = None
                 ) -> Iterator[np.ndarray]:
         """Endless batches ``sample_at(..., start_step + i, shard)``,
-        produced PREFETCH ahead by a thread. A producer's exception is
-        raised to the consumer; closing the dataset ends the stream."""
+        produced PREFETCH ahead by a thread. A producer's exception (any
+        ``BaseException``) is raised to the consumer as the cause of its
+        RuntimeError; closing the dataset ends the stream."""
         q: "queue.Queue" = queue.Queue(maxsize=PREFETCH)
         stop = threads.make_event("tokenloader-prefetch-stop")
 
@@ -257,7 +258,7 @@ class TokenDataset:
             while not stop.is_set():
                 try:
                     item = self.sample_at(batch, seqlen, seed, step, shard)
-                except Exception as exc:  # handed to the consumer below
+                except BaseException as exc:  # exc: allow — forwarded to the consumer queue, then exit; dying silently would hang every reader
                     put(_ProducerDied(exc))
                     return
                 step += 1

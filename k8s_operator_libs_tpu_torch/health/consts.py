@@ -58,7 +58,7 @@ class HealthVerdict:
 
 
 # The key constants themselves live in the wire-key registry
-# (k8s_operator_libs_tpu/wire.py) — WIRE001 keeps the repo closed over
+# (k8s_operator_libs_tpu_torch/wire.py) — WIRE001 keeps the port closed over
 # it, so no `.dev/` key may be spelled (or constructed) here. Re-exported
 # for the health package's historical import surface; see wire.py for
 # each key's semantics:

@@ -1,5 +1,5 @@
 """lint: the port's static-analysis suite, stdlib-only (the twin of the
-JAX package's ``tools/lint``, first half).
+JAX package's ``tools/lint``).
 
 A check-registry plugin architecture (see :mod:`.registry`) over a shared
 :class:`~.index.ProjectIndex`: the driver parses every file exactly once,
@@ -14,14 +14,33 @@ Passes:
 - :mod:`.lock_discipline` — LCK001–LCK003 threading lock invariants
 - :mod:`.lock_order`      — LCK004 cross-function lock-order cycles and
                             blocking calls reached while a lock is held
+- :mod:`.determinism`     — DET001/DET002 injected-clock and seeded-RNG
+                            discipline (chaos seed replay depends on it)
+- :mod:`.state_machine`   — STM001 upgrade-state-machine exhaustiveness
+- :mod:`.obs_check`       — OBS001–OBS005 journey/attribution/SLO/
+                            timeline/usage closure
+- :mod:`.chaos_check`     — CHS001 chaos fault-catalog closure
+- :mod:`.crash_check`     — CRS001 crash-explorer durable-write-site
+                            closure over the wire keys it stamps
+- :mod:`.exc_contracts`   — EXC001 exception-contract closure over the
+                            reconcile spine (interprocedural may-raise,
+                            on the :mod:`.dataflow` engine)
+- :mod:`.exc_swallow`     — EXC002 broad-except swallow audit
+- :mod:`.exc_kill`        — EXC003 crash-kill transparency (no handler
+                            may eat the explorer's OperatorKilled)
+- :mod:`.stale_taint`     — STL001 stale-read taint: store reads cross
+                            the freshness barrier before safety writes
+- :mod:`.wire_check`      — WIRE001 wire-key registry closure
 - :mod:`.sync_check`      — SYN001 host-sync hygiene on the decode and
                             training hot paths (torch readbacks)
 - :mod:`.thread_discipline` — THR001 threading-shim closure, GRD001
                             guarded-field discipline
+- :mod:`.layering`        — ARC001 import layering + cycle rejection
 
 The JAX package's JAX001–JAX004 pass has no twin: the port traces no
-code. The determinism, exception, dataflow and closure passes are not
-ported yet.
+code. DET, EXC002 and ARC001 scope themselves by
+:data:`.index.BINARY_TWINS`, the port's modules whose reference twins
+are binaries or tools.
 
 Usage::
 
@@ -31,14 +50,16 @@ Usage::
     python -m k8s_operator_libs_tpu_torch.lint --format github   # CI annotations
     python -m k8s_operator_libs_tpu_torch.lint --format json     # machine-readable
     python -m k8s_operator_libs_tpu_torch.lint --codes           # every code
+    python -m k8s_operator_libs_tpu_torch.lint --explain EXC001  # its docs section
 
 Exit 1 on any non-baselined finding. Suppress a single finding by
 appending ``# lint: ignore`` (or ``# noqa``) to its line; park whole
 known-debt classes in ``lint/baseline.txt`` beside this file
 (``--no-baseline`` shows everything, ``--write-baseline`` regenerates the
-file from the current findings). Project-scope passes (SYN/LCK004) run
-against the repo root whenever domain checks are enabled and no explicit
-path arguments narrow the run.
+file from the current findings). Project-scope passes (STM/OBS/CHS/CRS/
+WIRE/EXC001/EXC003/STL/SYN/LCK004/ARC) run against the repo root whenever
+domain checks are enabled and no explicit path arguments narrow the run.
+docs/static-analysis-torch.md documents every code.
 """
 
 from __future__ import annotations
@@ -46,6 +67,7 @@ from __future__ import annotations
 import ast
 import json as _json
 import os
+import re
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -53,10 +75,12 @@ from typing import List, Optional, Tuple
 
 from .registry import REGISTRY, Check, FileContext, all_codes, register
 from .index import ProjectIndex, as_index
-from . import (core, lock_discipline, lock_order, sync_check,  # noqa: F401  (registration imports)
-               thread_discipline)
+from . import (core, lock_discipline, lock_order, determinism,  # noqa: F401,E501  (registration imports)
+               state_machine, obs_check, chaos_check, crash_check,
+               exc_contracts, exc_swallow, exc_kill, stale_taint,
+               wire_check, sync_check, thread_discipline, layering)
 
-__all__ = ["lint_file", "lint_project", "run_suite", "main",
+__all__ = ["lint_file", "lint_project", "run_suite", "explain", "main",
            "REGISTRY", "Check", "register", "all_codes",
            "ProjectIndex", "as_index"]
 
@@ -242,6 +266,71 @@ def emit(findings: List[Finding], fmt: str) -> None:
             print(f"{p}:{ln}: {c} {m}")
 
 
+# ----------------------------------------------------------------- explain
+
+DOCS_PATH = REPO_ROOT / "docs" / "static-analysis-torch.md"
+
+_RANGE_RE = re.compile(r"([A-Z]+)(\d+)\s*[–/-]\s*(?:([A-Z]+))?(\d+)")
+
+
+def _heading_covers(heading: str, code: str) -> bool:
+    """Does a ``### CODES · title`` heading cover ``code``? Handles the
+    catalog's spellings: ``EXC001``, ``DET001/DET002``,
+    ``JAX001–JAX004`` (range), ``THR001/GRD001``."""
+    spec = heading.partition("·")[0]
+    if code in spec.replace("–", "/").replace("-", "/").split("/") \
+            or f" {code} " in f" {spec.strip()} ":
+        return True
+    m = re.match(r"([A-Z]+)(\d+)", code)
+    if not m:
+        return False
+    prefix, num = m.group(1), int(m.group(2))
+    for rm in _RANGE_RE.finditer(spec):
+        lo_p, lo_n, hi_p, hi_n = (rm.group(1), int(rm.group(2)),
+                                  rm.group(3) or rm.group(1),
+                                  int(rm.group(4)))
+        if prefix == lo_p == hi_p and lo_n <= num <= hi_n:
+            return True
+    return False
+
+
+def explain(code: str, docs_path: Path = DOCS_PATH) -> Optional[str]:
+    """The docs/static-analysis-torch.md section for ``code`` — catalog
+    entry, clean idiom, escape hatch — so a CI annotation links somewhere
+    actionable. Resolution order: a ``###`` section whose heading covers
+    the code (ranges and slash-lists included), a ``**CODE**`` bold
+    entry inside another code's section (the OBS002 convention), or the
+    generic-codes table row. None when the code is undocumented (the
+    docs-coverage unit test fails on that)."""
+    if not docs_path.is_file():
+        return None
+    lines = docs_path.read_text().splitlines()
+    # pass 1: a ### section of its own
+    for i, line in enumerate(lines):
+        if line.startswith("### ") and _heading_covers(line[4:], code):
+            return _section_at(lines, i)
+    # pass 2: documented inside another section as **CODE**
+    for i, line in enumerate(lines):
+        if f"**{code}**" in line:
+            for j in range(i, -1, -1):
+                if lines[j].startswith("### "):
+                    return _section_at(lines, j)
+    # pass 3: a generic-table row
+    for line in lines:
+        if line.startswith(f"| {code} "):
+            return f"{code} (generic pass — `--generic`)\n{line}"
+    return None
+
+
+def _section_at(lines: List[str], start: int) -> str:
+    out = [lines[start]]
+    for line in lines[start + 1:]:
+        if line.startswith("### ") or line.startswith("## "):
+            break
+        out.append(line)
+    return "\n".join(out).rstrip() + "\n"
+
+
 # -------------------------------------------------------------------- main
 
 def main(argv: List[str]) -> int:
@@ -261,6 +350,20 @@ def main(argv: List[str]) -> int:
         elif a == "--codes":
             for code, desc in sorted(all_codes().items()):
                 print(f"{code}  {desc}")
+            return 0
+        elif a == "--explain" or a.startswith("--explain="):
+            code = (a.split("=", 1)[1] if "=" in a
+                    else next(it, "")).strip().upper()
+            if not code:
+                print("usage: --explain CODE", file=sys.stderr)
+                return 2
+            section = explain(code)
+            if section is None:
+                print(f"no docs/static-analysis-torch.md entry for {code!r} "
+                      f"(--codes lists every registered code)",
+                      file=sys.stderr)
+                return 2
+            print(section)
             return 0
         elif a == "--format":
             fmt = next(it, "text")

@@ -20,7 +20,14 @@ What the index carries (everything lazy, cached, thread-safe):
   (consumed by LCK004);
 - **approximate call graph** — :meth:`resolve_call` maps a dotted call
   site to a function-table key through ``self.``/same-module/import
-  resolution (name-based, one level — precision over recall).
+  resolution (name-based, one level — precision over recall);
+- **wire-literal inventory** — every non-docstring string literal
+  containing ``.dev/`` (consumed by WIRE001).
+
+:data:`BINARY_TWINS` names the port's modules whose reference twins are
+binaries or tools (``cmd/``, ``tools/``) rather than library modules:
+DET001/DET002, EXC002 and ARC001 read it to scope themselves as the
+reference's passes are scoped by where those twins live.
 
 Passes accept either a repo root ``Path`` or a ready ``ProjectIndex``;
 :func:`as_index` normalizes, so the fixture tests that build scratch
@@ -32,13 +39,47 @@ from __future__ import annotations
 import ast
 import dataclasses
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Set, Tuple
 
 from ..utils import threads
 from .astutil import dotted, is_lock_name
 from .registry import FileContext
 
 FunctionKey = Tuple[str, str]          # (relative path, qualname)
+
+#: package-relative module (a directory ends in "/") -> the reference
+#: file it twins. Each lives outside the reference's package, under
+#: ``cmd/`` (an entry point) or ``tools/`` (developer tooling).
+BINARY_TWINS: Dict[str, str] = {
+    "operator.py": "cmd/operator.py",
+    "router.py": "cmd/router.py",
+    "server.py": "cmd/serve.py",
+    "status.py": "cmd/status.py",
+    "apply_crds.py": "cmd/apply_crds.py",
+    "train/__main__.py": "cmd/train.py",
+    "train/cli.py": "cmd/train.py",
+    "chaos/__main__.py": "tools/chaos_campaign.py",
+    "chaos/crash/": "tools/crash/",
+    "race/": "tools/race/",
+    "health/sim.py": "tools/health_sim.py",
+    "cov.py": "tools/cov.py",
+    "gen_state_diagram.py": "tools/gen_state_diagram.py",
+    "lint/": "tools/lint/",
+}
+
+
+def binary_twin(path: str, package: str) -> Optional[str]:
+    """The reference file ``path`` twins when it is one of
+    :data:`BINARY_TWINS` under ``package`` (any spelling whose parts
+    contain the package directory), else None."""
+    parts = Path(path).parts
+    if package not in parts:
+        return None
+    inner = "/".join(parts[len(parts) - parts[::-1].index(package):])
+    for twin, ref in BINARY_TWINS.items():
+        if inner == twin or (twin.endswith("/") and inner.startswith(twin)):
+            return ref
+    return None
 
 
 @dataclasses.dataclass
@@ -78,6 +119,13 @@ class ImportMap:
     names: Dict[str, Tuple[str, str]]  # name -> (dotted module, orig name)
 
 
+@dataclasses.dataclass
+class WireLiteral:
+    lineno: int
+    value: str
+    fstring: bool                      # constructed via f"{DOMAIN}/..." ?
+
+
 class ProjectIndex:
     """One parse per file; derived tables built lazily under a lock."""
 
@@ -89,6 +137,7 @@ class ProjectIndex:
         self._files_under: Dict[str, List[str]] = {}
         self._functions: Optional[Dict[FunctionKey, FunctionRecord]] = None
         self._import_maps: Dict[str, ImportMap] = {}
+        self._wire: Dict[str, List[WireLiteral]] = {}
         self._module_rel: Optional[Dict[str, str]] = None
         if files is not None:
             for f in files:
@@ -336,6 +385,44 @@ class ProjectIndex:
                 if target and (target, parts[1]) in self.functions():
                     return (target, parts[1])
         return None
+
+    # -------------------------------------------------- wire-literal layer
+
+    WIRE_MARKER = ".dev/"
+
+    def wire_literals(self, rel: str) -> List[WireLiteral]:
+        with self._lock:
+            if rel not in self._wire:
+                self._wire[rel] = self._scan_wire(rel)
+            return self._wire[rel]
+
+    def _scan_wire(self, rel: str) -> List[WireLiteral]:
+        tree = self.tree(rel)
+        docstrings: Set[int] = set()
+        for node in ast.walk(tree):
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                 ast.AsyncFunctionDef)):
+                body = getattr(node, "body", [])
+                if body and isinstance(body[0], ast.Expr) \
+                        and isinstance(body[0].value, ast.Constant) \
+                        and isinstance(body[0].value.value, str):
+                    docstrings.add(id(body[0].value))
+        out: List[WireLiteral] = []
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Constant) and isinstance(node.value, str):
+                if id(node) in docstrings:
+                    continue
+                if self.WIRE_MARKER in node.value:
+                    out.append(WireLiteral(node.lineno, node.value, False))
+            elif isinstance(node, ast.JoinedStr):
+                for v in node.values:
+                    if isinstance(v, ast.FormattedValue):
+                        parts = dotted(v.value)
+                        if parts and parts[-1] == "DOMAIN":
+                            out.append(WireLiteral(node.lineno,
+                                                   "{DOMAIN}/…", True))
+                            break
+        return out
 
 
 def as_index(root_or_index) -> ProjectIndex:

@@ -17,9 +17,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from ..parallel import comm
-from ..parallel.mesh import Mesh
+from ..utils import comm
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.mesh import Mesh
 from .llama import LlamaConfig, identity, rms_norm, rope, swiglu
 from .llama import matmul as _plain_matmul
 
@@ -208,7 +208,7 @@ def generate(params: Params, prompt: torch.Tensor, cfg: LlamaConfig,
 
 
 def tp_generate_param_specs() -> Params:
-    """The specs of tensor-parallel decode (``parallel/mesh.py``'s
+    """The specs of tensor-parallel decode (``utils/mesh.py``'s
     PartitionSpec tuples): Megatron column-split wq/wk/wv/w_gate/w_up,
     row-split wo/w_down; embed, the norms and lm_head replicated (every
     rank samples from the whole logits)."""
@@ -225,7 +225,7 @@ def make_tp_generate(cfg: LlamaConfig, mesh: Mesh, max_new_tokens: int = 32,
     """Tensor-parallel ``generate(params, prompt, generator=None) ->
     tokens`` on every rank of ``mesh``'s ``tensor`` axis. ``params`` are
     the rank's slices by :func:`tp_generate_param_specs`
-    (``parallel/mesh.py:shard`` of each whole leaf): its H/tp heads and
+    (``utils/mesh.py:shard`` of each whole leaf): its H/tp heads and
     d_ff/tp FFN columns, and a KV cache of KV/tp heads, so each rank
     streams 1/tp of the blocks' weights and of the cache per step. Two
     sums per block over the tensor group (``comm.psum``) give every rank

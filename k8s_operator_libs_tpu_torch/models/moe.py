@@ -46,7 +46,7 @@ from typing import Callable, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..parallel import comm
+from ..utils import comm
 from ..utils.device import DeviceLike, resolve_device
 from .generate import _forward_cached, init_cache, scan_decode
 from .llama import (LlamaConfig, Params, _default_attn, _init_dense, _qkv,

@@ -34,7 +34,7 @@ This module deliberately does NOT import the upgrade package (obs sits
 below it in the layering DAG), so :data:`DEFAULT_STUCK_THRESHOLDS` is keyed
 by the state **wire values**. The table is closed over ``UpgradeState``:
 ``tests/test_torch_fakecluster.py`` holds it equal to the JAX package's,
-which that package's OBS001 lint pass keeps closed.
+and the port's OBS001 (``lint/obs_check.py``) keeps it closed.
 
 A copy of the JAX package's ``obs/journey.py``; the port imports nothing
 of that package.

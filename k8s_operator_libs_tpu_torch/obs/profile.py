@@ -47,7 +47,7 @@ DEFAULT_PROFILE_RING = 64
 # thread mid-tick) must not leak its records forever
 DEFAULT_MAX_OPEN_TRACES = 64
 
-# emitted-family tables — OBS003 (tools/lint/obs_check.py) closes these
+# emitted-family tables — OBS003 (lint/obs_check.py) closes these
 # over obs/metrics.py::HELP_TEXTS in both directions, like the SLO/alert/
 # router tables. Keep them literal: the pass reads this file with ast.
 PROFILE_HISTOGRAM_FAMILIES = (

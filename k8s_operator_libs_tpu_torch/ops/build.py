@@ -20,10 +20,7 @@ from pathlib import Path
 from typing import Dict, Sequence, Tuple
 
 from ..utils import threads
-
-PACKAGE_DIR = Path(__file__).resolve().parent.parent
-CSRC_DIR = PACKAGE_DIR / "csrc"
-BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
+from ..utils.paths import BUILD_DIR, CSRC_DIR
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -62,7 +59,7 @@ def build_all(names: Sequence[str]) -> Dict[str, Tuple[Path, float, str]]:
     with 0 seconds and an empty log."""
     done: Dict[str, Tuple[Path, float, str]] = {}
     running = {}
-    t0 = time.monotonic()
+    t0 = time.monotonic()  # det: allow — times a real nvcc build
     for name in names:
         out = library_path(name)
         if out.exists():
@@ -84,7 +81,7 @@ def build_all(names: Sequence[str]) -> Dict[str, Tuple[Path, float, str]]:
                           f"(exit {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, out)      # atomic: a reader never sees half a file
-        done[name] = (out, time.monotonic() - t0, log)
+        done[name] = (out, time.monotonic() - t0, log)  # det: allow — times a real nvcc build
     if failed:
         raise RuntimeError("\n".join(failed))
     return {name: done[name] for name in names}

@@ -46,12 +46,12 @@ import torch
 from ..models.llama import LlamaConfig, _block, _default_attn, rms_norm
 from ..models.moe import init_params as moe_init
 from ..models.moe import moe_block
+from ..utils import comm
 from ..utils.device import DeviceLike
-from . import comm
+from ..utils.mesh import Mesh
 from .fsdp import (ClippedAdamW, TrainState, init_train_state,
                    make_train_step_from_loss, replicated,
                    sharded_global_norm)
-from .mesh import Mesh
 from .pipeline import (gpipe_schedule, head_input, stage_layers,
                        vocab_parallel_embed, vocab_parallel_nll)
 

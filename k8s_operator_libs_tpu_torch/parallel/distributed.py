@@ -220,14 +220,14 @@ def leave_process_group(timeout: float = 60.0) -> None:
     store.add(LEFT_KEY, 1)
     if rank != 0:
         return
-    deadline = time.monotonic() + timeout
+    deadline = time.monotonic() + timeout  # det: allow — a real rendezvous over the process group's store
     while store.add(LEFT_KEY, 0) < world:
-        if time.monotonic() > deadline:
+        if time.monotonic() > deadline:  # det: allow — a real rendezvous over the process group's store
             logger.warning("%d of %d ranks checked out of the process "
                            "group in %.0f s; leaving anyway",
                            store.add(LEFT_KEY, 0), world, timeout)
             return
-        time.sleep(0.01)
+        time.sleep(0.01)  # det: allow — polls real ranks checking out of the store
 
 
 def default_backend(device: str = "cuda", environ=None) -> str:

@@ -31,12 +31,12 @@ import torch
 
 from ..models.moe import MoEConfig, forward, moe_ffn_a2a
 from ..models.moe import init_params as moe_init
+from ..utils import comm
 from ..utils.device import DeviceLike
-from . import comm
+from ..utils.mesh import Mesh
 from .fsdp import (ClippedAdamW, TrainState, init_train_state,
                    make_train_step_from_loss, replicated,
                    sharded_global_norm)
-from .mesh import Mesh
 
 AXIS = "tensor"
 

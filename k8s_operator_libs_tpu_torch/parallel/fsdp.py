@@ -38,15 +38,18 @@ new arrays), which saves a copy of each.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
+from ..convert import _adam_state, to_torch
 from ..models.llama import (LlamaConfig, Params, forward, init_params,
                             param_leaves)
-from ..utils.device import DeviceLike
-from . import comm
-from .mesh import Mesh, local_mesh, param_specs, shard, shard_dim, spec_axes
+from ..utils import comm
+from ..utils.device import DeviceLike, resolve_device
+from ..utils.mesh import (Mesh, local_mesh, param_specs, shard, shard_dim,
+                          spec_axes)
 
 
 @dataclasses.dataclass
@@ -66,6 +69,22 @@ class TrainState:
     params: Params
     opt_state: AdamWState
     step: int
+
+
+def train_state_to_torch(state: Any, device: DeviceLike = "cuda"):
+    """A reference ``TrainState`` with numpy leaves (``jax.device_get``
+    of one trained by ``default_optimizer``) -> the port's ``TrainState``:
+    the parameters, the AdamW moments and count, and the step."""
+    adam = _adam_state(state.opt_state)
+    if adam is None:
+        raise ValueError("no ScaleByAdamState(count, mu, nu) in opt_state")
+    dev = resolve_device(device)
+    return TrainState(
+        params=to_torch(state.params, dev),
+        opt_state=AdamWState(count=int(np.asarray(adam.count)),
+                             mu=to_torch(adam.mu, dev),
+                             nu=to_torch(adam.nu, dev)),
+        step=int(np.asarray(state.step)))
 
 
 def _const(x: float, dtype: torch.dtype) -> float:

@@ -111,7 +111,7 @@ def _free_port(span: int = 1) -> int:
     time, so a generation's store at p + g could find its port held;
     below it, only a process that binds that very port can."""
     low = _ephemeral_low()
-    draw = random.SystemRandom()
+    draw = random.SystemRandom()  # det: allow — concurrent jobs must draw different real ports
     for _ in range(256):
         base = draw.randrange(10000, max(10001, low - span))
         if all(_bindable(base + i) for i in range(span)):
@@ -145,7 +145,7 @@ class Job:
         self._results = self._ctx.Queue()
         self._procs: Dict[str, Any] = {}
         self._out: Dict[str, Any] = {}
-        self._deadline = time.monotonic() + timeout
+        self._deadline = time.monotonic() + timeout  # det: allow — a time limit on real rank processes
 
     @staticmethod
     def members(first: int, count: int) -> List[str]:
@@ -181,8 +181,8 @@ class Job:
         peer died fails too: the first to arrive need not be the
         cause)."""
         parts = [f"rank {name} failed:\n{trace}"]
-        deadline = time.monotonic() + wait
-        while time.monotonic() < deadline:
+        deadline = time.monotonic() + wait  # det: allow — waits on real rank processes
+        while time.monotonic() < deadline:  # det: allow — waits on real rank processes
             try:
                 other, ok, value = self._results.get(timeout=0.1)
             except queue_mod.Empty:
@@ -205,7 +205,7 @@ class Job:
         while len(self._out) < len(self._procs):
             if until is not None and until():
                 return dict(self._out)
-            left = self._deadline - time.monotonic()
+            left = self._deadline - time.monotonic()  # det: allow — a time limit on real rank processes
             if left <= 0:
                 missing = sorted(set(self._procs) - set(self._out))
                 raise RankFailed(f"{len(self._procs)} ranks: no result "
@@ -231,7 +231,7 @@ class Job:
                 raise RankFailed(self._failures(name, value))
             self._out[name] = value
         for p in self._procs.values():
-            p.join(max(1.0, self._deadline - time.monotonic()))
+            p.join(max(1.0, self._deadline - time.monotonic()))  # det: allow — a time limit on real rank processes
         return dict(self._out)
 
     def close(self) -> None:

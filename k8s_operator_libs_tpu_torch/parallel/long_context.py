@@ -26,9 +26,9 @@ from typing import Callable, Optional
 import torch
 
 from ..models.llama import LlamaConfig, forward
-from . import comm
+from ..utils import comm
+from ..utils.mesh import Mesh
 from .fsdp import ClippedAdamW, make_train_step_from_loss
-from .mesh import Mesh
 from .ring_attention import ring_attention
 from .ulysses import ulysses_attention
 

@@ -40,11 +40,11 @@ from typing import Callable, Dict, Optional
 import torch
 
 from ..models.llama import LlamaConfig, _block, _default_attn, rms_norm
+from ..utils import comm
 from ..utils.device import DeviceLike
-from . import comm
+from ..utils.mesh import Mesh
 from .fsdp import (ClippedAdamW, TrainState, init_train_state,
                    make_train_step_from_loss, sharded_global_norm)
-from .mesh import Mesh
 
 AXIS = "stage"
 

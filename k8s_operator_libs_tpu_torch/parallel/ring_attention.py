@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.attention import NEG_INF, flash_attention_with_lse
-from . import comm
+from ..utils import comm
 
 
 def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

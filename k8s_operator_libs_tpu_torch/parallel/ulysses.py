@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.attention import flash_attention
-from . import comm
+from ..utils import comm
 
 
 def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -269,7 +269,7 @@ class ServingRuntime:
                     busy = not self.srv.idle and not held
                     if busy:
                         self._step_locked()
-            except Exception:  # a dead stepper must fail the server, not hang its waiters
+            except Exception:  # exc: allow — a dead stepper must flip unhealthy and release every waiter, not hang them
                 logger.exception("stepper crashed; failing the server")
                 with self.lock:
                     self.failed = True

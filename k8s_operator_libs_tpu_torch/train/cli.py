@@ -69,9 +69,9 @@ from ..parallel.expert import (ep_param_specs, init_ep_state,
 from ..parallel.fsdp import (TrainState, default_optimizer, init_train_state,
                              make_train_step_from_loss)
 from ..parallel.long_context import make_sp_train_step
-from ..parallel.mesh import make_mesh
 from ..parallel.pipeline import (init_pp_state, make_pp_train_step,
                                  pp_param_specs)
+from ..utils.mesh import make_mesh
 from .harness import CheckpointingTrainer
 
 MODELS = {"tiny": LlamaConfig.tiny, "small": LlamaConfig.small,

@@ -79,8 +79,8 @@ from ..parallel.fsdp import (AdamWState, ClippedAdamW, TrainState, _tree_map,
                              full_leaf, full_shape, init_train_state,
                              make_train_step)
 from ..parallel.distributed import Membership
-from ..parallel.mesh import Mesh, make_mesh, param_specs, shard
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.mesh import Mesh, make_mesh, param_specs, shard
 
 logger = logging.getLogger(__name__)
 
@@ -183,7 +183,7 @@ class CheckpointingTrainer:
         shrink and a :class:`GrowNotice` into a grow. Over a process
         group, ``membership`` is the generation this rank joined; the
         trainer re-forms the group at each resize, then builds the mesh
-        with ``mesh_factory(members)`` (default :func:`..parallel.mesh.
+        with ``mesh_factory(members)`` (default :func:`..utils.mesh.
         make_mesh`, pure FSDP over the new group). Without one (a single
         controller) every member survives and ``mesh_factory`` alone
         makes the mesh. The default step and init are rebuilt for the new
@@ -232,7 +232,7 @@ class CheckpointingTrainer:
                                           thread_name_prefix="ckpt-writer")
         self._pending: Optional[Future] = None
         self._host = None            # host snapshot buffers, reused
-        # the last finished save's split, host seconds: its device->host
+        # the last finished save's split on the trainer's clock: its device->host
         # snapshot (from the copy's enqueue to its end, device work queued
         # before it included) and its file write
         self.last_fetch_s: Optional[float] = None
@@ -265,6 +265,14 @@ class CheckpointingTrainer:
     def _book(self):
         """The ledger where this rank writes it (rank 0), else None."""
         return self.ledger if self._writer_rank else None
+
+    @property
+    def _now(self) -> Callable[[], float]:
+        """The trainer's monotonic clock: the ledger's injected one, else
+        the process's. The loop's windows and the checkpoint's
+        fetch/write split read the same clock as the ledger's phases."""
+        return (self.ledger.clock.now if self.ledger is not None
+                else time.monotonic)
 
     # ------------------------------------------------------------ lifecycle
 
@@ -360,7 +368,7 @@ class CheckpointingTrainer:
             if dst is not None:
                 dst.copy_(full, non_blocking=True)
 
-        t0 = time.monotonic()
+        t0 = self._now()
         if not self._writer_rank:
             _tree_map(snapshot, tensors, specs)
             return step
@@ -381,7 +389,8 @@ class CheckpointingTrainer:
     def _write(self, step: int, snapshot: dict, ready, t0: float) -> None:
         if ready is not None:
             self._sync(ready)
-        t1 = time.monotonic()
+        now = self._now
+        t1 = now()
         final = self.dir / str(step)
         tmp = self.dir / f".tmp-{step}-{os.getpid()}"
         shutil.rmtree(tmp, ignore_errors=True)
@@ -392,7 +401,7 @@ class CheckpointingTrainer:
         os.replace(tmp, final)
         for old in self._steps()[:-self.keep]:
             shutil.rmtree(self.dir / str(old), ignore_errors=True)
-        self.last_fetch_s, self.last_write_s = t1 - t0, time.monotonic() - t1
+        self.last_fetch_s, self.last_write_s = t1 - t0, now() - t1
 
     def wait(self) -> None:
         """Block until the save in flight is on disk; re-raise its
@@ -485,7 +494,7 @@ class CheckpointingTrainer:
         after the first step (its own ledger segment: compile or
         re-warmup badput) and at the end."""
         clock = self.ledger.clock if self.ledger is not None else None
-        now = clock.now if clock is not None else time.monotonic
+        now = self._now
         t0 = now()
         start_step = int(state.step)
         if self._book is not None:

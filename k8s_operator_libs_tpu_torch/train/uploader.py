@@ -171,7 +171,7 @@ class CheckpointUploader:
                     self._idle.set()
                 else:
                     self._idle.clear()
-            except Exception:  # the mirror thread outlives any I/O failure and retries next poll
+            except Exception:  # exc: allow — the mirror thread must survive any I/O failure and retry next poll
                 logger.exception("checkpoint mirror pass failed; retrying")
                 self._idle.clear()
             self._stop.wait(self.poll_seconds)

@@ -1,7 +1,7 @@
 """The port's process-group plumbing against the JAX package and on its
 own: ``cluster_env`` on the scheduler's env dicts, the mesh's layout of
 ranks against the reference mesh's layout of devices, each differentiable
-collective of ``parallel/comm.py`` (value, gradient and bytes counted) on
+collective of ``utils/comm.py`` (value, gradient and bytes counted) on
 2 and 4 gloo ranks, and the launcher's failure and time limit.
 
 Each group of ranks runs under ``launch.run`` with a time limit
@@ -21,7 +21,7 @@ from k8s_operator_libs_tpu.parallel import distributed as jdist
 from k8s_operator_libs_tpu.parallel import mesh as jmesh
 from k8s_operator_libs_tpu_torch.parallel import distributed as tdist
 from k8s_operator_libs_tpu_torch.parallel import launch
-from k8s_operator_libs_tpu_torch.parallel import mesh as tmesh
+from k8s_operator_libs_tpu_torch.utils import mesh as tmesh
 
 GROUP_TIMEOUT = 120.0
 

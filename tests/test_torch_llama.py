@@ -199,7 +199,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "ops/attention.py", "parallel/fsdp.py", "data/loader.py",
         "train/harness.py", "train/cli.py", "train/__main__.py",
         "models/moe.py", "parallel/expert.py", "obs/goodput.py",
-        "parallel/comm.py", "parallel/mesh.py", "parallel/distributed.py",
+        "utils/comm.py", "utils/mesh.py", "parallel/distributed.py",
         "parallel/launch.py", "parallel/ring_attention.py",
         "parallel/ulysses.py", "parallel/long_context.py",
         "parallel/pipeline.py", "parallel/composed.py",

@@ -251,8 +251,8 @@ def test_train_step_matches_reference(n_steps):
     params = jmoe.init_params(jax.random.PRNGKey(0), jcfg)
     jstate = jfsdp.TrainState(params=params, opt_state=opt.init(params),
                               step=jnp.zeros((), jnp.int32))
-    tstate = convert.train_state_to_torch(jax.device_get(jstate),
-                                          device="cpu")
+    tstate = tfsdp.train_state_to_torch(jax.device_get(jstate),
+                                        device="cpu")
     jstep = jexpert.make_train_step_from_loss(
         jexpert.moe_reference_loss(jcfg), opt)
     tstep = tfsdp.make_train_step_from_loss(

@@ -25,7 +25,7 @@ from k8s_operator_libs_tpu_torch import convert
 from k8s_operator_libs_tpu_torch.models import llama as tllama
 from k8s_operator_libs_tpu_torch.parallel import pipeline as tpipe
 from k8s_operator_libs_tpu_torch.parallel import launch
-from k8s_operator_libs_tpu_torch.parallel.mesh import local_mesh
+from k8s_operator_libs_tpu_torch.utils.mesh import local_mesh
 from test_torch_fsdp_parallel import (_assert_moments_close,
                                       _assert_params_close, _leaves)
 

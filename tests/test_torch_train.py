@@ -110,13 +110,13 @@ def _assert_params_close(got, ref, steps):
 @pytest.mark.parametrize("n_steps", [1, 3])
 def test_train_step_matches_reference(n_steps):
     """From the same carried state (JAX init + optax moments bridged by
-    ``convert.train_state_to_torch``), n clipped-AdamW steps on the same
+    ``tfsdp.train_state_to_torch``), n clipped-AdamW steps on the same
     batches give the same losses, gradient norms, parameters and
     moments."""
     jcfg, tcfg = _configs()
     jstate = jfsdp.init_train_state(jax.random.PRNGKey(0), jcfg)
-    tstate = convert.train_state_to_torch(jax.device_get(jstate),
-                                          device="cpu")
+    tstate = tfsdp.train_state_to_torch(jax.device_get(jstate),
+                                        device="cpu")
     assert tstate.step == 0 and tstate.opt_state.count == 0
     jstep = jfsdp.make_train_step(jcfg, jfsdp.default_optimizer(LR))
     tstep = tfsdp.make_train_step(tcfg, tfsdp.default_optimizer(LR))

@@ -22,13 +22,14 @@ from k8s_operator_libs_tpu_torch import convert
 from k8s_operator_libs_tpu_torch.models import llama as tllama
 from k8s_operator_libs_tpu_torch.models import moe as tmoe
 from k8s_operator_libs_tpu_torch.ops import attention as tattn
-from k8s_operator_libs_tpu_torch.parallel import comm, composed, expert
+from k8s_operator_libs_tpu_torch.utils import comm
+from k8s_operator_libs_tpu_torch.parallel import composed, expert
 from k8s_operator_libs_tpu_torch.parallel import fsdp as tfsdp
 from k8s_operator_libs_tpu_torch.parallel import long_context, pipeline
-from k8s_operator_libs_tpu_torch.parallel.mesh import (AXES, Mesh,
-                                                       coordinates,
-                                                       make_mesh, mesh_shape,
-                                                       shard)
+from k8s_operator_libs_tpu_torch.utils.mesh import (AXES, Mesh,
+                                                    coordinates,
+                                                    make_mesh, mesh_shape,
+                                                    shard)
 from k8s_operator_libs_tpu_torch.parallel.ring_attention import ring_attention
 from k8s_operator_libs_tpu_torch.parallel.ulysses import ulysses_attention
 
@@ -632,7 +633,7 @@ def _elastic_run(trainer, data, batch, seed, steps, reclaim=None,
     from k8s_operator_libs_tpu_torch.parallel.fsdp import _tree_map, full_leaf
     from k8s_operator_libs_tpu_torch.train.harness import (GrowNotice,
                                                            ReclaimNotice)
-    from k8s_operator_libs_tpu_torch.parallel.mesh import param_specs
+    from k8s_operator_libs_tpu_torch.utils.mesh import param_specs
     state = trainer.init_or_resume(0)
     start = int(state.step)
     if plant is not None:
